@@ -4,31 +4,50 @@
     python3 chip_smoke.py
 
 Drives ``disentangled_multimodal_learning_tpu_torch`` (never JAX) through its
-serving entry at the full width of ``config/config_mine_diag2021.yaml``
-(fixdim 2500, B=4, dims 128, 8 heads) with seeded random weights:
+serving entry and its training entry at the full width of
+``config/config_mine_diag2021.yaml`` (fixdim 2500, B=4, dims 128, 8 heads)
+with seeded random weights:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels from ``csrc/`` and holds each against its plain
-   PyTorch version on the card at production shapes:
+2. builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, run
+   together) and holds each forward kernel against its plain PyTorch
+   version on the card at production shapes:
    K1 (table CPB, R=4608, side=50, tn=139, clipped rows included) within
    1e-5 abs, K2 (exact CPB, BH=32, K=144, N=2500, O=1 and O=2) within 1e-4
    abs on a bias of O(1) (FMA contraction and another sum order);
+2b. holds K1-bwd (same shapes) and K2-bwd (O=1 and O=2) against their plain
+   versions in float64 on the card, norm-relative (``K1_BWD_TOL``,
+   ``K2_BWD_TOL``, with the f32 plain version's own error printed beside
+   the kernel's), and checks that two calls give bitwise-equal results;
 3. runs the inference entry at the preset (divisor 1, bf16 streams) over 3
    batches: K1 launches 4x per batch, K2 never, all logits finite;
 4. runs it for 1 batch at ``cpb_table_divisor=0``: K2 launches, K1 never;
+3b. runs the training entry at the preset (1 fold, 12 synthetic bags = 3
+   steps of B=4, dropout and gradient modulation on, then the final
+   evaluation of 4 bags): K1-fwd 4x per step and per eval batch, K1-bwd 4x
+   per step, K2 never, every loss finite; then 1 step at divisor 0: K2-fwd
+   and K2-bwd the same way, K1 never;
 5. compares one f32 batch (bf16 streams off) on the card with the same
    weights on the CPU through the plain versions, within 1e-4 abs on the
    logits (f32 end to end; cuBLAS/cuDNN and the CPU sum in other orders);
-6. times each kernel against its plain version and the eval forward
-   (bags/s) with CUDA events, after warm-up (K1 also with the L2 cache
-   flushed before each call, since its 46 MB output fits the 50 MB L2),
-   and prints a torch.profiler table of the preset forward with the
-   device's idle share.
+5b. compares one ``deterministic_training`` step in f32 on the card with
+   the same step on the CPU: the loss within ``STEP_LOSS_TOL``, every
+   parameter's gradient after modulation within ``GRAD_TOL`` rel-L2;
+6. times each forward kernel against its plain version and the eval
+   forward (bags/s) with CUDA events, after warm-up (K1 also with the L2
+   cache flushed before each call, since its 46 MB output fits the 50 MB
+   L2), and prints a torch.profiler table of the preset forward with the
+   device's idle share;
+6b. times each backward kernel against the plain backward (autograd
+   through the plain forward, its graph kept by ``retain_graph``), the
+   train step (bags/s, median and p80 of 30 steps) at divisor 1 and 0, and
+   profiles one train step (device-busy share).
 
-The main path (the inference entry) runs twice, at the preset's divisor 1
-and at the ``Config`` default divisor 0; each kernel's ``launches`` in the
-kernels line is counted over the run that uses it, with every count set to
-0 just before.  Launches made for comparisons and timings are not counted.
+The main paths (the inference entry and the training entry) each run at
+the preset's divisor 1 and at the ``Config`` default divisor 0, every count
+set to 0 just before a run and read just after.  In the kernels line the
+forward kernels' and the backward kernels' ``launches`` are those of the
+training runs.  Launches made for comparisons and timings are not counted.
 Any failure raises: there is no fallback and no phase is caught.  Exits
 non-zero without a result line when there is no CUDA device.
 """
@@ -44,8 +63,32 @@ import time
 K1_TOL = 1e-5
 K2_TOL = 1e-4
 LOGITS_TOL = 1e-4
-TABLE_SRC = "disentangled_multimodal_learning_tpu_torch/csrc/cpb_table.cu"
-EXACT_SRC = "disentangled_multimodal_learning_tpu_torch/csrc/cpb_exact.cu"
+# backward kernels, norm-relative against float64 plain versions on the
+# card.  K1: the shift cotangents are per-row sums of 2.5 k terms that
+# cancel (measured 2.9e-6 on the H100, the f32 plain version 4.1e-6);
+# dtable sums ~620 terms per entry (measured 2.0e-7).  K2: with random
+# cotangents the 11.5 M-point sums cancel, and a point whose relu input is
+# within f32 rounding of 0 takes the other branch than in float64, so f32
+# itself is 1e-4 to 5e-4 off (measured at O=2: the kernel up to 4.5e-4,
+# the f32 plain version up to 4.0e-4); 1e-3 keeps a margin over both.
+K1_BWD_TOL = {"dtable": 1e-5, "dfracs": 1e-5}
+K2_BWD_TOL = {"dgrid_kv": 1e-3, "dw": 1e-3}
+# one train step on the card against the CPU (f32 both): cuBLAS, cuDNN and
+# the kernels sum in other orders than the CPU.  The task loss (CE) within
+# 1e-5 relative; the total loss adds the attention consistency loss, 1e4 x
+# the variance of near-equal Gram diagonals, whose cancellation amplifies
+# the maps' f32 differences (measured 7.6e-5 relative on the total loss),
+# hence 5e-4.  Gradients: the CPB hidden biases sum cotangents that nearly
+# cancel (the softmax over kv ignores a shift; measured up to 1.3e-3
+# rel-L2, all other leaves below 5e-4), hence 5e-3.  The CPB output biases,
+# whose gradient is 0 in exact arithmetic, are only checked to be below
+# 1e-5 of their weights' gradient.
+TASK_LOSS_TOL = 1e-5
+STEP_LOSS_TOL = 5e-4
+GRAD_TOL = 5e-3
+CSRC = "disentangled_multimodal_learning_tpu_torch/csrc"
+TABLE_SRC = f"{CSRC}/cpb_table.cu"
+EXACT_SRC = f"{CSRC}/cpb_exact.cu"
 PALLAS = "disentangled_multimodal_learning_tpu/ops/pallas/deform_attn.py"
 
 
@@ -54,6 +97,19 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
+
+
+def host_cpu() -> str:
+    """The host's CPU (the CPU side of phases 5 and 5b runs on it): its
+    architecture, core count and the vector ISA torch's CPU kernels use."""
+    import os
+    import platform
+
+    import torch
+
+    return (f"{platform.machine()} {platform.processor() or ''} "
+            f"{os.cpu_count()} cores, torch CPU capability "
+            f"{torch.backends.cpu.get_cpu_capability()}")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -122,6 +178,117 @@ def mlp_weights(o: int, gen, device):
 def reset_counts(cpb) -> None:
     cpb.table_interp.launches = 0
     cpb.cpb_bias_transposed.launches = 0
+    cpb.table_interp_backward.launches = 0
+    cpb.cpb_bias_transposed_backward.launches = 0
+
+
+def counts(cpb) -> dict:
+    return {"k1_fwd": cpb.table_interp.launches,
+            "k1_bwd": cpb.table_interp_backward.launches,
+            "k2_fwd": cpb.cpb_bias_transposed.launches,
+            "k2_bwd": cpb.cpb_bias_transposed_backward.launches}
+
+
+def rel_err(got, want) -> float:
+    """Norm-relative error of ``got`` against the float64 ``want``."""
+    return ((got.double() - want).norm() / want.norm()).item()
+
+
+def check_backward_kernels(cpb, dev, card: str, bh: int = 32,
+                           k: int = 144) -> dict:
+    """Phase 2b: K1-bwd at R=4608, side 50, tn 139 with clipped rows, and
+    K2-bwd at 32x144x2500 with O=1 and O=2, each against its plain version
+    in float64 on the card (the f32 plain version's own error printed
+    beside it), and each called twice to show that it is deterministic.
+    Returns the inputs (for the timings) and the errors."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    side, BH, K = 50, bh, k
+    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    w = mlp_weights(1, gen, dev)
+    table = cpb.cpb_table(*w, side=side, kv_bound=kv_bound)
+    gkv = ((torch.rand(BH, K, 2, generator=gen) * 2 - 1)
+           * kv_bound * 1.25).to(dev)
+    taps, fracs = cpb.table_taps(cpb.table_shifts(gkv, side=side,
+                                                  kv_bound=kv_bound),
+                                 side=side, tn=table.shape[0])
+    clipped = ((fracs < 0) | (fracs > 1)).any(dim=1)
+    R = taps.shape[0]
+    dout = torch.randn(R, side, side, generator=gen).to(dev)
+    k1 = [cpb.table_interp_backward(table, taps, fracs, dout, side)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    want = cpb.table_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), side)
+    plain = cpb.table_interp_backward_reference(table, taps, fracs, dout, side)
+    k1_det = all(torch.equal(a, b) for a, b in zip(*k1))
+    errs = {name: (rel_err(g, ww), rel_err(p, ww))
+            for name, g, p, ww in zip(("dtable", "dfracs"), k1[0], plain,
+                                      want)}
+    k1_abs = max((g.double() - ww).abs().max().item()
+                 for g, ww in zip(k1[0], want))
+    clipped_dfracs = k1[0][1][clipped].abs().max().item()
+    for name, (e, pe) in errs.items():
+        print(f"[K1-bwd] R={R} side={side} tn={table.shape[0]} "
+              f"{name}: rel err vs f64 kernel {e:.3e}, f32 plain {pe:.3e} "
+              f"(tol {K1_BWD_TOL[name]}) | {card}")
+    print(f"[K1-bwd] clipped rows={int(clipped.sum())}, their max |dfracs| "
+          f"{clipped_dfracs:.3e}; deterministic (2 calls bitwise equal): "
+          f"{k1_det}; max_abs_err {k1_abs:.3e}")
+    if (table.shape[0] != 139 or not clipped.any() or not k1_det
+            or not clipped_dfracs > 0
+            or not all(e <= K1_BWD_TOL[n] for n, (e, _) in errs.items())):
+        raise RuntimeError("K1-bwd disagrees with its plain version or is "
+                           "not deterministic")
+
+    grid_q = normalized_grid_flat(side, dev)
+    gkv2 = ((torch.rand(BH, K, 2, generator=gen) * 2 - 1)
+            * kv_bound).to(dev)
+    k2_abs, k2_inputs = 0.0, {}
+    names = ("dgrid_kv", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    for o in (1, 2):
+        wo = w if o == 1 else mlp_weights(2, gen, dev)
+        shape = (BH, K, side * side) if o == 1 else (BH, o, K, side * side)
+        dbias = torch.randn(shape, generator=gen).to(dev)
+        k2 = [cpb.cpb_bias_transposed_backward(grid_q, gkv2, *wo, dbias)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        k2_det = all(torch.equal(a, b) for a, b in zip(*k2))
+        want = cpb.cpb_bias_transposed_backward_reference(
+            grid_q.double(), gkv2.double(), *(t.double() for t in wo),
+            dbias.double())
+        plain = cpb.cpb_bias_transposed_backward_reference(
+            grid_q, gkv2, *wo, dbias)
+        errs = {n: (rel_err(g, ww), rel_err(p, ww))
+                for n, g, p, ww in zip(names, k2[0], plain, want)}
+        del plain
+        k2_abs = max([k2_abs] + [(g.double() - ww).abs().max().item()
+                                 for g, ww in zip(k2[0], want)])
+        del want
+        print(f"[K2-bwd] BH={BH} K={K} N={side * side} O={o} rel err vs "
+              "f64, kernel / f32 plain: " + ", ".join(
+                  f"{n} {e:.2e} / {pe:.2e}" for n, (e, pe) in errs.items())
+              + f"; deterministic: {k2_det} | {card}")
+        tol = {n: K2_BWD_TOL["dgrid_kv" if n == "dgrid_kv" else "dw"]
+               for n in names}
+        if not k2_det or not all(e <= tol[n] for n, (e, _) in errs.items()):
+            raise RuntimeError("K2-bwd disagrees with its plain version or "
+                               "is not deterministic")
+        if o == 1:
+            k2_inputs = dict(grid_q=grid_q, gkv=gkv2, w=wo, dbias=dbias)
+        torch.cuda.empty_cache()
+    print(f"[K2-bwd] max_abs_err {k2_abs:.3e}")
+    return dict(k1=dict(table=table, taps=taps, fracs=fracs, dout=dout,
+                        side=side, err=k1_abs),
+                k2=dict(k2_inputs, err=k2_abs))
+
+
+def normalized_grid_flat(side: int, dev):
+    from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
+        normalized_grid)
+
+    return normalized_grid(side, side, dev).reshape(side * side, 2)
 
 
 def main() -> int:
@@ -133,8 +300,6 @@ def main() -> int:
 
     from disentangled_multimodal_learning_tpu_torch import inference
     from disentangled_multimodal_learning_tpu_torch.config import Config
-    from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
-        normalized_grid)
     from disentangled_multimodal_learning_tpu_torch.models.factory import (
         define_net, full_f32_matmuls)
     from disentangled_multimodal_learning_tpu_torch.ops import build, cpb
@@ -146,7 +311,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}; host CPU {host_cpu()}")
     full_f32_matmuls()
 
     # ---- phase 2: build, then each kernel against its plain version ------
@@ -179,7 +344,7 @@ def main() -> int:
     if table.shape[0] != 139 or n_clipped == 0 or not k1_err <= K1_TOL:
         raise RuntimeError("K1 disagrees with its plain version")
 
-    grid_q = normalized_grid(side, side, dev).reshape(side * side, 2)
+    grid_q = normalized_grid_flat(side, dev)
     gkv2 = ((torch.rand(B * H, K, 2, generator=gen) * 2 - 1) * kv_bound).to(dev)
     k2_err = {}
     for o in (1, 2):
@@ -198,7 +363,11 @@ def main() -> int:
         if not k2_err[o] <= K2_TOL:
             raise RuntimeError("K2 disagrees with its plain version")
 
-    # ---- phase 3: the main path at the preset (divisor 1, bf16) ----------
+    # ---- phase 2b: the backward kernels against float64 ------------------
+    bwd = check_backward_kernels(cpb, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 3: the serving entry at the preset (divisor 1, bf16) ------
     preset = Config.diag2021().replace(synthetic_data=True,
                                        synthetic_test_size=3 * 4)
     reset_counts(cpb)
@@ -206,13 +375,12 @@ def main() -> int:
     metrics, logits = inference.main(preset, device=dev)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
-    launches_k1 = cpb.table_interp.launches
-    k2_in_k1_run = cpb.cpb_bias_transposed.launches
-    print(f"[main] divisor 1, bf16 streams: 3 batches in {t_main:.2f} s "
-          f"(data generation and first-call set-up included); "
-          f"K1 launches {launches_k1}, K2 launches {k2_in_k1_run}")
+    n = counts(cpb)
+    print(f"[main] serving, divisor 1, bf16 streams: 3 batches in "
+          f"{t_main:.2f} s (data generation and first-call set-up included);"
+          f" launches {n}")
     check_outputs(metrics, logits, 12)
-    if launches_k1 != 4 * 3 or k2_in_k1_run != 0:
+    if n != {"k1_fwd": 4 * 3, "k1_bwd": 0, "k2_fwd": 0, "k2_bwd": 0}:
         raise RuntimeError("the preset run did not go through K1 alone, "
                            "4 launches per batch")
 
@@ -221,13 +389,24 @@ def main() -> int:
     reset_counts(cpb)
     metrics0, logits0 = inference.main(exact, device=dev)
     torch.cuda.synchronize()
-    launches_k2 = cpb.cpb_bias_transposed.launches
-    k1_in_k2_run = cpb.table_interp.launches
-    print(f"[main] divisor 0: K2 launches {launches_k2}, K1 launches "
-          f"{k1_in_k2_run}")
+    n = counts(cpb)
+    print(f"[main] serving, divisor 0: launches {n}")
     check_outputs(metrics0, logits0, 4)
-    if launches_k2 == 0 or k1_in_k2_run != 0:
+    if n != {"k1_fwd": 0, "k1_bwd": 0, "k2_fwd": 4, "k2_bwd": 0}:
         raise RuntimeError("the divisor-0 run did not go through K2 alone")
+
+    # ---- phase 3b: the training entry at the preset, then divisor 0 ------
+    train_preset = Config.diag2021().replace(
+        synthetic_data=True, synthetic_train_size=3 * 4,
+        synthetic_test_size=4, kfold=1, epochs=1, checkpoints="#")
+    train_counts = {}
+    for cfg, steps, used in ((train_preset, 3, "k1"),
+                             (train_preset.replace(cpb_table_divisor=0,
+                                                   synthetic_train_size=4),
+                              1, "k2")):
+        train_counts[used] = run_training_entry(cpb, cfg, dev, steps, used,
+                                                card)
+    torch.cuda.empty_cache()
 
     # ---- phase 5: f32 on the card vs the same weights on the CPU ---------
     f32 = preset.replace(attn_bf16_streams=False)
@@ -235,11 +414,22 @@ def main() -> int:
     with torch.inference_mode():
         card_out = define_net(f32, dev)(**model_inputs(batch, dev))[2]
         cpu_out = define_net(f32, "cpu")(**model_inputs(batch, "cpu"))[2]
-    err = max((card_out[k].cpu() - cpu_out[k]).abs().max().item()
-              for k in cpu_out)
-    print(f"[f32] card vs CPU logits max_abs_err={err:.3e} (tol {LOGITS_TOL})")
+    errs = {k: (card_out[k].cpu() - cpu_out[k]).abs().max().item()
+            for k in cpu_out}
+    err = max(errs.values())
+    print(f"[f32] card vs CPU logits max_abs_err={err:.3e} (tol {LOGITS_TOL})"
+          f"; per output {errs}")
+    if not err <= LOGITS_TOL:
+        for name, out in (("card", card_out), ("cpu", cpu_out)):
+            conf = [torch.softmax(out[f"logits_tea{s}"].float().cpu(), 1)
+                    .amax(1).tolist() for s in ("10", "20")]
+            print(f"[f32] {name} max-confidence tea10 {conf[0]} tea20 "
+                  f"{conf[1]}; logits {out['logits_teas'].cpu().tolist()}")
     if not err <= LOGITS_TOL:
         raise RuntimeError("f32 logits on the card disagree with the CPU")
+
+    # ---- phase 5b: one f32 train step on the card vs on the CPU ----------
+    compare_train_step(f32.replace(deterministic_training=True), batch, dev)
 
     # ---- phase 6: timings -------------------------------------------------
     with torch.inference_mode():
@@ -283,23 +473,197 @@ def main() -> int:
                   f"{cfg.attn_bf16_streams}: median {med:.3f} ms/batch = "
                   f"{4000.0 / med:.1f} bags/s, p80 {p80:.3f} ms "
                   f"(50 forwards) | {card}")
-        profile_forward(define_net(preset, dev), model_inputs(batch, dev))
+        model = define_net(preset, dev)
+        x = model_inputs(batch, dev)
+        profile("eval forward", lambda: model(**x))
+
+    # ---- phase 6b: backward kernels and the train step -------------------
+    bwd_ms = time_backward_kernels(cpb, bwd, card)
+    time_train_steps(train_preset, batch, dev, card)
 
     print(json.dumps({"kernels": [
-        {"name": "cpb_table_interp_fwd (K1)", "route": "cuda",
+        {"name": "cpb_table_interp_fwd (K1-fwd)", "route": "cuda",
          "source": TABLE_SRC, "replaces": f"{PALLAS}:2158",
-         "launches": launches_k1, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain},
-        {"name": "cpb_exact_fwd (K2)", "route": "cuda", "source": EXACT_SRC,
-         "replaces": f"{PALLAS}:1422", "launches": launches_k2,
+         "launches": train_counts["k1"]["k1_fwd"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "cpb_table_interp_bwd (K1-bwd)", "route": "cuda",
+         "source": f"{CSRC}/cpb_table_bwd.cu", "replaces": f"{PALLAS}:2186",
+         "launches": train_counts["k1"]["k1_bwd"],
+         "max_abs_err": bwd["k1"]["err"], "ms": bwd_ms["k1"][0],
+         "plain_ms": bwd_ms["k1"][1]},
+        {"name": "cpb_exact_fwd (K2-fwd)", "route": "cuda",
+         "source": EXACT_SRC, "replaces": f"{PALLAS}:1422",
+         "launches": train_counts["k2"]["k2_fwd"],
          "max_abs_err": max(k2_err.values()), "ms": k2_ms,
          "plain_ms": k2_plain},
+        {"name": "cpb_exact_bwd (K2-bwd)", "route": "cuda",
+         "source": f"{CSRC}/cpb_exact_bwd.cu", "replaces": f"{PALLAS}:1443",
+         "launches": train_counts["k2"]["k2_bwd"],
+         "max_abs_err": bwd["k2"]["err"], "ms": bwd_ms["k2"][0],
+         "plain_ms": bwd_ms["k2"][1]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_training_entry(cpb, cfg, dev, steps: int, used: str, card: str):
+    """Phase 3b: the training entry (``main.main``) for one fold; every
+    count set to 0 just before, read just after.  The forward kernel of
+    ``used`` (k1 or k2) launches 4x per step and 4x per eval batch, its
+    backward 4x per step; the other kernel never."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+
+    reset_counts(cpb)
+    t0 = time.perf_counter()
+    results = train_main.main(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts(cpb)
+    final = results[0]
+    losses = final["train_losses"]
+    eval_batches = -(-cfg.synthetic_test_size // cfg.batch_size)
+    other = "k2" if used == "k1" else "k1"
+    want = {f"{used}_fwd": 4 * (steps + eval_batches),
+            f"{used}_bwd": 4 * steps, f"{other}_fwd": 0, f"{other}_bwd": 0}
+    print(f"[train] entry, divisor {cfg.cpb_table_divisor}, bf16 streams "
+          f"{cfg.attn_bf16_streams}: {len(losses)} steps + {eval_batches} "
+          f"eval batch in {wall:.2f} s (data generation and first-call "
+          f"set-up included); losses {losses}; launches {n} | {card}")
+    if (len(losses) != steps or not all(map(math.isfinite, losses))
+            or not all(math.isfinite(final[k]) for k in
+                       ("acc", "auc", "f1"))):
+        raise RuntimeError(f"training entry: bad losses or metrics {final}")
+    if n != want:
+        raise RuntimeError(f"training entry: launches {n}, want {want}")
+    return n
+
+
+def compare_train_step(cfg, batch, dev) -> None:
+    """Phase 5b: one ``deterministic_training`` f32 step from the same
+    seeded weights on the same batch, on the card and on the CPU."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+
+    out = {}
+    for device in (dev, "cpu"):
+        model = define_net(cfg, device)
+        step = make_train_step(model, cfg, make_optimizer(
+            cfg, model.parameters()))
+        m = step(batch_to_tensors(batch, device))
+        out[device] = ((m["loss"].item(), m["taskloss"].item()),
+                       {name: p.grad.double().cpu()
+                        for name, p in model.named_parameters()})
+    ((loss_card, task_card), g_card), ((loss_cpu, task_cpu), g_cpu) = (
+        out[dev], out["cpu"])
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    task_err = abs(task_card - task_cpu) / abs(task_cpu)
+    errs, bias_ok = {}, True
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        if name.endswith("rel_pos_bias.mlp.2.bias"):
+            floor = 1e-5 * g_cpu[name[:-4] + "weight"].abs().max().item()
+            bias_ok &= max(got.abs().max().item(),
+                           want.abs().max().item()) <= floor
+            continue
+        # the MaxNets' classifiers get a zero gradient on both sides
+        errs[name] = ((got - want).norm()
+                      / max(want.norm().item(), 1e-30)).item()
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[f32 step] divisor {cfg.cpb_table_divisor}: card task loss "
+          f"{task_card:.7f} vs CPU {task_cpu:.7f} (rel {task_err:.2e}, tol "
+          f"{TASK_LOSS_TOL}); loss {loss_card:.7f} vs {loss_cpu:.7f} (rel "
+          f"{loss_err:.2e}, tol {STEP_LOSS_TOL}); {len(errs)} gradients, "
+          f"worst rel-L2 {worst} (tol {GRAD_TOL}); CPB output-bias gradients "
+          f"below their floor: {bias_ok} | {card_line()}")
+    if (not loss_err <= STEP_LOSS_TOL or not task_err <= TASK_LOSS_TOL
+            or not bias_ok
+            or not all(e <= GRAD_TOL for e in errs.values())):
+        raise RuntimeError("the f32 train step on the card disagrees with "
+                           "the CPU")
+
+
+def time_backward_kernels(cpb, bwd: dict, card: str) -> dict:
+    """Phase 6b: each backward kernel against the plain backward, which is
+    autograd through the plain forward with its graph kept
+    (``retain_graph``), so that only the backward is timed; the written-out
+    plain backward (the kernels' oracle) is timed beside them."""
+    import torch
+
+    k1, k2 = bwd["k1"], bwd["k2"]
+    side = k1["side"]
+    t = k1["table"].detach().requires_grad_()
+    f = k1["fracs"].detach().requires_grad_()
+    out = cpb.table_interp_reference(t, k1["taps"], f, side)
+    k1_ms, k1_plain = interleaved_ms(
+        lambda: torch.autograd.grad(out, (t, f), k1["dout"],
+                                    retain_graph=True),
+        lambda: cpb.table_interp_backward(k1["table"], k1["taps"],
+                                          k1["fracs"], k1["dout"], side), 20)
+    k1_explicit = cuda_ms(lambda: cpb.table_interp_backward_reference(
+        k1["table"], k1["taps"], k1["fracs"], k1["dout"], side), 10)
+    del out
+    print(f"[time] K1-bwd R=4608 side=50: kernel {k1_ms:.4f} ms, plain "
+          f"(autograd) {k1_plain:.4f} ms, plain written out "
+          f"{k1_explicit:.4f} ms; {46.08e6 / k1_ms / 1e9:.3f} TB/s of dw "
+          f"read | {card}")
+    leaves = [k2["gkv"].detach().requires_grad_()] + [
+        x.detach().requires_grad_() for x in k2["w"]]
+    out = cpb.cpb_bias_transposed_reference(k2["grid_q"], *leaves)
+    k2_ms, k2_plain = interleaved_ms(
+        lambda: torch.autograd.grad(out, leaves, k2["dbias"],
+                                    retain_graph=True),
+        lambda: cpb.cpb_bias_transposed_backward(k2["grid_q"], k2["gkv"],
+                                                 *k2["w"], k2["dbias"]), 5)
+    del out
+    torch.cuda.empty_cache()
+    k2_explicit = cuda_ms(lambda: cpb.cpb_bias_transposed_backward_reference(
+        k2["grid_q"], k2["gkv"], *k2["w"], k2["dbias"]), 3, warmup=1)
+    # flops counted from the shapes: forward recompute (2->32->32->1) and
+    # backward (w3, the w2 product for dh1, the dW2 outer product, w1)
+    flops = 32 * 144 * 2500 * 2 * (64 + 1024 + 32 + 32 + 1024 + 1024 + 64)
+    print(f"[time] K2-bwd 32x144x2500 O=1: kernel {k2_ms:.4f} ms, plain "
+          f"(autograd) {k2_plain:.4f} ms, plain written out "
+          f"{k2_explicit:.4f} ms; {flops / k2_ms / 1e9:.2f} TFLOP/s = "
+          f"{flops / k2_ms / 1e9 / 67:.1%} of 67 TFLOP/s f32 | {card}")
+    torch.cuda.empty_cache()
+    return {"k1": (k1_ms, k1_plain), "k2": (k2_ms, k2_plain)}
+
+
+def time_train_steps(cfg, batch, dev, card: str, n: int = 30) -> None:
+    """Phase 6b: train bags/s at the preset (divisor 1) and at divisor 0:
+    CUDA events around each of ``n`` steps on a resident batch, after 3
+    warm-up steps; then the profiler over one step of the preset."""
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+
+    x = batch_to_tensors(batch, dev)
+    for c in (cfg, cfg.replace(cpb_table_divisor=0), cfg):
+        model = define_net(c, dev)
+        opt = make_optimizer(c, model.parameters())
+        step = make_train_step(model, c, opt, make_scheduler(c, opt, 1000))
+        ms = ms_samples(lambda: step(x), n)
+        med, p80 = median(ms), ms[int(0.8 * len(ms))]
+        print(f"[time] train step B=4 fixdim=2500 divisor "
+              f"{c.cpb_table_divisor} bf16_streams {c.attn_bf16_streams}: "
+              f"median {med:.3f} ms = {4000.0 / med:.1f} train bags/s, p80 "
+              f"{p80:.3f} ms = {4000.0 / p80:.1f} bags/s ({n} steps) "
+              f"| {card}")
+    profile("train step", lambda: step(x), n=3)
 
 
 def check_outputs(metrics: dict, logits: dict, n_bags: int) -> None:
@@ -312,20 +676,21 @@ def check_outputs(metrics: dict, logits: dict, n_bags: int) -> None:
         raise RuntimeError(f"bad metrics {metrics}")
 
 
-def profile_forward(model, x) -> None:
+def profile(label: str, fn, n: int = 5) -> None:
+    """torch.profiler over ``n`` calls of ``fn`` after 3 warm-up calls:
+    the kernel table and the device's busy and idle share."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
     for _ in range(3):
-        model(**x)
+        fn()
     torch.cuda.synchronize()
-    n = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            model(**x)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     avg = prof.key_averages()
@@ -334,8 +699,9 @@ def profile_forward(model, x) -> None:
     busy = sum(e.self_device_time_total for e in avg
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation) / 1e3 / n
-    print(f"[profile] per forward (profiler on): device busy {busy:.3f} ms "
-          f"of {wall:.3f} ms wall = {1 - busy / wall:.1%} idle")
+    print(f"[profile] per {label} (profiler on): device busy {busy:.3f} ms "
+          f"of {wall:.3f} ms wall = {busy / wall:.1%} busy, "
+          f"{1 - busy / wall:.1%} idle")
 
 
 if __name__ == "__main__":

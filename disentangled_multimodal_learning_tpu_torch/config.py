@@ -1,5 +1,5 @@
-"""Experiment config of the port: the fields the teacher serving path reads,
-under the names and defaults of the JAX ``Config``
+"""Experiment config of the port: the fields the teacher serving and
+training paths read, under the names and defaults of the JAX ``Config``
 (``disentangled_multimodal_learning_tpu/config.py``), so its YAML presets
 load unchanged.  ``yaml`` is imported only when a YAML file is read;
 :meth:`Config.diag2021` holds the flagship preset in code for machines
@@ -12,6 +12,12 @@ import dataclasses
 import os
 
 _TASK_LABEL_DIM = {"diag2021": 4, "survival": 4, "grade": 3, "subtype": 3}
+# weighted-CE class weights per task (JAX config.py:80-84)
+TASK_CLASS_WEIGHTS = {
+    "diag2021": (1.0, 4.15, 2.93, 2.43),
+    "grade": (1.47, 1.51, 1.0),
+    "subtype": (1.0, 1.72, 2.43),
+}
 
 
 def yaml_config_hook(config_file: str) -> dict:
@@ -56,9 +62,34 @@ class Config:
     # bf16 q/k/v, sim and attention streams on the card (softmax in f32)
     attn_bf16_streams: bool = False
     synthetic_data: bool = False
+    synthetic_train_size: int = 64
     synthetic_test_size: int = 32
     seed: int = 42
+    checkpoints: str = "./checkpoints"
     checkpoints_teacher: str = "#"
+    # training (JAX config.py:172-203)
+    epochs: int = 10
+    lr: float = 2.0e-4
+    lr_policy: str = "cosine"
+    plateau_factor: float = 0.2
+    plateau_patience: int = 5
+    plateau_threshold: float = 0.01
+    optimizer: str = "adamw"
+    weight_decay: float = 0.01
+    warmup_epochs: int = 1
+    kfold: int = 3
+    cur_fold: int = 0
+    gradient_modulate: bool = True
+    multiscale_attention: bool = True
+    external_eval: bool = False
+    # eval cadence and the trajectory-parity switch (JAX config.py:263-283)
+    eval_every_iters: int = 200
+    eval_during_training: bool = True
+    deterministic_training: bool = False
+
+    @property
+    def class_weights(self):
+        return TASK_CLASS_WEIGHTS.get(self.task_type)
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
@@ -78,7 +109,13 @@ class Config:
                    input_path_dim=1024, path_dim=128, omic_dim=128,
                    dropout_rate=0.1, combination_type_teas="max_confidence",
                    cpb_table_divisor=1, attn_bf16_streams=True,
-                   synthetic_data=False, seed=42, checkpoints_teacher="#")
+                   synthetic_data=False, seed=42,
+                   checkpoints="./checkpoints", checkpoints_teacher="#",
+                   epochs=10, lr=2.0e-4, lr_policy="cosine",
+                   optimizer="adamw", weight_decay=0.01, warmup_epochs=1,
+                   kfold=3, gradient_modulate=True, multiscale_attention=True,
+                   external_eval=False, eval_every_iters=10,
+                   eval_during_training=True)
 
     @classmethod
     def from_args(cls, argv=None) -> tuple["Config", argparse.Namespace]:

@@ -1,0 +1,302 @@
+// K2-bwd: gradient of the exact continuous-position-bias (CPB) MLP.
+//
+// Replaces disentangled_multimodal_learning_tpu/ops/pallas/deform_attn.py
+// _cpbt_bwd_kernel (the TPU kernel behind the custom VJP of
+// cpb_bias_transposed, _cpbt_vjp_bwd).
+//
+// What it computes: with the forward of cpb_exact.cu at every kv row
+// r = bh * K + k and query n (p = grid_q[n] - grid_kv[r], f = sign(p) *
+// log1p|p|, z1 = f @ w1 + b1, h1 = relu(z1), z2 = h1 @ w2 + b2,
+// h2 = relu(z2)) and the bias cotangent db[o] = dbias[bh, o, k, n]:
+//     dz2 = (w3 @ db) * (z2 > 0)        dz1 = (w2 @ dz2) * (z1 > 0)
+//     dW3 += h2 db^T   db3 += db        dW2 += h1 dz2^T   db2 += dz2
+//     dW1 += f dz1^T   db1 += dz1
+//     dgrid_kv[r] = -sum_n (w1 @ dz1) / (1 + |p|)
+// summed over all BH * K * N points (11.5 M at production shapes).  grid_q
+// gets no cotangent (it is a constant grid).  d/dp of sign(p) log1p|p| is
+// taken as 1 / (1 + |p|), also at p = 0, as in the TPU kernel.
+//
+// What bounds it on the card: f32 arithmetic.  Per point the kernel
+// recomputes the forward (~1.1 k FMAs) and runs the backward (dh1 and the
+// dW2 outer product, ~2.1 k FMAs): ~75 GFLOP per call at production
+// shapes (BH = 32, K = 144, N = 2500; counted from the shapes), while it
+// reads only the 46 MB bias cotangent.
+//
+// What the design does about that, and why it is deterministic: a thread
+// cannot hold dW2 (1024 f32) alone, and blocks run in no order, so f32
+// atomics would make every training step non-reproducible.  Each block
+// (128 threads) takes a fixed run of whole kv rows.  Per tile of 128
+// queries each thread evaluates one point with h1, h2, dz2 and dz1 in
+// registers (weights in shared memory, read as warp broadcasts) and writes
+// them, transposed, into shared memory tiles ([HID][128 + 1], padded so
+// the writes and the reads are free of bank conflicts).  Then every thread
+// owns a fixed set of parameter-gradient entries (1,217 at O = 1, ~10 per
+// thread) and adds the tile's small outer products to them in registers,
+// point by point in order.  After its rows the block writes its partial
+// gradients to device memory; a second kernel sums the partials in block
+// order.  A row's dgrid_kv is a block sum in a fixed tree order (warp
+// shuffles, then the warps in order).  So two runs on the same inputs give
+// bitwise-equal results.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kHid = 32;
+constexpr int kThreads = 128;  // = queries per tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kLd = kThreads + 1;  // padded tile row
+constexpr int kMaxOut = 64;        // MAX_OUT_CHANNELS in ops/cpb.py
+// parameter-gradient entries: dW1 2*HID, db1 HID, dW2 HID*HID, db2 HID,
+// dW3 HID*O, db3 O
+constexpr int kFixedParams = 2 * kHid + kHid + kHid * kHid + kHid;
+constexpr int kMaxOwn = (kFixedParams + (kHid + 1) * kMaxOut + kThreads - 1) / kThreads;
+
+__host__ __device__ constexpr int num_params(int O) {
+  return kFixedParams + (kHid + 1) * O;
+}
+
+__device__ __forceinline__ float signed_log1p(float p) {
+  const float s = (p > 0.0f) ? 1.0f : ((p < 0.0f) ? -1.0f : 0.0f);
+  return s * log1pf(fabsf(p));
+}
+
+__global__ void __launch_bounds__(kThreads)
+cpb_exact_bwd_partial_kernel(const float* __restrict__ grid_q,
+                             const float* __restrict__ grid_kv,
+                             const float* __restrict__ w1,
+                             const float* __restrict__ b1,
+                             const float* __restrict__ w2,
+                             const float* __restrict__ b2,
+                             const float* __restrict__ w3,
+                             const float* __restrict__ dbias,
+                             float* __restrict__ dgrid_kv,
+                             float* __restrict__ partial, int rows, int K,
+                             int N, int O, int rows_per_block) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_w2 = smem;                  // [HID, HID] (in, out)
+  float* s_w1 = s_w2 + kHid * kHid;    // [2, HID]
+  float* s_b1 = s_w1 + 2 * kHid;       // [HID]
+  float* s_b2 = s_b1 + kHid;           // [HID]
+  float* s_w3 = s_b2 + kHid;           // [HID, O]
+  float* s_tiles = s_w3 + kHid * O;    // the tiles below, kLd apart
+  float* s_h1 = s_tiles;               // [HID][kLd]
+  float* s_dz2 = s_h1 + kHid * kLd;    // [HID][kLd]
+  float* s_h2 = s_dz2 + kHid * kLd;    // [HID][kLd]
+  float* s_dz1 = s_h2 + kHid * kLd;    // [HID][kLd]
+  float* s_f = s_dz1 + kHid * kLd;     // [2][kLd]
+  float* s_db = s_f + 2 * kLd;         // [O][kLd]
+  float* s_red = s_db + O * kLd;       // [2 * kWarps]
+  for (int i = threadIdx.x; i < kHid * kHid; i += blockDim.x) s_w2[i] = w2[i];
+  for (int i = threadIdx.x; i < 2 * kHid; i += blockDim.x) s_w1[i] = w1[i];
+  for (int i = threadIdx.x; i < kHid; i += blockDim.x) {
+    s_b1[i] = b1[i];
+    s_b2[i] = b2[i];
+  }
+  for (int i = threadIdx.x; i < kHid * O; i += blockDim.x) s_w3[i] = w3[i];
+
+  const int P = num_params(O);
+  float acc[kMaxOwn];
+#pragma unroll
+  for (int k = 0; k < kMaxOwn; ++k) acc[k] = 0.0f;
+
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  for (int r = r0; r < r1; ++r) {
+    const int bh = r / K;
+    const int kk = r - bh * K;
+    const float kx = grid_kv[2 * r];
+    const float ky = grid_kv[2 * r + 1];
+    float gx = 0.0f;
+    float gy = 0.0f;
+    for (int n0 = 0; n0 < N; n0 += kThreads) {
+      __syncthreads();  // weights loaded; the previous tile is consumed
+      const int t = threadIdx.x;
+      const int n = n0 + t;
+      if (n < N) {
+        const float px = grid_q[2 * n] - kx;
+        const float py = grid_q[2 * n + 1] - ky;
+        const float fx = signed_log1p(px);
+        const float fy = signed_log1p(py);
+        float h1[kHid];
+#pragma unroll
+        for (int j = 0; j < kHid; ++j) {
+          h1[j] = fmaxf(fx * s_w1[j] + fy * s_w1[kHid + j] + s_b1[j], 0.0f);
+        }
+        float h2[kHid];
+#pragma unroll
+        for (int j = 0; j < kHid; ++j) h2[j] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kHid; ++i) {
+#pragma unroll
+          for (int j = 0; j < kHid; ++j) h2[j] = fmaf(h1[i], s_w2[i * kHid + j], h2[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kHid; ++j) h2[j] = fmaxf(h2[j] + s_b2[j], 0.0f);
+        float dz2[kHid];
+#pragma unroll
+        for (int j = 0; j < kHid; ++j) dz2[j] = 0.0f;
+        for (int o = 0; o < O; ++o) {
+          const float d = dbias[(static_cast<size_t>(bh * O + o) * K + kk) * N + n];
+          s_db[o * kLd + t] = d;
+#pragma unroll
+          for (int j = 0; j < kHid; ++j) dz2[j] = fmaf(s_w3[j * O + o], d, dz2[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kHid; ++j) {
+          dz2[j] = (h2[j] > 0.0f) ? dz2[j] : 0.0f;
+          s_h1[j * kLd + t] = h1[j];
+          s_h2[j * kLd + t] = h2[j];
+          s_dz2[j * kLd + t] = dz2[j];
+        }
+        float dfx = 0.0f;
+        float dfy = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kHid; ++i) {
+          float dh = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kHid; ++j) dh = fmaf(s_w2[i * kHid + j], dz2[j], dh);
+          const float dz1 = (h1[i] > 0.0f) ? dh : 0.0f;
+          s_dz1[i * kLd + t] = dz1;
+          dfx = fmaf(s_w1[i], dz1, dfx);
+          dfy = fmaf(s_w1[kHid + i], dz1, dfy);
+        }
+        s_f[t] = fx;
+        s_f[kLd + t] = fy;
+        gx -= dfx / (1.0f + fabsf(px));
+        gy -= dfy / (1.0f + fabsf(py));
+      } else {  // past the last query: contributes nothing
+#pragma unroll
+        for (int j = 0; j < kHid; ++j) {
+          s_h1[j * kLd + t] = 0.0f;
+          s_h2[j * kLd + t] = 0.0f;
+          s_dz2[j * kLd + t] = 0.0f;
+          s_dz1[j * kLd + t] = 0.0f;
+        }
+        for (int o = 0; o < O; ++o) s_db[o * kLd + t] = 0.0f;
+        s_f[t] = 0.0f;
+        s_f[kLd + t] = 0.0f;
+      }
+      __syncthreads();
+
+      // each thread's parameter entries e = tid + k * kThreads:
+      // sum over the tile of a[p] * b[p] (a = 1 for a bias)
+      const int np = min(kThreads, N - n0);
+#pragma unroll
+      for (int k = 0; k < kMaxOwn; ++k) {
+        const int e = threadIdx.x + k * kThreads;
+        if (e >= P) break;
+        const float* a = nullptr;
+        const float* b;
+        if (e < 2 * kHid) {                                  // dW1[c, i]
+          a = s_f + (e / kHid) * kLd;
+          b = s_dz1 + (e % kHid) * kLd;
+        } else if (e < 3 * kHid) {                           // db1[i]
+          b = s_dz1 + (e - 2 * kHid) * kLd;
+        } else if (e < 3 * kHid + kHid * kHid) {             // dW2[i, j]
+          const int q = e - 3 * kHid;
+          a = s_h1 + (q / kHid) * kLd;
+          b = s_dz2 + (q % kHid) * kLd;
+        } else if (e < kFixedParams) {                       // db2[j]
+          b = s_dz2 + (e - 3 * kHid - kHid * kHid) * kLd;
+        } else if (e < kFixedParams + kHid * O) {            // dW3[j, o]
+          const int q = e - kFixedParams;
+          a = s_h2 + (q / O) * kLd;
+          b = s_db + (q % O) * kLd;
+        } else {                                             // db3[o]
+          b = s_db + (e - kFixedParams - kHid * O) * kLd;
+        }
+        float s = acc[k];
+        if (a != nullptr) {
+          for (int p = 0; p < np; ++p) s = fmaf(a[p], b[p], s);
+        } else {
+          for (int p = 0; p < np; ++p) s += b[p];
+        }
+        acc[k] = s;
+      }
+    }
+    // dgrid_kv of the row: fixed-order block sum
+    for (int off = 16; off > 0; off >>= 1) {
+      gx += __shfl_down_sync(0xffffffffu, gx, off);
+      gy += __shfl_down_sync(0xffffffffu, gy, off);
+    }
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) {
+      s_red[warp] = gx;
+      s_red[kWarps + warp] = gy;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sx = 0.0f;
+      float sy = 0.0f;
+      for (int w = 0; w < kWarps; ++w) {
+        sx += s_red[w];
+        sy += s_red[kWarps + w];
+      }
+      dgrid_kv[2 * r] = sx;
+      dgrid_kv[2 * r + 1] = sy;
+    }
+  }
+  float* out = partial + static_cast<size_t>(blockIdx.x) * P;
+#pragma unroll
+  for (int k = 0; k < kMaxOwn; ++k) {
+    const int e = threadIdx.x + k * kThreads;
+    if (e < P) out[e] = acc[k];
+  }
+}
+
+// grads[e] = sum over the partials in block order.
+__global__ void cpb_exact_bwd_reduce_kernel(const float* __restrict__ partial,
+                                            int nparts, int P,
+                                            float* __restrict__ grads) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= P) return;
+  float s = 0.0f;
+  for (int b = 0; b < nparts; ++b) s += partial[static_cast<size_t>(b) * P + e];
+  grads[e] = s;
+}
+
+}  // namespace
+
+// grid_q [N, 2], grid_kv [rows, 2] with rows = BH * K, w1 [2, 32], b1 [32],
+// w2 [32, 32], b2 [32], w3 [32, O], dbias [BH, O, K, N], all f32 ->
+// dgrid_kv [rows, 2] and grads, the flat concatenation of dW1 [2, 32],
+// db1 [32], dW2 [32, 32], db2 [32], dW3 [32, O], db3 [O].  partial is
+// scratch of nparts * num_params(O) f32; block b takes rows
+// [b * ceil(rows / nparts), ...).  Returns cudaGetLastError() after the
+// launches (0 = launched).
+extern "C" int dmlt_cpb_exact_bwd(const void* grid_q, const void* grid_kv,
+                                  const void* w1, const void* b1,
+                                  const void* w2, const void* b2,
+                                  const void* w3, const void* dbias,
+                                  void* dgrid_kv, void* grads, void* partial,
+                                  int rows, int K, int N, int O, int nparts,
+                                  void* stream) {
+  if (rows == 0 || N == 0 || nparts <= 0) return 0;
+  if (O < 1 || O > kMaxOut) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>(kHid * kHid + 2 * kHid + 2 * kHid + kHid * O +
+                          (4 * kHid + 2 + O) * kLd + 2 * kWarps) *
+      sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      cpb_exact_bwd_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = (rows + nparts - 1) / nparts;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cpb_exact_bwd_partial_kernel<<<nparts, kThreads, smem, s>>>(
+      static_cast<const float*>(grid_q), static_cast<const float*>(grid_kv),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(w3), static_cast<const float*>(dbias),
+      static_cast<float*>(dgrid_kv), static_cast<float*>(partial), rows, K, N,
+      O, rows_per_block);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int P = num_params(O);
+  cpb_exact_bwd_reduce_kernel<<<(P + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partial), nparts, P,
+      static_cast<float*>(grads));
+  return static_cast<int>(cudaGetLastError());
+}

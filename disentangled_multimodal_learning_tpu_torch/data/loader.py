@@ -1,11 +1,15 @@
-"""Sequential batches for evaluation (counterpart of
-``disentangled_multimodal_learning_tpu/data/loader.py`` with
-``shuffle=False, drop_last=False``).
+"""Batches of bags (counterpart of
+``disentangled_multimodal_learning_tpu/data/loader.py``).
 
-A short final batch is PADDED to full size by repeating its last sample,
-and ``batch.pad`` records how many rows are duplicates; the evaluator strips
-them, so the metrics cover exactly the dataset.  Every batch therefore has
-the same shape.
+Training: ``shuffle=True, drop_last=True, seed=cfg.seed``, with
+:meth:`BagLoader.set_epoch` before each epoch; the order of an epoch is
+``default_rng(seed * 100003 + epoch)``'s shuffle, as in JAX, so both
+frameworks see the same batches.
+
+Evaluation (the defaults): sequential batches, and a short final batch is
+PADDED to full size by repeating its last sample; ``batch.pad`` records how
+many rows are duplicates and the evaluator strips them, so the metrics cover
+exactly the dataset.  Every batch therefore has the same shape.
 """
 
 from __future__ import annotations
@@ -14,17 +18,34 @@ import numpy as np
 
 
 class BagLoader:
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Reshuffle per epoch (the reference's DistributedSampler)."""
+        self._epoch = int(epoch)
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
     def __iter__(self):
         n, bs = len(self.dataset), self.batch_size
-        for start in range(0, n, bs):
-            idx = np.arange(start, min(start + bs, n))
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed * 100_003 + self._epoch).shuffle(
+                order)
+        stop = (n // bs) * bs if self.drop_last else n
+        for start in range(0, stop, bs):
+            idx = order[start:start + bs]
             pad = bs - len(idx)
             if pad:
                 idx = np.concatenate([idx, np.repeat(idx[-1], pad)])

@@ -1,0 +1,74 @@
+"""Training entry of the port: the k-fold teacher training loop of the root
+``main.py`` (synthetic folds, ``main.py:184-192``) -> ``trainTeachersModel``
+-> ``run_training`` -> the train step.
+
+    python -m disentangled_multimodal_learning_tpu_torch.main \\
+        --config config/config_mine_diag2021.yaml --synthetic_data true \\
+        --checkpoints '#' [--kfold 1] [--epochs 1] [--device cuda]
+
+Without ``--config`` the in-code diag2021 preset is used (no ``yaml``
+needed).  Fold ``f`` trains on ``synthetic_train_size`` bags drawn from seed
+``seed + f`` and evaluates on ``synthetic_test_size`` bags from
+``seed + 100 + f``, with a fresh seeded model per fold, as in JAX.  Prints
+the final metrics of each fold.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from .config import Config
+from .data.loader import BagLoader
+from .data.synthetic import SyntheticBagDataset
+from .models.factory import define_net
+from .train.trainers import trainTeachersModel
+
+
+def synthetic_fold_datasets(cfg: Config, fold: int):
+    """The JAX entry's synthetic fold (``main.py:79-86``)."""
+    kw = dict(fixdim=cfg.fixdim, path_dim=cfg.input_path_dim,
+              omic_dim=cfg.input_size_omic,
+              omic_tumor_dim=cfg.input_size_omic_tumor,
+              omic_immune_dim=cfg.input_size_omic_immune,
+              label_dim=cfg.label_dim)
+    return (SyntheticBagDataset(size=cfg.synthetic_train_size,
+                                seed=cfg.seed + fold, **kw),
+            SyntheticBagDataset(size=cfg.synthetic_test_size,
+                                seed=cfg.seed + 100 + fold, **kw))
+
+
+def make_loaders(cfg: Config, train_ds, test_ds):
+    return (BagLoader(train_ds, cfg.batch_size, shuffle=True, drop_last=True,
+                      seed=cfg.seed),
+            BagLoader(test_ds, cfg.batch_size))
+
+
+def main(cfg: Config, device=None, logger=None) -> dict:
+    """Train every fold; returns ``{fold: final metrics}``."""
+    if not cfg.synthetic_data:
+        raise NotImplementedError(
+            "the port has no real-data loaders yet (ROADMAP Queue 1, entry "
+            "points slice); pass --synthetic_data true")
+    device = torch.device(device or ("cuda" if torch.cuda.is_available()
+                                     else "cpu"))
+    np.random.seed(cfg.seed)
+    results = {}
+    for fold in range(cfg.kfold):
+        cfg = cfg.replace(cur_fold=fold)
+        loaders = make_loaders(cfg, *synthetic_fold_datasets(cfg, fold))
+        model = define_net(cfg, device)
+        _, metrics, ckpt = trainTeachersModel(model, loaders, None, None,
+                                              logger, cfg)
+        results[fold] = metrics
+        print(f"\n[fold {fold}] " + " ".join(
+            f"{k}={v:.4f}" for k, v in metrics.items()
+            if isinstance(v, float)) + f"  ckpt={ckpt}")
+    return results
+
+
+if __name__ == "__main__":
+    cfg, args = Config.from_args(sys.argv[1:])
+    main(cfg, device=args.device)

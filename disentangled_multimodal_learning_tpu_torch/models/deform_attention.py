@@ -115,11 +115,13 @@ def normalized_grid(h: int, w: int, device=None):
 class DeformCrossAttention2D(nn.Module):
     """x1 queries, x2 sampled as kv on a deformed ``gh x gw`` grid
     (``deform_attention.py:382``).  Inputs ``[B, N, C]`` with N a perfect
-    square; returns ``(out [B, N, C], attn [B, H, K, N])``.  The port serves
-    (eval only), so the attention dropout of training is absent."""
+    square; returns ``(out [B, N, C], attn [B, H, K, N])``.  In train mode
+    the attention weights go through ``dropout`` before PV; the returned
+    map is the one before dropout (JAX ``attn_return``, :541-542), which is
+    what the attention consistency loss reads."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
-                 downsample_factor: int = 4,
+                 dropout: float = 0.0, downsample_factor: int = 4,
                  offset_scale: float = 4.0, offset_groups: int = 8,
                  offset_kernel_size: int = 6, cpb_table_divisor: int = 0,
                  attn_bf16_streams: bool = False):
@@ -132,6 +134,7 @@ class DeformCrossAttention2D(nn.Module):
         inner = dim_head * heads
         od = inner // offset_groups
         self.dim_head, self.heads, self.offset_groups = dim_head, heads, offset_groups
+        self.dropout = dropout
         self.offset_scale = offset_scale
         self.cpb_table_divisor = cpb_table_divisor
         self.attn_bf16_streams = attn_bf16_streams
@@ -198,6 +201,8 @@ class DeformCrossAttention2D(nn.Module):
         sim = torch.matmul(kh.to(opd), qh.to(opd).transpose(-1, -2)).to(sdt)
         sim = sim + bias.to(sdt)                                 # [B,H,K,N]
         attn = torch.softmax(sim.float(), dim=-2).to(sdt)
-        out = torch.matmul(attn.transpose(-1, -2).to(opd), vh.to(opd)).float()
+        dropped = F.dropout(attn, self.dropout, self.training)
+        out = torch.matmul(dropped.transpose(-1, -2).to(opd),
+                           vh.to(opd)).float()
         out = out.transpose(1, 2).reshape(B, N, H * dh)
         return self.to_out(out), attn

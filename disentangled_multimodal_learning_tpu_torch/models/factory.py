@@ -29,10 +29,11 @@ _LATER = {
 
 
 def full_f32_matmuls() -> None:
-    """Make float32 matmuls and convolutions on the card run in full f32.
-    cuDNN defaults to TF32 (about three decimal digits), which the CPB table
-    build (every bias value interpolates from it) and the offset conv cannot
-    take; matmuls already default to full f32, and are pinned here too."""
+    """Make float32 matmuls and convolutions on the card run in full f32,
+    forward and backward alike (the flags are global).  cuDNN defaults to
+    TF32 (about three decimal digits), which the CPB table build (every bias
+    value interpolates from it) and the offset conv cannot take; matmuls
+    already default to full f32, and are pinned here too."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -40,7 +41,8 @@ def full_f32_matmuls() -> None:
 def define_net(cfg, device="cpu") -> nn.Module:
     """``cfg`` -> eval-mode model on ``device`` with random weights drawn
     from ``cfg.seed`` by a ``torch.Generator``; load real weights over them
-    with ``utils.jax_params``."""
+    with ``utils.jax_params``.  The train step switches the model to train
+    mode (eval mode under ``deterministic_training``)."""
     mode = cfg.mode
     if mode in _LATER:
         raise NotImplementedError(

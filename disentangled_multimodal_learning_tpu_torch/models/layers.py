@@ -44,7 +44,9 @@ class TransFusionLayer(nn.Module):
     """Cross-attention of all tokens onto one kv token, residual, then
     Pooler -> ``[B, 1, D]`` (``layers.py:218``).  The JAX
     ``MultiheadAttention`` it mirrors is golden-tested against this very
-    ``nn.MultiheadAttention`` (tests/test_layers.py)."""
+    ``nn.MultiheadAttention`` (tests/test_layers.py).  In train mode the
+    MHA drops its attention weights with p = 0.1 (JAX ``layers.py:119``,
+    ``:228``, ``:244``)."""
 
     def __init__(self, dim: int = 128):
         super().__init__()

@@ -1,8 +1,10 @@
 """Self-normalizing genomics encoder (counterpart of
 ``disentangled_multimodal_learning_tpu/models/maxnet.py:16``): four
 [Linear -> ELU -> AlphaDropout] blocks (64/48/32 -> omic_dim), ReLU head,
-linear classifier.  In eval, AlphaDropout is the identity.  The classifier
-is kept because the exported weights carry it."""
+linear classifier.  In train mode AlphaDropout(dropout_rate) is live, with
+torch's semantics, which JAX ``alpha_dropout`` (``layers.py:33-43``)
+reproduces; in eval it is the identity.  The classifier is kept because the
+exported weights carry it."""
 
 from __future__ import annotations
 

@@ -3,7 +3,11 @@
 ``TeacherEncoder`` :80, ``TeacherNet`` :129, ``TeachersNet`` :180).
 
 ``unimodal=True`` gives the uniteacher (queries are ``[path, path]``).
-Outputs are the reference's six structured dicts, keyed as in JAX.
+Outputs are the reference's six structured dicts, keyed as in JAX.  Train
+mode (``model.train()``) turns on the dropouts of the JAX model: AlphaDropout
+in both MaxNets, dropout 0.1 on the deformable attention weights and on the
+TransFusionLayers' MHA weights; eval mode (and ``deterministic_training``)
+turns them off.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ from .maxnet import MaxNet
 
 
 def _deform2d(dim: int, cpb_table_divisor: int, attn_bf16_streams: bool):
-    # instantiation constants of the reference (models/Modules.py:107-126)
+    # instantiation constants of the reference (models/Modules.py:107-126;
+    # JAX teacher_student.py:47-50)
     return DeformCrossAttention2D(
-        dim=dim, dim_head=64, heads=8, downsample_factor=4, offset_scale=4,
+        dim=dim, dim_head=64, heads=8, dropout=0.1, downsample_factor=4,
+        offset_scale=4,
         offset_groups=8, offset_kernel_size=6,
         cpb_table_divisor=cpb_table_divisor,
         attn_bf16_streams=attn_bf16_streams)

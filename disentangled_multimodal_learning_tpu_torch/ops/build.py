@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels (``csrc/*.cu``) at first use and bind them.
 
-All sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The library lands in ``build/torch_kernels/<hash>/`` at the root
+Each source compiles with its own ``nvcc`` (all started together), and the
+objects link into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  The library lands in ``build/torch_kernels/<hash>/`` at the root
 of the checkout, keyed by a hash of the sources and the flags, so an edit to
 a kernel rebuilds it and an unchanged tree reuses the last build.  Each C
 entry point returns ``cudaGetLastError()`` after its launch; :func:`check`
@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libdmlt_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +35,12 @@ _I = ctypes.c_int
 # ctypes would pass them as 32-bit ints and cut them)
 SIGNATURES = {
     "dmlt_cpb_table_interp_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _P),
+    "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _P),
     "dmlt_cpb_exact_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),
+    "dmlt_cpb_exact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -71,23 +75,43 @@ def library_dir() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless this exact build exists; return the
-    library path.  The ptxas report (registers, shared memory, spills) is
-    kept beside it as ``build.log``."""
+    library path.  One ``nvcc -c`` per source, all running at once, then one
+    link.  The ptxas report (registers, shared memory, spills) is kept
+    beside the library as ``build.log``."""
     out_dir = library_dir()
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = _nvcc()
+    compiles = []
+    for src in sources():
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp_dir / f"{src.stem}.o"),
+               str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp_dir / LIB_NAME),
+                *(str(tmp_dir / f"{src.stem}.o") for src in sources())]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
+    (out_dir / "build.log").write_text("".join(log))
+    if failed:
+        shutil.rmtree(tmp_dir)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    # atomic: a concurrent loader sees all or nothing
+    os.replace(tmp_dir / LIB_NAME, lib)
+    shutil.rmtree(tmp_dir)
     return lib
 
 

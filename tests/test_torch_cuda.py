@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its serving path on the card.
+"""The port's CUDA kernels and its serving and training paths on the card.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips, inside its fixture, where ``torch.cuda.is_available()`` is false.
@@ -12,7 +12,17 @@ Tolerances: K1 1e-5 abs and K2 1e-4 abs against their plain versions on
 biases of O(1) (K1 rounds every op as its plain version does; K2 contracts
 to FMAs and sums in another order); 1e-4 abs between f32 forwards on the
 card and on the CPU with the same weights (cuBLAS, cuDNN and the CPU sum in
-other orders).
+other orders).  Backward kernels, norm-relative against their plain
+versions in float64: K1 1e-5; K2 1e-3 (with random cotangents the sums
+over every point cancel, and a relu input within f32 rounding of 0 takes
+the other branch than in float64: the f32 plain version itself is 1e-4 to
+5e-4 off).  One f32 train step on the card against the CPU: the task loss
+within 1e-5 relative; the total loss within 5e-4, because the attention
+consistency loss (1e4 x the variance of near-equal Gram diagonals)
+amplifies f32 differences (measured at full size: 7.6e-5); every gradient
+within 5e-3 rel-L2, because the CPB hidden biases sum nearly cancelling
+cotangents (measured at full size: 1.3e-3); the CPB output biases, whose
+gradient is 0 in exact arithmetic, only checked to be that small.
 """
 
 import math
@@ -23,12 +33,18 @@ import torch
 
 from disentangled_multimodal_learning_tpu_torch import inference
 from disentangled_multimodal_learning_tpu_torch.config import Config
+from disentangled_multimodal_learning_tpu_torch.data.synthetic import (
+    SyntheticBagDataset)
 from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
     normalized_grid)
 from disentangled_multimodal_learning_tpu_torch.models.factory import define_net
 from disentangled_multimodal_learning_tpu_torch.ops import cpb
+from disentangled_multimodal_learning_tpu_torch.train.optim import make_optimizer
+from disentangled_multimodal_learning_tpu_torch.train.steps import (
+    batch_to_tensors, make_train_step)
 
 K1_TOL, K2_TOL, FORWARD_TOL = 1e-5, 1e-4, 1e-4
+K1_BWD_TOL, K2_BWD_TOL, GRAD_TOL = 1e-5, 1e-3, 5e-3
 
 
 @pytest.fixture
@@ -53,6 +69,18 @@ def _uniform(rng, bound, shape, device):
 
 def _launches():
     return cpb.table_interp.launches, cpb.cpb_bias_transposed.launches
+
+
+def _bwd_launches():
+    return (cpb.table_interp_backward.launches,
+            cpb.cpb_bias_transposed_backward.launches)
+
+
+def _rel(got, want):
+    """Norm-relative error; a zero ``want`` (a parameter the loss does not
+    reach) asks for a zero ``got``."""
+    return ((got.double() - want).norm() / max(want.norm().item(), 1e-30)
+            ).item()
 
 
 @pytest.mark.cuda
@@ -132,24 +160,123 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert _launches() == before
 
 
+def _table_case(rng, side, dev):
+    g = (side + 2 - 6) // 4 + 1
+    kv_bound = cpb.kv_bound_2d(4.0, g, g)
+    table = cpb.cpb_table(*_mlp(rng, 1, dev), side=side, kv_bound=kv_bound)
+    gkv = _uniform(rng, 1.25 * kv_bound, (16, g * g, 2), dev)
+    taps, fracs = cpb.table_taps(
+        cpb.table_shifts(gkv, side=side, kv_bound=kv_bound),
+        side=side, tn=table.shape[0])
+    return table, taps, fracs
+
+
 @pytest.mark.cuda
-def test_kernels_refuse_inputs_that_need_grad(dev):
-    """There are no backward kernels yet: a launch that autograd would
-    have to differentiate raises; under no_grad it runs."""
-    rng = np.random.default_rng(2)
-    w = [t.requires_grad_() for t in _mlp(rng, 1, dev)]
-    grid_q = torch.zeros(16, 2, device=dev)
-    gkv = torch.zeros(2, 3, 2, device=dev)
-    with pytest.raises(RuntimeError, match="backward"):
-        cpb.cpb_bias_transposed(grid_q, gkv, *w)
-    table = torch.zeros(20, 20, device=dev, requires_grad=True)
+@pytest.mark.parametrize("side", [12, 50])
+def test_table_backward_kernel_matches_plain_version(dev, side):
+    """K1-bwd against its plain version in float64, clipped rows included,
+    and bitwise equal over two calls (no atomics)."""
+    rng = np.random.default_rng(10 + side)
+    table, taps, fracs = _table_case(rng, side, dev)
+    assert ((fracs < 0) | (fracs > 1)).any()
+    dout = torch.from_numpy(rng.normal(size=(taps.shape[0], side, side))
+                            .astype(np.float32)).to(dev)
+    before = _bwd_launches()
+    got = [cpb.table_interp_backward(table, taps, fracs, dout, side)
+           for _ in range(2)]
+    assert _bwd_launches() == (before[0] + 2, before[1])
+    want = cpb.table_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), side)
+    for a, b, w in zip(*got, want):
+        assert torch.equal(a, b)
+        assert a.shape == w.shape and _rel(a, w) <= K1_BWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,o", [(12, 1), (12, 3), (50, 1), (50, 2)])
+def test_exact_backward_kernel_matches_plain_version(dev, side, o):
+    """K2-bwd against its plain version in float64 (N = 144 and 2500,
+    neither a multiple of the 128 queries of a tile; more rows than
+    blocks), and bitwise equal over two calls (no atomics)."""
+    rng = np.random.default_rng(200 * side + o)
+    grid_q = normalized_grid(side, side, dev).reshape(side * side, 2)
+    gkv = _uniform(rng, 1.5, (8, 40, 2), dev)
+    w = _mlp(rng, o, dev)
+    shape = (8, 40, side * side) if o == 1 else (8, o, 40, side * side)
+    dbias = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    before = _bwd_launches()
+    got = [cpb.cpb_bias_transposed_backward(grid_q, gkv, *w, dbias)
+           for _ in range(2)]
+    assert _bwd_launches() == (before[0], before[1] + 2)
+    want = cpb.cpb_bias_transposed_backward_reference(
+        grid_q.double(), gkv.double(), *(t.double() for t in w),
+        dbias.double())
+    for a, b, ww in zip(*got, want):
+        assert torch.equal(a, b)
+        assert a.shape == ww.shape and _rel(a, ww) <= K2_BWD_TOL
+
+
+@pytest.mark.cuda
+def test_autograd_goes_through_the_backward_kernels(dev):
+    """With grad mode on, the CPB ops launch their forward kernel, and
+    ``backward()`` their backward kernel; the gradients agree with the
+    same ops on the CPU (plain versions)."""
+    rng = np.random.default_rng(5)
+    side, g = 12, 3
+    kv_bound = cpb.kv_bound_2d(4.0, g, g)
+    gkv = _uniform(rng, kv_bound, (4, g * g, 2), "cpu")
+    w = _mlp(rng, 1, "cpu")
+    grid_q = normalized_grid(side, side).reshape(side * side, 2)
+    dout = torch.from_numpy(rng.normal(size=(4, g * g, side * side))
+                            .astype(np.float32))
+    for divisor in (1, 0):
+        grads = {}
+        for device in ("cpu", dev):
+            leaves = [t.detach().clone().to(device).requires_grad_()
+                      for t in [gkv] + w]
+            before = _launches() + _bwd_launches()
+            if divisor == 1:
+                out = cpb.cpb_bias_table(*leaves, side=side, kv_bound=kv_bound)
+            else:
+                out = cpb.cpb_bias_transposed(grid_q.to(device), *leaves)
+            out.backward(dout.to(device))
+            delta = tuple(a - b for a, b in zip(_launches() + _bwd_launches(),
+                                                before))
+            if device == "cpu":
+                assert delta == (0, 0, 0, 0)
+            else:
+                assert delta == ((1, 0, 1, 0) if divisor == 1
+                                 else (0, 1, 0, 1))
+            grads[device] = [t.grad.cpu() for t in leaves]
+        for a, b in zip(grads[dev], grads["cpu"]):
+            assert _rel(a, b.double()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    table = torch.zeros(20, 20, device=dev)
     taps = torch.zeros(4, 2, dtype=torch.int32, device=dev)
     fracs = torch.zeros(4, 2, device=dev)
-    with pytest.raises(RuntimeError, match="backward"):
-        cpb.table_interp(table, taps, fracs, 10)
-    with torch.no_grad():
-        cpb.cpb_bias_transposed(grid_q, gkv, *w)
-        cpb.table_interp(table, taps, fracs, 10)
+    before = _bwd_launches()
+    with pytest.raises(ValueError, match="dout"):
+        cpb.table_interp_backward(table, taps, fracs,
+                                  torch.zeros(4, 9, 9, device=dev), 10)
+    with pytest.raises(ValueError, match="float32"):
+        cpb.table_interp_backward(table, taps, fracs,
+                                  torch.zeros(4, 10, 10, device=dev,
+                                              dtype=torch.float64), 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        cpb.table_interp_backward(torch.zeros(300, 300, device=dev), taps,
+                                  fracs, torch.zeros(4, 10, 10, device=dev),
+                                  10)
+    rng = np.random.default_rng(3)
+    w = _mlp(rng, 2, dev)
+    grid_q, gkv = torch.zeros(16, 2, device=dev), torch.zeros(2, 3, 2,
+                                                             device=dev)
+    with pytest.raises(ValueError, match="dbias"):
+        cpb.cpb_bias_transposed_backward(grid_q, gkv, *w,
+                                         torch.zeros(2, 3, 16, device=dev))
+    assert _bwd_launches() == before
 
 
 def _teacher_inputs(device, seed=0):
@@ -183,6 +310,40 @@ def test_teacher_forward_on_card_matches_cpu(dev, divisor):
             assert got[k].dtype == torch.float32
             err = (got[k].cpu() - want[k]).abs().max().item()
             assert err <= FORWARD_TOL, (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [1, 0])
+def test_train_step_on_card_matches_cpu(dev, divisor):
+    """One ``deterministic_training`` step in f32 (fixdim 144, B=2, real
+    widths) from the same seeded weights on the same batch, on the card
+    through the kernels and on the CPU through the plain versions: the loss,
+    and every parameter's gradient after modulation."""
+    cfg = Config(fixdim=144, batch_size=2, cpb_table_divisor=divisor,
+                 deterministic_training=True).validate()
+    batch = SyntheticBagDataset(size=2, fixdim=144, seed=0).batch([0, 1])
+    out = {}
+    before = _launches() + _bwd_launches()
+    for device in ("cpu", dev):
+        model = define_net(cfg, device)
+        opt = make_optimizer(cfg, model.parameters())
+        m = make_train_step(model, cfg, opt)(batch_to_tensors(batch, device))
+        out[device] = ((m["loss"].item(), m["taskloss"].item()),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+    delta = tuple(a - b for a, b in zip(_launches() + _bwd_launches(),
+                                        before))
+    assert delta == ((4, 0, 4, 0) if divisor == 1 else (0, 4, 0, 4))
+    ((loss_card, task_card), g_card), ((loss_cpu, task_cpu), g_cpu) = (
+        out[dev], out["cpu"])
+    assert abs(task_card - task_cpu) <= 1e-5 * abs(task_cpu)
+    assert abs(loss_card - loss_cpu) <= 5e-4 * abs(loss_cpu)
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        if name.endswith("rel_pos_bias.mlp.2.bias"):
+            floor = 1e-5 * g_cpu[name[:-4] + "weight"].abs().max().item()
+            assert got.abs().max().item() <= floor, name
+            continue
+        assert _rel(got, want.double()) <= GRAD_TOL, name
 
 
 @pytest.mark.cuda

@@ -281,15 +281,23 @@ def test_metrics_match_jax_numpy_branch(monkeypatch, case):
 
 
 def test_port_runs_without_jax_or_flax():
-    """A fresh interpreter runs the inference entry on the CPU (tiny
-    synthetic config) and never loads jax, jaxlib or flax."""
+    """A fresh interpreter imports the training modules, runs the inference
+    entry and the training entry on the CPU (tiny synthetic config) and
+    never loads jax, jaxlib or flax."""
+    port = "disentangled_multimodal_learning_tpu_torch"
     code = (
-        "import runpy, sys\n"
-        "sys.argv = ['inference', '--config', sys.argv[1], '--synthetic_data',"
-        " 'true', '--fixdim', '64', '--batch_size', '2',"
-        " '--synthetic_test_size', '3', '--device', 'cpu']\n"
-        "runpy.run_module('disentangled_multimodal_learning_tpu_torch."
-        "inference', run_name='__main__')\n"
+        "import importlib, runpy, sys\n"
+        f"for m in ('train.losses', 'train.grad_modulate', 'train.optim',"
+        " 'train.steps', 'train.trainers', 'main'):\n"
+        f"    importlib.import_module('{port}.' + m)\n"
+        "tiny = ['--config', sys.argv[1], '--synthetic_data', 'true',"
+        " '--fixdim', '64', '--batch_size', '2', '--synthetic_test_size', '3',"
+        " '--device', 'cpu']\n"
+        "sys.argv = ['inference'] + tiny\n"
+        f"runpy.run_module('{port}.inference', run_name='__main__')\n"
+        "sys.argv = ['main'] + tiny + ['--checkpoints', '#',"
+        " '--synthetic_train_size', '2', '--kfold', '1', '--epochs', '1']\n"
+        f"runpy.run_module('{port}.main', run_name='__main__')\n"
         "bad = [m for m in ('jax', 'jaxlib', 'flax') if m in sys.modules]\n"
         "print('HEAVY', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -299,3 +307,4 @@ def test_port_runs_without_jax_or_flax():
     assert proc.returncode == 0, proc.stderr
     assert "HEAVY []" in proc.stdout
     assert "acc_teas=" in proc.stdout and "prec_tea10=" in proc.stdout
+    assert "[fold 0] acc=" in proc.stdout
