@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives ``disentangled_multimodal_learning_tpu_torch`` (never JAX) through its
-serving entry and its training entry at the full width of
-``config/config_mine_diag2021.yaml`` (fixdim 2500, B=4, dims 128, 8 heads)
-with seeded random weights:
+serving entry and its training entry, for the teacher and for the student,
+at the full width of ``config/config_mine_diag2021.yaml`` (fixdim 2500, B=4,
+dims 128, 8 heads; the student with ``path_cluster_num`` 0.0008, 2 clusters
+per bag) with seeded random weights:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, run
@@ -41,13 +42,34 @@ with seeded random weights:
 6b. times each backward kernel against the plain backward (autograd
    through the plain forward, its graph kept by ``retain_graph``), the
    train step (bags/s, median and p80 of 30 steps) at divisor 1 and 0, and
-   profiles one train step (device-busy share).
+   profiles one train step (device-busy share);
+2c. holds K3-knn and K3-parent (the streamed DPC-KNN passes) against their
+   plain versions at B=4, N=2500, C=128, k=5 on LayerNormed random tokens
+   and on bags whose second half repeats one vector of +-1 entries (its
+   distances are exactly 0 in any summation order, so the ties are exact),
+   within ``K3_TOL_ULPS * C * 2^-24 * max|x|^2`` (the f32 plain version's
+   own error against float64 printed beside), and the whole assignment
+   (centres and clusters) against the plain version on the CPU, exactly;
+3c. runs the student serving entry at the preset (3 batches: per batch
+   K3-knn 2, K3-parent 2, K1-fwd 2, K2 0) and at divisor 0 (1 batch: K2-fwd
+   2, K1 0), and the student training entry (3 steps and 1 eval batch: per
+   step K3 2 + 2, K1-fwd 2, K1-bwd 2);
+5c. compares one f32 student forward (logits within 1e-4) and one f32
+   ``deterministic_training`` student step on the card with the CPU;
+6c. times K3 against its plain versions and the student's eval forward and
+   train step (bags/s, median and p80), and profiles one student train
+   step (device-busy share).
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, every count
 set to 0 just before a run and read just after.  In the kernels line the
-forward kernels' and the backward kernels' ``launches`` are those of the
-training runs.  Launches made for comparisons and timings are not counted.
+``launches`` are those of the training runs (K1 and K2: the teacher's at
+divisor 1 and 0; K3: the student's at the preset).  Launches made for comparisons
+and timings are not counted.  Each kernel's ``bound_ms`` is the larger of
+its bytes (each input read once, each output written once) over 3.35 TB/s
+and its flops over 67 TFLOP/s (f32 outside the tensor cores), counted from
+this run's inputs (H100 SXM data sheet); ``library_ms`` is null for all six:
+no single PyTorch call computes any of their functions.
 Any failure raises: there is no fallback and no phase is caught.  Exits
 non-zero without a result line when there is no CUDA device.
 """
@@ -86,10 +108,28 @@ K2_BWD_TOL = {"dgrid_kv": 1e-3, "dw": 1e-3}
 TASK_LOSS_TOL = 1e-5
 STEP_LOSS_TOL = 5e-4
 GRAD_TOL = 5e-3
+# K3: the kernel sums each C-term dot in another order than cuBLAS.  Each
+# f32 sum is within C 2^-24 max|x|^2 of the exact dot (to first order, by
+# Cauchy-Schwarz), so two of them differ by at most twice that, and d2 =
+# ... - 2 dot by four times: 3.9e-3 for LayerNormed 128-d tokens, whose
+# distances reach 512.  (Measured errors are far smaller; the f32 plain
+# version's own error against float64 is printed beside.)
+K3_TOL_ULPS = 4
+# the student step on the card against the CPU (f32 both): the task loss as
+# the teacher's; the total loss adds 1000 x path_batch_loss, a sum of
+# squared differences of near-equal normalized Grams, whose cancellation
+# amplifies the maps' f32 differences as the teacher's consistency loss
+# does, hence STEP_LOSS_TOL; gradients as the teacher's, the two biases
+# whose gradient is 0 in exact arithmetic checked for being small
+ZERO_GRAD_BIASES = ("rel_pos_bias.mlp.2.bias", "cluster_merge.score.bias")
+HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
+F32_FLOPS_PER_MS = 67e9       # 67 TFLOP/s outside the tensor cores
 CSRC = "disentangled_multimodal_learning_tpu_torch/csrc"
 TABLE_SRC = f"{CSRC}/cpb_table.cu"
 EXACT_SRC = f"{CSRC}/cpb_exact.cu"
+DPC_SRC = f"{CSRC}/dpc_knn.cu"
 PALLAS = "disentangled_multimodal_learning_tpu/ops/pallas/deform_attn.py"
+PALLAS_DPC = "disentangled_multimodal_learning_tpu/ops/pallas/dpc_knn.py"
 
 
 def card_line() -> str:
@@ -175,18 +215,35 @@ def mlp_weights(o: int, gen, device):
             rnd(hid, o, scale=hid ** -0.5), rnd(o, scale=0.1))
 
 
-def reset_counts(cpb) -> None:
-    cpb.table_interp.launches = 0
-    cpb.cpb_bias_transposed.launches = 0
-    cpb.table_interp_backward.launches = 0
-    cpb.cpb_bias_transposed_backward.launches = 0
+def _wrappers():
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb, dpc_knn
+
+    return {"k1_fwd": cpb.table_interp,
+            "k1_bwd": cpb.table_interp_backward,
+            "k2_fwd": cpb.cpb_bias_transposed,
+            "k2_bwd": cpb.cpb_bias_transposed_backward,
+            "k3_knn": dpc_knn.knn_stream,
+            "k3_parent": dpc_knn.parent_stream}
 
 
-def counts(cpb) -> dict:
-    return {"k1_fwd": cpb.table_interp.launches,
-            "k1_bwd": cpb.table_interp_backward.launches,
-            "k2_fwd": cpb.cpb_bias_transposed.launches,
-            "k2_bwd": cpb.cpb_bias_transposed_backward.launches}
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def expect(**per_key) -> dict:
+    """Every kernel's count: the given ones, 0 for the others."""
+    return {k: per_key.get(k, 0) for k in _wrappers()}
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time of the card for the work: ``(ms, bound_by)``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def rel_err(got, want) -> float:
@@ -367,53 +424,84 @@ def main() -> int:
     bwd = check_backward_kernels(cpb, dev, card)
     torch.cuda.empty_cache()
 
+    # ---- phase 2c: K3 against its plain versions, the assignment exactly -
+    dpc = check_dpc_kernels(dev, card)
+    torch.cuda.empty_cache()
+
     # ---- phase 3: the serving entry at the preset (divisor 1, bf16) ------
     preset = Config.diag2021().replace(synthetic_data=True,
                                        synthetic_test_size=3 * 4)
-    reset_counts(cpb)
+    reset_counts()
     t0 = time.perf_counter()
     metrics, logits = inference.main(preset, device=dev)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
-    n = counts(cpb)
+    n = counts()
     print(f"[main] serving, divisor 1, bf16 streams: 3 batches in "
           f"{t_main:.2f} s (data generation and first-call set-up included);"
           f" launches {n}")
     check_outputs(metrics, logits, 12)
-    if n != {"k1_fwd": 4 * 3, "k1_bwd": 0, "k2_fwd": 0, "k2_bwd": 0}:
+    if n != expect(k1_fwd=4 * 3):
         raise RuntimeError("the preset run did not go through K1 alone, "
                            "4 launches per batch")
 
     # ---- phase 4: one batch at the exact CPB (divisor 0) -----------------
     exact = preset.replace(cpb_table_divisor=0, synthetic_test_size=4)
-    reset_counts(cpb)
+    reset_counts()
     metrics0, logits0 = inference.main(exact, device=dev)
     torch.cuda.synchronize()
-    n = counts(cpb)
+    n = counts()
     print(f"[main] serving, divisor 0: launches {n}")
     check_outputs(metrics0, logits0, 4)
-    if n != {"k1_fwd": 0, "k1_bwd": 0, "k2_fwd": 4, "k2_bwd": 0}:
+    if n != expect(k2_fwd=4):
         raise RuntimeError("the divisor-0 run did not go through K2 alone")
 
     # ---- phase 3b: the training entry at the preset, then divisor 0 ------
     train_preset = Config.diag2021().replace(
         synthetic_data=True, synthetic_train_size=3 * 4,
         synthetic_test_size=4, kfold=1, epochs=1, checkpoints="#")
-    train_counts = {}
-    for cfg, steps, used in ((train_preset, 3, "k1"),
-                             (train_preset.replace(cpb_table_divisor=0,
-                                                   synthetic_train_size=4),
-                              1, "k2")):
-        train_counts[used] = run_training_entry(cpb, cfg, dev, steps, used,
-                                                card)
+    train_counts = {
+        "k1": run_training_entry(train_preset, dev, 3,
+                                 dict(k1_fwd=4, k1_bwd=4), dict(k1_fwd=4),
+                                 card),
+        "k2": run_training_entry(
+            train_preset.replace(cpb_table_divisor=0, synthetic_train_size=4),
+            dev, 1, dict(k2_fwd=4, k2_bwd=4), dict(k2_fwd=4), card)}
+    torch.cuda.empty_cache()
+
+    # ---- phase 3c: the student's serving and training entries ----------
+    student = preset.replace(mode="student")
+    for cfg, batches, per_batch in (
+            (student, 3, dict(k1_fwd=2, k3_knn=2, k3_parent=2)),
+            (student.replace(cpb_table_divisor=0, synthetic_test_size=4), 1,
+             dict(k2_fwd=2, k3_knn=2, k3_parent=2))):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics_s, logits_s = inference.main(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts()
+        print(f"[main] student serving, divisor {cfg.cpb_table_divisor}: "
+              f"{batches} batches in {wall:.2f} s (set-up included); "
+              f"launches {n}")
+        check_outputs(metrics_s, logits_s, 4 * batches)
+        want = expect(**{k: v * batches for k, v in per_batch.items()})
+        if n != want:
+            raise RuntimeError(f"student serving: launches {n}, want {want}")
+    student_train = train_preset.replace(mode="student")
+    train_counts["k3"] = run_training_entry(
+        student_train, dev, 3, dict(k1_fwd=2, k1_bwd=2, k3_knn=2, k3_parent=2),
+        dict(k1_fwd=2, k3_knn=2, k3_parent=2), card)
     torch.cuda.empty_cache()
 
     # ---- phase 5: f32 on the card vs the same weights on the CPU ---------
     f32 = preset.replace(attn_bf16_streams=False)
     batch = next(iter(inference.build_fold0_test_loader(f32)))
     with torch.inference_mode():
-        card_out = define_net(f32, dev)(**model_inputs(batch, dev))[2]
-        cpu_out = define_net(f32, "cpu")(**model_inputs(batch, "cpu"))[2]
+        card_out = define_net(f32, dev)(
+            **model_inputs(batch, dev, "teacher"))[2]
+        cpu_out = define_net(f32, "cpu")(
+            **model_inputs(batch, "cpu", "teacher"))[2]
     errs = {k: (card_out[k].cpu() - cpu_out[k]).abs().max().item()
             for k in cpu_out}
     err = max(errs.values())
@@ -430,6 +518,23 @@ def main() -> int:
 
     # ---- phase 5b: one f32 train step on the card vs on the CPU ----------
     compare_train_step(f32.replace(deterministic_training=True), batch, dev)
+
+    # ---- phase 5c: the student in f32, card vs CPU -----------------------
+    s32 = f32.replace(mode="student")
+    with torch.inference_mode():
+        card_out = define_net(s32, dev)(
+            **model_inputs(batch, dev, "student"))[2]
+        cpu_out = define_net(s32, "cpu")(
+            **model_inputs(batch, "cpu", "student"))[2]
+    errs = {k: (card_out[k].cpu() - cpu_out[k]).abs().max().item()
+            for k in cpu_out}
+    print(f"[f32] student card vs CPU logits max_abs_err "
+          f"{max(errs.values()):.3e} (tol {LOGITS_TOL}); per output {errs}")
+    if not max(errs.values()) <= LOGITS_TOL:
+        raise RuntimeError("f32 student logits on the card disagree with "
+                           "the CPU")
+    compare_train_step(s32.replace(deterministic_training=True), batch, dev)
+    torch.cuda.empty_cache()
 
     # ---- phase 6: timings -------------------------------------------------
     with torch.inference_mode():
@@ -465,7 +570,7 @@ def main() -> int:
               f"{k2_flops / k2_ms / 1e9 / 67:.1%} of 67 TFLOP/s f32 | {card}")
         for cfg in (preset, preset.replace(cpb_table_divisor=0)):
             model = define_net(cfg, dev)
-            x = model_inputs(batch, dev)
+            x = model_inputs(batch, dev, "teacher")
             ms = ms_samples(lambda: model(**x), 50)
             med, p80 = median(ms), ms[int(0.8 * len(ms))]
             print(f"[time] eval forward B=4 fixdim=2500 divisor "
@@ -474,34 +579,37 @@ def main() -> int:
                   f"{4000.0 / med:.1f} bags/s, p80 {p80:.3f} ms "
                   f"(50 forwards) | {card}")
         model = define_net(preset, dev)
-        x = model_inputs(batch, dev)
+        x = model_inputs(batch, dev, "teacher")
         profile("eval forward", lambda: model(**x))
 
     # ---- phase 6b: backward kernels and the train step -------------------
     bwd_ms = time_backward_kernels(cpb, bwd, card)
-    time_train_steps(train_preset, batch, dev, card)
+    time_train_steps((train_preset, train_preset.replace(cpb_table_divisor=0),
+                      train_preset), batch, dev, card)
 
-    print(json.dumps({"kernels": [
-        {"name": "cpb_table_interp_fwd (K1-fwd)", "route": "cuda",
-         "source": TABLE_SRC, "replaces": f"{PALLAS}:2158",
-         "launches": train_counts["k1"]["k1_fwd"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "cpb_table_interp_bwd (K1-bwd)", "route": "cuda",
-         "source": f"{CSRC}/cpb_table_bwd.cu", "replaces": f"{PALLAS}:2186",
-         "launches": train_counts["k1"]["k1_bwd"],
-         "max_abs_err": bwd["k1"]["err"], "ms": bwd_ms["k1"][0],
-         "plain_ms": bwd_ms["k1"][1]},
-        {"name": "cpb_exact_fwd (K2-fwd)", "route": "cuda",
-         "source": EXACT_SRC, "replaces": f"{PALLAS}:1422",
-         "launches": train_counts["k2"]["k2_fwd"],
-         "max_abs_err": max(k2_err.values()), "ms": k2_ms,
-         "plain_ms": k2_plain},
-        {"name": "cpb_exact_bwd (K2-bwd)", "route": "cuda",
-         "source": f"{CSRC}/cpb_exact_bwd.cu", "replaces": f"{PALLAS}:1443",
-         "launches": train_counts["k2"]["k2_bwd"],
-         "max_abs_err": bwd["k2"]["err"], "ms": bwd_ms["k2"][0],
-         "plain_ms": bwd_ms["k2"][1]},
-    ]}))
+    # ---- phase 6c: K3 and the student ------------------------------------
+    dpc_ms = time_dpc_kernels(dpc, card)
+    with torch.inference_mode():
+        model = define_net(student, dev)
+        x = model_inputs(batch, dev, "student")
+        ms = ms_samples(lambda: model(**x), 50)
+        print(f"[time] student eval forward B=4 fixdim=2500 divisor 1 "
+              f"bf16_streams True: median {median(ms):.3f} ms/batch = "
+              f"{4000.0 / median(ms):.1f} bags/s, p80 "
+              f"{ms[int(0.8 * len(ms))]:.3f} ms = "
+              f"{4000.0 / ms[int(0.8 * len(ms))]:.1f} bags/s (50 forwards) "
+              f"| {card}")
+        del model
+    time_train_steps((student_train,), batch, dev, card)
+
+    print(json.dumps({"kernels": kernel_line(
+        train_counts, dict(k1=k1_err, k2=max(k2_err.values()),
+                           k1_bwd=bwd["k1"]["err"], k2_bwd=bwd["k2"]["err"],
+                           k3=dpc["err"]),
+        dict(k1=(k1_ms, k1_plain), k2=(k2_ms, k2_plain),
+             k1_bwd=bwd_ms["k1"], k2_bwd=bwd_ms["k2"], **dpc_ms),
+        dict(table=table, taps=taps, fracs=fracs, side=side, gkv=gkv2,
+             w=w, n=side * side), bwd, dpc)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -509,31 +617,176 @@ def main() -> int:
     return 0
 
 
-def run_training_entry(cpb, cfg, dev, steps: int, used: str, card: str):
-    """Phase 3b: the training entry (``main.main``) for one fold; every
-    count set to 0 just before, read just after.  The forward kernel of
-    ``used`` (k1 or k2) launches 4x per step and 4x per eval batch, its
-    backward 4x per step; the other kernel never."""
+def kernel_line(launches, errs, times, fwd, bwd, dpc) -> list[dict]:
+    """The kernels JSON line: each kernel's launches in its training run,
+    its error against its plain version, its time and its plain version's,
+    and its bound from this run's inputs (bytes: inputs read once, outputs
+    written once; flops: the MLP's or the dot products' multiply-adds as
+    2 each)."""
+    side, n = fwd["side"], fwd["n"]
+    R = fwd["taps"].shape[0]
+    tbl = 4 * (fwd["table"].numel() + 4 * R)  # table, taps, fracs
+    k1_bound = bound(tbl + 4 * R * side * side, 9 * R * side * side)
+    k1b = bwd["k1"]
+    k1b_bytes = 4 * (2 * k1b["table"].numel() + 6 * k1b["taps"].shape[0]
+                     + k1b["dout"].numel())
+    k1b_bound = bound(k1b_bytes, 16 * k1b["dout"].numel())
+    points = fwd["gkv"].shape[0] * fwd["gkv"].shape[1] * n
+    hid = 32
+    k2_bound = bound(4 * (points + 2 * n + fwd["gkv"].numel()),
+                     points * 2 * (2 * hid + hid * hid + hid))
+    k2b = bwd["k2"]
+    bpoints = k2b["dbias"].numel()
+    k2b_bound = bound(4 * (bpoints + 2 * k2b["gkv"].numel() + 2 * n),
+                      bpoints * 2 * (64 + 1024 + 32 + 32 + 1024 + 1024 + 64))
+    B, N, C = dpc["x"].shape
+    dots = 2 * B * N * N * C
+    x_bytes = 4 * (B * N * C + B * N)  # x and x2
+    k3k_bound = bound(x_bytes + 4 * B * N * (dpc["k"] + 1), dots)
+    k3p_bound = bound(x_bytes + 4 * B * N * 2, dots)
+    rows = [
+        ("cpb_table_interp_fwd (K1-fwd)", TABLE_SRC, f"{PALLAS}:2158",
+         launches["k1"]["k1_fwd"], errs["k1"], times["k1"], k1_bound),
+        ("cpb_table_interp_bwd (K1-bwd)", f"{CSRC}/cpb_table_bwd.cu",
+         f"{PALLAS}:2186", launches["k1"]["k1_bwd"], errs["k1_bwd"],
+         times["k1_bwd"], k1b_bound),
+        ("cpb_exact_fwd (K2-fwd)", EXACT_SRC, f"{PALLAS}:1422",
+         launches["k2"]["k2_fwd"], errs["k2"], times["k2"], k2_bound),
+        ("cpb_exact_bwd (K2-bwd)", f"{CSRC}/cpb_exact_bwd.cu",
+         f"{PALLAS}:1443", launches["k2"]["k2_bwd"], errs["k2_bwd"],
+         times["k2_bwd"], k2b_bound),
+        ("dpc_knn (K3-knn)", DPC_SRC, f"{PALLAS_DPC}:93",
+         launches["k3"]["k3_knn"], errs["k3"], times["k3_knn"], k3k_bound),
+        ("dpc_parent (K3-parent)", DPC_SRC, f"{PALLAS_DPC}:111",
+         launches["k3"]["k3_parent"], errs["k3"], times["k3_parent"],
+         k3p_bound),
+    ]
+    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": bms, "bound_by": by, "library_ms": None}
+            for name, src, rep, nl, err, (ms, plain), (bms, by) in rows]
+
+
+def check_dpc_kernels(dev, card: str) -> dict:
+    """Phase 2c: K3-knn and K3-parent at B=4, N=2500, C=128, k=5 against
+    their plain versions on the card (f32) and in float64, on LayerNormed
+    random tokens and on the same bags with their second half one repeated
+    vector; then the assignment (2 clusters) on the card against the
+    plain version on the CPU, exactly."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cluster, dpc_knn
+
+    B, N, C, k = 4, 2500, 128, 5
+    gen = torch.Generator().manual_seed(2)
+    x = torch.nn.functional.layer_norm(torch.randn(B, N, C, generator=gen),
+                                       (C,))
+    repeated = x.clone()
+    repeated[:, N // 2:] = (torch.randint(0, 2, (C,), generator=gen) * 2
+                            - 1).float()
+    noise = torch.rand(B, N, generator=gen)
+    err, timed = 0.0, None
+    for case, xh in (("random", x), ("repeated half", repeated)):
+        xd = xh.to(dev)
+        x2 = (xd * xd).sum(-1)
+        knn2, rmax2 = dpc_knn.knn_stream(xd, x2, k)
+        density = (torch.exp(-knn2.clamp_min(1e-12).mean(-1) / C)
+                   + noise.to(dev) * 1e-6)
+        parent2 = dpc_knn.parent_stream(xd, x2, density)
+        torch.cuda.synchronize()
+        plain = dpc_knn.knn_stream_reference(xd, x2, k) + (
+            dpc_knn.parent_stream_reference(xd, x2, density),)
+        x64 = xd.double()
+        x2_64 = (x64 * x64).sum(-1)
+        f64 = dpc_knn.knn_stream_reference(x64, x2_64, k) + (
+            dpc_knn.parent_stream_reference(x64, x2_64, density.double()),)
+        tol = K3_TOL_ULPS * C * 2.0 ** -24 * x2.max().item()
+        for name, got, p, want in zip(("knn2", "rowmax2", "parent2"),
+                                      (knn2, rmax2, parent2), plain, f64):
+            real = want < 1e37  # the no-parent sentinel compared apart
+            e = (got - p).abs().max().item()
+            e64 = (got.double() - want)[real].abs().max().item()
+            p64 = (p.double() - want)[real].abs().max().item()
+            same_sentinels = torch.equal(got >= 1e37, p >= 1e37)
+            print(f"[K3] {case} B={B} N={N} C={C} k={k} {name}: kernel vs "
+                  f"plain max_abs_err {e:.3e} (tol {tol:.3e}); vs float64: "
+                  f"kernel {e64:.3e}, f32 plain {p64:.3e}; no-parent "
+                  f"tokens {int((~real).sum())}, the same: {same_sentinels}"
+                  f" | {card}")
+            if not e <= tol or not same_sentinels:
+                raise RuntimeError(f"K3 {name} disagrees with its plain "
+                                   "version")
+            err = max(err, e)
+        card_idx, card_centers = cluster.dpc_knn_cluster(
+            xd, 2, k, density_noise=noise.to(dev))
+        host_idx, host_centers = cluster.dpc_knn_cluster(
+            xh, 2, k, density_noise=noise)
+        same = (torch.equal(card_centers.cpu(), host_centers)
+                and torch.equal(card_idx.cpu(), host_idx))
+        print(f"[K3] {case}: centres on the card {card_centers.tolist()}, "
+              f"plain on the CPU {host_centers.tolist()}; index_down and "
+              f"idx_cluster identical: {same}")
+        if not same:
+            raise RuntimeError("the assignment on the card differs from the "
+                               "plain version's")
+        if timed is None:
+            timed = dict(x=xd, x2=x2, density=density, k=k)
+    return dict(timed, err=err)
+
+
+def time_dpc_kernels(dpc: dict, card: str) -> dict:
+    """Phase 6c: K3-knn and K3-parent against their plain versions on the
+    random bags of phase 2c."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import dpc_knn
+
+    x, x2, density, k = dpc["x"], dpc["x2"], dpc["density"], dpc["k"]
+    B, N, C = x.shape
+    flops = 2 * B * N * N * C
+    out = {}
+    with torch.inference_mode():
+        out["k3_knn"] = interleaved_ms(
+            lambda: dpc_knn.knn_stream_reference(x, x2, k),
+            lambda: dpc_knn.knn_stream(x, x2, k), 20)
+        out["k3_parent"] = interleaved_ms(
+            lambda: dpc_knn.parent_stream_reference(x, x2, density),
+            lambda: dpc_knn.parent_stream(x, x2, density), 20)
+    for name, (ms, plain) in out.items():
+        print(f"[time] {name} B={B} N={N} C={C}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms; {flops / ms / 1e9:.2f} TFLOP/s = "
+              f"{flops / ms / 1e9 / 67:.1%} of 67 TFLOP/s f32 | {card}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_training_entry(cfg, dev, steps: int, per_step: dict,
+                       per_eval: dict, card: str):
+    """Phases 3b and 3c: the training entry (``main.main``) for one fold;
+    every count set to 0 just before, read just after, and held to
+    ``per_step`` launches per train step and ``per_eval`` per eval batch
+    (0 for every kernel not named)."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch import main as train_main
 
-    reset_counts(cpb)
+    reset_counts()
     t0 = time.perf_counter()
     results = train_main.main(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = counts(cpb)
+    n = counts()
     final = results[0]
     losses = final["train_losses"]
     eval_batches = -(-cfg.synthetic_test_size // cfg.batch_size)
-    other = "k2" if used == "k1" else "k1"
-    want = {f"{used}_fwd": 4 * (steps + eval_batches),
-            f"{used}_bwd": 4 * steps, f"{other}_fwd": 0, f"{other}_bwd": 0}
-    print(f"[train] entry, divisor {cfg.cpb_table_divisor}, bf16 streams "
-          f"{cfg.attn_bf16_streams}: {len(losses)} steps + {eval_batches} "
-          f"eval batch in {wall:.2f} s (data generation and first-call "
-          f"set-up included); losses {losses}; launches {n} | {card}")
+    want = expect(**{k: per_step.get(k, 0) * steps
+                     + per_eval.get(k, 0) * eval_batches
+                     for k in set(per_step) | set(per_eval)})
+    print(f"[train] entry, {cfg.mode}, divisor {cfg.cpb_table_divisor}, bf16 "
+          f"streams {cfg.attn_bf16_streams}: {len(losses)} steps + "
+          f"{eval_batches} eval batch in {wall:.2f} s (data generation and "
+          f"first-call set-up included); losses {losses}; launches {n} "
+          f"| {card}")
     if (len(losses) != steps or not all(map(math.isfinite, losses))
             or not all(math.isfinite(final[k]) for k in
                        ("acc", "auc", "f1"))):
@@ -544,8 +797,9 @@ def run_training_entry(cpb, cfg, dev, steps: int, used: str, card: str):
 
 
 def compare_train_step(cfg, batch, dev) -> None:
-    """Phase 5b: one ``deterministic_training`` f32 step from the same
-    seeded weights on the same batch, on the card and on the CPU."""
+    """Phases 5b and 5c: one ``deterministic_training`` f32 step of
+    ``cfg.mode`` from the same seeded weights on the same batch, on the
+    card and on the CPU."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.models.factory import (
@@ -571,7 +825,7 @@ def compare_train_step(cfg, batch, dev) -> None:
     errs, bias_ok = {}, True
     for name, want in g_cpu.items():
         got = g_card[name]
-        if name.endswith("rel_pos_bias.mlp.2.bias"):
+        if name.endswith(ZERO_GRAD_BIASES):
             floor = 1e-5 * g_cpu[name[:-4] + "weight"].abs().max().item()
             bias_ok &= max(got.abs().max().item(),
                            want.abs().max().item()) <= floor
@@ -580,11 +834,12 @@ def compare_train_step(cfg, batch, dev) -> None:
         errs[name] = ((got - want).norm()
                       / max(want.norm().item(), 1e-30)).item()
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
-    print(f"[f32 step] divisor {cfg.cpb_table_divisor}: card task loss "
+    print(f"[f32 step] {cfg.mode}, divisor {cfg.cpb_table_divisor}: card "
+          f"task loss "
           f"{task_card:.7f} vs CPU {task_cpu:.7f} (rel {task_err:.2e}, tol "
           f"{TASK_LOSS_TOL}); loss {loss_card:.7f} vs {loss_cpu:.7f} (rel "
           f"{loss_err:.2e}, tol {STEP_LOSS_TOL}); {len(errs)} gradients, "
-          f"worst rel-L2 {worst} (tol {GRAD_TOL}); CPB output-bias gradients "
+          f"worst rel-L2 {worst} (tol {GRAD_TOL}); zero-gradient biases "
           f"below their floor: {bias_ok} | {card_line()}")
     if (not loss_err <= STEP_LOSS_TOL or not task_err <= TASK_LOSS_TOL
             or not bias_ok
@@ -640,10 +895,11 @@ def time_backward_kernels(cpb, bwd: dict, card: str) -> dict:
     return {"k1": (k1_ms, k1_plain), "k2": (k2_ms, k2_plain)}
 
 
-def time_train_steps(cfg, batch, dev, card: str, n: int = 30) -> None:
-    """Phase 6b: train bags/s at the preset (divisor 1) and at divisor 0:
-    CUDA events around each of ``n`` steps on a resident batch, after 3
-    warm-up steps; then the profiler over one step of the preset."""
+def time_train_steps(configs, batch, dev, card: str, n: int = 30) -> None:
+    """Phases 6b and 6c: train bags/s of each config (the teacher at the
+    preset, at divisor 0 and at the preset again; the student at the
+    preset): CUDA events around each of ``n`` steps on a resident batch,
+    after 3 warm-up steps; then the profiler over one step of the last."""
     from disentangled_multimodal_learning_tpu_torch.models.factory import (
         define_net)
     from disentangled_multimodal_learning_tpu_torch.train.optim import (
@@ -652,18 +908,18 @@ def time_train_steps(cfg, batch, dev, card: str, n: int = 30) -> None:
         batch_to_tensors, make_train_step)
 
     x = batch_to_tensors(batch, dev)
-    for c in (cfg, cfg.replace(cpb_table_divisor=0), cfg):
+    for c in configs:
         model = define_net(c, dev)
         opt = make_optimizer(c, model.parameters())
         step = make_train_step(model, c, opt, make_scheduler(c, opt, 1000))
         ms = ms_samples(lambda: step(x), n)
         med, p80 = median(ms), ms[int(0.8 * len(ms))]
-        print(f"[time] train step B=4 fixdim=2500 divisor "
+        print(f"[time] {c.mode} train step B=4 fixdim=2500 divisor "
               f"{c.cpb_table_divisor} bf16_streams {c.attn_bf16_streams}: "
               f"median {med:.3f} ms = {4000.0 / med:.1f} train bags/s, p80 "
               f"{p80:.3f} ms = {4000.0 / p80:.1f} bags/s ({n} steps) "
               f"| {card}")
-    profile("train step", lambda: step(x), n=3)
+    profile(f"{configs[-1].mode} train step", lambda: step(x), n=3)
 
 
 def check_outputs(metrics: dict, logits: dict, n_bags: int) -> None:

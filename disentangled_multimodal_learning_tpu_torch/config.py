@@ -1,7 +1,7 @@
-"""Experiment config of the port: the fields the teacher serving and
-training paths read, under the names and defaults of the JAX ``Config``
-(``disentangled_multimodal_learning_tpu/config.py``), so its YAML presets
-load unchanged.  ``yaml`` is imported only when a YAML file is read;
+"""Experiment config of the port: the fields the teacher and student
+serving and training paths read, under the names and defaults of the JAX
+``Config`` (``disentangled_multimodal_learning_tpu/config.py``), so its YAML
+presets load unchanged.  ``yaml`` is imported only when a YAML file is read;
 :meth:`Config.diag2021` holds the flagship preset in code for machines
 without it."""
 
@@ -57,6 +57,10 @@ class Config:
     omic_dim: int = 128
     dropout_rate: float = 0.1
     combination_type_teas: str = "max_confidence"
+    combination_type_stus: str = "max_confidence"
+    # the student's DPC-KNN keeps ceil(fixdim * path_cluster_num) clusters
+    # per bag, at least 2
+    path_cluster_num: float = 0.0008
     # 0 = exact CPB (kernel K2); 1 = divisor-1 table CPB (kernel K1)
     cpb_table_divisor: int = 0
     # bf16 q/k/v, sim and attention streams on the card (softmax in f32)
@@ -67,6 +71,7 @@ class Config:
     seed: int = 42
     checkpoints: str = "./checkpoints"
     checkpoints_teacher: str = "#"
+    checkpoints_student: str = "#"
     # training (JAX config.py:172-203)
     epochs: int = 10
     lr: float = 2.0e-4
@@ -108,14 +113,15 @@ class Config:
                    input_size_omic_tumor=59, input_size_omic_immune=361,
                    input_path_dim=1024, path_dim=128, omic_dim=128,
                    dropout_rate=0.1, combination_type_teas="max_confidence",
-                   cpb_table_divisor=1, attn_bf16_streams=True,
-                   synthetic_data=False, seed=42,
+                   combination_type_stus="max_confidence",
+                   path_cluster_num=0.0008, cpb_table_divisor=1,
+                   attn_bf16_streams=True, synthetic_data=False, seed=42,
                    checkpoints="./checkpoints", checkpoints_teacher="#",
-                   epochs=10, lr=2.0e-4, lr_policy="cosine",
-                   optimizer="adamw", weight_decay=0.01, warmup_epochs=1,
-                   kfold=3, gradient_modulate=True, multiscale_attention=True,
-                   external_eval=False, eval_every_iters=10,
-                   eval_during_training=True)
+                   checkpoints_student="#", epochs=10, lr=2.0e-4,
+                   lr_policy="cosine", optimizer="adamw", weight_decay=0.01,
+                   warmup_epochs=1, kfold=3, gradient_modulate=True,
+                   multiscale_attention=True, external_eval=False,
+                   eval_every_iters=10, eval_during_training=True)
 
     @classmethod
     def from_args(cls, argv=None) -> tuple["Config", argparse.Namespace]:
@@ -134,8 +140,9 @@ class Config:
                                 else type(v))
         parser.add_argument("--checkpoint", default=None,
                             help="reference-named .pth state_dict")
-        parser.add_argument("--device", default=None,
-                            help="torch device (default: cuda if present)")
+        parser.add_argument("--device", default="cuda",
+                            help="torch device (default: cuda; pass cpu to "
+                            "run on the CPU)")
         args = parser.parse_args(argv)
         cfg = cls.from_dict(vars(args)).validate()
         return cfg, args

@@ -1,28 +1,29 @@
-"""Serving entry of the port: evaluate a teacher checkpoint on the fold-0
-test set (counterpart of the root ``inference.py`` -> ``testTeachersModel``
--> ``Evaluator.distill_val``).
+"""Serving entry of the port: evaluate a teacher or student checkpoint on
+the fold-0 test set (counterpart of the root ``inference.py`` ->
+``testTeachersModel`` / ``testStudentsModel`` -> ``Evaluator.distill_val``).
 
     python -m disentangled_multimodal_learning_tpu_torch.inference \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
-        [--checkpoint teacher.pth] [--device cuda]
+        [--mode student] [--checkpoint model.pth] [--device cpu]
 
-Without ``--config`` the in-code diag2021 preset is used (no ``yaml``
-needed).  Without a checkpoint the weights are a seeded random init, with a
-warning.  Prints ``name_tag=value`` for acc, f1, auc, bac, sens, spec and
-prec of tea10, tea20 and teas.
+It runs on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
+and raises where there is no card.  Without ``--config`` the in-code
+diag2021 preset is used (no ``yaml`` needed).  Without a checkpoint (or
+``checkpoints_teacher`` / ``checkpoints_student``) the weights are a seeded
+random init, with a warning.  Prints ``name_tag=value`` for acc, f1, auc,
+bac, sens, spec and prec of tea10, tea20 and teas (stu10, stu20 and stus
+for the student).
 """
 
 from __future__ import annotations
 
 import sys
 
-import torch
-
 from .config import Config
 from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
-from .models.factory import define_net
-from .train.evaluation import Evaluator
+from .models.factory import define_net, require_device
+from .train.trainers import testStudentsModel, testTeachersModel
 from .utils.jax_params import load_checkpoint
 
 
@@ -41,26 +42,26 @@ def build_fold0_test_loader(cfg: Config) -> BagLoader:
     return BagLoader(ds, cfg.batch_size)
 
 
-def main(cfg: Config, checkpoint: str | None = None, device=None,
+def main(cfg: Config, checkpoint: str | None = None, device="cuda",
          model=None) -> tuple[dict, dict]:
     """Evaluate and print.  Returns ``({f"{metric}_{tag}": value},
     {f"logits_{tag}": [M, C]})`` over the M test bags.  A ``model`` given
-    here is used as it is (weights already loaded)."""
-    device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                     else "cpu"))
+    here is used as it is (weights already loaded, on ``device``)."""
+    device = require_device(device)
     loader = build_fold0_test_loader(cfg)
+    student = cfg.mode == "student"
     if model is None:
         model = define_net(cfg, device)
-        ckpt = checkpoint or cfg.checkpoints_teacher
+        ckpt = checkpoint or (cfg.checkpoints_student if student
+                              else cfg.checkpoints_teacher)
         if ckpt and ckpt not in ("#", ""):
             load_checkpoint(model, ckpt)
             print(f"[inference] loaded checkpoint: {ckpt}")
         else:
             print("[inference] WARNING: no checkpoint given, evaluating a "
                   f"random init (seed {cfg.seed})")
-    ev = Evaluator(model, cfg, device)
-    logits, labels = ev.logits(loader)
-    metrics = ev.metrics(logits, labels)
+    test = testStudentsModel if student else testTeachersModel
+    metrics, logits = test(model, loader, cfg)
     print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     return metrics, logits
 

@@ -1,13 +1,16 @@
-"""Training entry of the port: the k-fold teacher training loop of the root
+"""Training entry of the port: the k-fold training loop of the root
 ``main.py`` (synthetic folds, ``main.py:184-192``) -> ``trainTeachersModel``
--> ``run_training`` -> the train step.
+(``trainStudentsModel`` in student mode) -> ``run_training`` -> the train
+step.
 
     python -m disentangled_multimodal_learning_tpu_torch.main \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
-        --checkpoints '#' [--kfold 1] [--epochs 1] [--device cuda]
+        --checkpoints '#' [--mode student] [--kfold 1] [--epochs 1] \\
+        [--device cpu]
 
-Without ``--config`` the in-code diag2021 preset is used (no ``yaml``
-needed).  Fold ``f`` trains on ``synthetic_train_size`` bags drawn from seed
+It trains on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
+and raises where there is no card.  Without ``--config`` the in-code
+diag2021 preset is used (no ``yaml`` needed).  Fold ``f`` trains on ``synthetic_train_size`` bags drawn from seed
 ``seed + f`` and evaluates on ``synthetic_test_size`` bags from
 ``seed + 100 + f``, with a fresh seeded model per fold, as in JAX.  Prints
 the final metrics of each fold.
@@ -18,13 +21,12 @@ from __future__ import annotations
 import sys
 
 import numpy as np
-import torch
 
 from .config import Config
 from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
-from .models.factory import define_net
-from .train.trainers import trainTeachersModel
+from .models.factory import define_net, require_device
+from .train.trainers import trainStudentsModel, trainTeachersModel
 
 
 def synthetic_fold_datasets(cfg: Config, fold: int):
@@ -46,22 +48,21 @@ def make_loaders(cfg: Config, train_ds, test_ds):
             BagLoader(test_ds, cfg.batch_size))
 
 
-def main(cfg: Config, device=None, logger=None) -> dict:
+def main(cfg: Config, device="cuda", logger=None) -> dict:
     """Train every fold; returns ``{fold: final metrics}``."""
     if not cfg.synthetic_data:
         raise NotImplementedError(
             "the port has no real-data loaders yet (ROADMAP Queue 1, entry "
             "points slice); pass --synthetic_data true")
-    device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                     else "cpu"))
+    device = require_device(device)
+    train = trainStudentsModel if cfg.mode == "student" else trainTeachersModel
     np.random.seed(cfg.seed)
     results = {}
     for fold in range(cfg.kfold):
         cfg = cfg.replace(cur_fold=fold)
         loaders = make_loaders(cfg, *synthetic_fold_datasets(cfg, fold))
         model = define_net(cfg, device)
-        _, metrics, ckpt = trainTeachersModel(model, loaders, None, None,
-                                              logger, cfg)
+        _, metrics, ckpt = train(model, loaders, None, None, logger, cfg)
         results[fold] = metrics
         print(f"\n[fold {fold}] " + " ".join(
             f"{k}={v:.4f}" for k, v in metrics.items()

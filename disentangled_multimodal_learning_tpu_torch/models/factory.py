@@ -14,11 +14,10 @@ import math
 import torch
 from torch import nn
 
-from .teacher_student import TeachersNet
+from .teacher_student import StudentsNet, TeachersNet
 
 # modes the JAX factory knows, with the ROADMAP (Queue 1) slice that ports each
 _LATER = {
-    "student": "the student slice",
     "distillation": "the distillation/multiscale slice",
     "multiscale": "the distillation/multiscale slice",
     "deformpathomic": "the deformpathomic slice",
@@ -38,7 +37,18 @@ def full_f32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def define_net(cfg, device="cpu") -> nn.Module:
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device where
+    there is none, instead of running somewhere else."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port runs on the card by "
+            "default; ask for the CPU with device='cpu' (--device cpu)")
+    return device
+
+
+def define_net(cfg, device="cuda") -> nn.Module:
     """``cfg`` -> eval-mode model on ``device`` with random weights drawn
     from ``cfg.seed`` by a ``torch.Generator``; load real weights over them
     with ``utils.jax_params``.  The train step switches the model to train
@@ -47,19 +57,25 @@ def define_net(cfg, device="cpu") -> nn.Module:
     if mode in _LATER:
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet: ROADMAP Queue 1, {_LATER[mode]}")
-    if mode not in ("teacher", "uniteacher"):
+    if mode not in ("teacher", "uniteacher", "student"):
         raise NotImplementedError(f"model [{mode}] is not implemented")
+    device = require_device(device)
     full_f32_matmuls()
-    model = TeachersNet(
-        label_dim=cfg.label_dim,
-        input_size_omic_tumor=cfg.input_size_omic_tumor,
-        input_size_omic_immune=cfg.input_size_omic_immune,
-        input_path_dim=cfg.input_path_dim, path_dim=cfg.path_dim,
-        omic_dim=cfg.omic_dim, dropout_rate=cfg.dropout_rate,
-        combination_type=cfg.combination_type_teas,
-        unimodal=mode == "uniteacher",
-        cpb_table_divisor=cfg.cpb_table_divisor,
-        attn_bf16_streams=cfg.attn_bf16_streams)
+    common = dict(label_dim=cfg.label_dim, input_path_dim=cfg.input_path_dim,
+                  path_dim=cfg.path_dim,
+                  cpb_table_divisor=cfg.cpb_table_divisor,
+                  attn_bf16_streams=cfg.attn_bf16_streams)
+    if mode == "student":
+        model = StudentsNet(sample_ratio=cfg.path_cluster_num,
+                            combination_type=cfg.combination_type_stus,
+                            **common)
+    else:
+        model = TeachersNet(
+            input_size_omic_tumor=cfg.input_size_omic_tumor,
+            input_size_omic_immune=cfg.input_size_omic_immune,
+            omic_dim=cfg.omic_dim, dropout_rate=cfg.dropout_rate,
+            combination_type=cfg.combination_type_teas,
+            unimodal=mode == "uniteacher", **common)
     init_weights(model, cfg.seed)
     return model.to(device).eval()
 

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (pointers and the stream as c_void_p, or
-# ctypes would pass them as 32-bit ints and cut them)
+# ctypes would pass them as 32-bit ints and cut them); each returns an int
 SIGNATURES = {
     "dmlt_cpb_table_interp_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _P),
     "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -41,6 +41,9 @@ SIGNATURES = {
                            _P),
     "dmlt_cpb_exact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _P),
+    "dmlt_dpc_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "dmlt_dpc_parent": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "dmlt_dpc_smem_bytes": (_I,),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Held-out evaluation of the teacher (counterpart of
+"""Held-out evaluation of the teacher and the student (counterpart of
 ``disentangled_multimodal_learning_tpu/train/evaluation.py:41 Evaluator``,
 ``distill_val`` :78): the deterministic forward over a loader, softmax of the
 logits on the host, and the seven classification metrics per tag."""
@@ -10,9 +10,12 @@ import torch
 
 from ..data.contract import LabelCol
 from .metrics import compute_avg_metrics
+from .steps import MODEL_INPUTS
 
 METRIC_NAMES = ("acc", "f1", "auc", "bac", "sens", "spec", "prec")
-TEACHER_TAGS = ("tea10", "tea20", "teas")
+# the logits tags evaluated per model type (JAX distill_val :81-86)
+TAGS = {"teacher": ("tea10", "tea20", "teas"),
+        "student": ("stu10", "stu20", "stus")}
 _LABEL_COL = {"diag2021": LabelCol.DIAG, "grade": LabelCol.GRADE,
               "subtype": LabelCol.SUBTYPE}
 
@@ -22,18 +25,17 @@ def _softmax_np(x):
     return e / e.sum(-1, keepdims=True)
 
 
-def model_inputs(batch, device) -> dict:
-    """Host batch -> the teacher's forward kwargs on ``device``."""
-    def to(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device,
-                                                             non_blocking=True)
-    return dict(x_path10=to(batch.x_path10), x_path20=to(batch.x_path20),
-                x_omic_tumor=to(batch.x_omic_tumor),
-                x_omic_immune=to(batch.x_omic_immune))
+def model_inputs(batch, device, mode: str) -> dict:
+    """Host batch -> the forward kwargs of ``mode``'s model on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(getattr(batch, k))).to(
+        device, non_blocking=True) for k in MODEL_INPUTS[mode]}
 
 
 class Evaluator:
-    def __init__(self, model, cfg, device):
+    """Metrics of ``model`` (a ``cfg.mode`` model) on ``device`` over the
+    tags of ``model_type`` (``teacher`` or ``student``)."""
+
+    def __init__(self, model, cfg, device, model_type: str):
         if cfg.task_type not in _LABEL_COL:
             raise NotImplementedError(
                 f"task_type {cfg.task_type!r}: the port evaluates the "
@@ -42,12 +44,14 @@ class Evaluator:
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
+        self.tags = TAGS[model_type]
 
     @torch.inference_mode()
     def step(self, batch) -> dict:
         """One deterministic forward -> the logits dict, as host numpy.  The
         attention maps are not copied back (``need_attention=False``)."""
-        _, _, logits, *_ = self.model(**model_inputs(batch, self.device))
+        _, _, logits, *_ = self.model(**model_inputs(batch, self.device,
+                                                     self.cfg.mode))
         return {k: v.float().cpu().numpy() for k, v in logits.items()}
 
     def logits(self, loader):
@@ -63,11 +67,11 @@ class Evaluator:
                 np.concatenate(labels))
 
     def metrics(self, logits, labels) -> dict:
-        """``{f"{metric}_{tag}": value}`` for every metric and teacher tag,
-        the keys of the JAX ``distill_val`` dicts."""
+        """``{f"{metric}_{tag}": value}`` for every metric and tag, the keys
+        of the JAX ``distill_val`` dicts."""
         y = labels[:, _LABEL_COL[self.cfg.task_type]]
         out = {}
-        for t in TEACHER_TAGS:
+        for t in self.tags:
             vals = compute_avg_metrics(y, _softmax_np(logits[f"logits_{t}"]))
             out.update({f"{n}_{t}": v for n, v in zip(METRIC_NAMES, vals)})
         return out

@@ -1,12 +1,13 @@
-"""Task losses and the teacher's attention consistency loss (counterpart of
-``disentangled_multimodal_learning_tpu/train/losses.py``: weighted CE :30,
-``nll_surv_loss`` :42, ``task_loss`` :89, ``diag_variance_loss`` :176,
+"""Task losses and the attention consistency losses of the teacher and the
+student (counterpart of ``disentangled_multimodal_learning_tpu/train/losses.py``:
+weighted CE :30, ``nll_surv_loss`` :42, ``task_loss`` :89,
+``path_batch_loss`` :131, ``diag_variance_loss`` :176,
 ``omic_domain_scale_loss`` :183).
 
 Label tensors are integer ``[B, 12]`` in the column order of
-``data/contract.py``.  The attention maps the consistency loss reads may be
-bf16 on the card (``attn_bf16_streams``): the cross-Gram upcasts them and
-contracts in f32, as the JAX einsum does with ``preferred_element_type``.
+``data/contract.py``.  The attention maps the consistency losses read may be
+bf16 on the card (``attn_bf16_streams``): the Grams upcast them and
+contract in f32, as the JAX einsums do with ``preferred_element_type``.
 """
 
 from __future__ import annotations
@@ -60,6 +61,22 @@ def task_loss(task_type: str, logits=None, hazards=None, S=None, label=None,
                              label[:, LabelCol.CENSOR], alpha=0.0)
     return weighted_cross_entropy(logits, label[:, _CLASS_COL[task_type]],
                                   class_weights)
+
+
+def path_batch_loss(att10, att20):
+    """Student cross-scale consistency: per head, the Gram of the batch's
+    flattened maps (``[B, H, K, N]`` here, ``[B, H, N, K]`` in JAX: the
+    contraction over both trailing axes does not see the layout),
+    row-normalized, averaged over heads; the squared difference of the two
+    scales' averages, summed, over B."""
+    n = att10.shape[0]
+
+    def gram_mean(a):
+        a = a.float().flatten(2).transpose(0, 1)                 # [H, B, KN]
+        s = a @ a.transpose(1, 2)                                # [H, B, B]
+        return (s / torch.linalg.vector_norm(s, dim=2, keepdim=True)).mean(0)
+
+    return ((gram_mean(att10) - gram_mean(att20)) ** 2 / n).sum()
 
 
 def diag_variance_loss(x, weight: float = 1.0):

@@ -1,15 +1,19 @@
-"""The teacher train step (counterpart of
+"""The teacher and student train steps (counterpart of
 ``disentangled_multimodal_learning_tpu/train/steps.py``: ``TASK_LABEL_COL``
-:30, ``batch_to_arrays`` :38, ``task_class_weights`` :100 and the teacher /
-uniteacher branch of ``make_train_step`` :109-322).
+:30, ``batch_to_arrays`` :38, ``_model_kwargs`` :48, ``task_class_weights``
+:100 and the teacher / uniteacher / student branches of ``make_train_step``
+:109-322).
 
-One step, in order: the train-mode ``TeachersNet`` forward; the two-scale
-task loss (weighted CE, or the survival NLL) plus, with
-``multiscale_attention``, ``omic_domain_scale_loss`` on the pre-dropout
-attention maps; ``loss.backward()``; with ``gradient_modulate``, the
-modulation of both classifiers' weight gradients; the optimizer step; the
-per-iteration scheduler step.  ``deterministic_training`` runs the forward
-in eval mode (dropout off), the JAX trajectory-parity setting.
+One step, in order: the train-mode forward (``TeachersNet`` or
+``StudentsNet``); the two-scale task loss (weighted CE, or the survival
+NLL) plus, with ``multiscale_attention``, the attention consistency loss
+(the teacher's ``omic_domain_scale_loss`` on its four maps, the student's
+``1000 * path_batch_loss`` on its two), both on the pre-dropout maps;
+``loss.backward()``; for the teachers, with ``gradient_modulate``, the
+modulation of both classifiers' weight gradients (JAX modulates no student
+gradient); the optimizer step; the per-iteration scheduler step.
+``deterministic_training`` runs the forward in eval mode (dropout off, the
+DPC noise pinned), the JAX trajectory-parity setting.
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ TASK_LABEL_COL = {
     "subtype": LabelCol.SUBTYPE,
     "survival": LabelCol.SURVIVAL_BIN,
 }
-MODEL_INPUTS = ("x_path10", "x_path20", "x_omic_tumor", "x_omic_immune")
+_TEACHER_INPUTS = ("x_path10", "x_path20", "x_omic_tumor", "x_omic_immune")
+# the forward's inputs per mode
+MODEL_INPUTS = {"teacher": _TEACHER_INPUTS, "uniteacher": _TEACHER_INPUTS,
+                "student": ("x_path10", "x_path20")}
 
 
 def batch_to_tensors(batch, device) -> dict:
@@ -36,7 +43,7 @@ def batch_to_tensors(batch, device) -> dict:
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device, dtype=dtype, non_blocking=True)
 
-    out = {k: to(getattr(batch, k)) for k in MODEL_INPUTS + ("x_omic",)}
+    out = {k: to(getattr(batch, k)) for k in _TEACHER_INPUTS + ("x_omic",)}
     out["label"] = to(batch.label, torch.int64)
     return out
 
@@ -49,26 +56,32 @@ def task_class_weights(cfg, task: str):
     return cfg.class_weights
 
 
-def _two_scale_task_loss(task, label, logits, hazards, S, class_weights):
+def _two_scale_task_loss(task, label, logits, hazards, S, class_weights,
+                         tags):
     return sum(L.task_loss(task, logits=logits[f"logits_{t}"],
                            hazards=hazards[f"hazards_{t}"], S=S[f"S_{t}"],
                            label=label, class_weights=class_weights)
-               for t in ("tea10", "tea20"))
+               for t in tags)
 
 
 def make_train_step(model, cfg, optimizer, scheduler=None):
-    """The train step of ``cfg.mode`` (teacher or uniteacher):
+    """The train step of ``cfg.mode`` (teacher, uniteacher or student):
     ``step(tensors) -> metrics``, a dict of detached 0-d tensors (``loss``,
     ``taskloss`` and, with ``multiscale_attention``, ``batchloss``); read
     them with ``float()`` only where the host needs the value."""
-    if cfg.mode not in ("teacher", "uniteacher"):
+    mode = cfg.mode
+    if mode not in MODEL_INPUTS:
         raise NotImplementedError(
-            f"mode {cfg.mode!r}: the port trains the teacher and the "
-            "uniteacher (ROADMAP Queue 1 names the slice of each other mode)")
+            f"mode {mode!r}: the port trains the teacher, the uniteacher and "
+            "the student (ROADMAP Queue 1 names the slice of each other mode)")
+    student = mode == "student"
+    inputs = MODEL_INPUTS[mode]
+    tags = ("stu10", "stu20") if student else ("tea10", "tea20")
     task = cfg.task_type
     cw = task_class_weights(cfg, task)
     label_col = int(TASK_LABEL_COL[task])
     train_mode = not cfg.deterministic_training
+    modulate = cfg.gradient_modulate and not student
     nets = (("teacher10_net", "tea10"), ("teacher20_net", "tea20"))
     params = list(model.parameters())
 
@@ -77,14 +90,19 @@ def make_train_step(model, cfg, optimizer, scheduler=None):
         optimizer.zero_grad(set_to_none=True)
         label = tensors["label"]
         features, atts, logits, hazards, S, _ = model(
-            **{k: tensors[k] for k in MODEL_INPUTS})
-        taskloss = _two_scale_task_loss(task, label, logits, hazards, S, cw)
+            **{k: tensors[k] for k in inputs})
+        taskloss = _two_scale_task_loss(task, label, logits, hazards, S, cw,
+                                        tags)
         loss = taskloss
         metrics = {"taskloss": taskloss.detach()}
         if cfg.multiscale_attention:
-            batchloss = L.omic_domain_scale_loss(
-                atts["att1_tea10"], atts["att1_tea20"], atts["att2_tea10"],
-                atts["att2_tea20"])
+            if student:
+                batchloss = 1000.0 * L.path_batch_loss(atts["att_stu10"],
+                                                       atts["att_stu20"])
+            else:
+                batchloss = L.omic_domain_scale_loss(
+                    atts["att1_tea10"], atts["att1_tea20"],
+                    atts["att2_tea10"], atts["att2_tea20"])
             loss = loss + batchloss
             metrics["batchloss"] = batchloss.detach()
         loss.backward()
@@ -94,7 +112,7 @@ def make_train_step(model, cfg, optimizer, scheduler=None):
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if cfg.gradient_modulate:
+        if modulate:
             y = label[:, label_col]
             for net, tag in nets:
                 cls = getattr(model, net).classifier

@@ -1,6 +1,7 @@
-"""The teacher's training driver (counterpart of
+"""The training driver of the teacher and the student (counterpart of
 ``disentangled_multimodal_learning_tpu/train/trainers.py``: ``run_training``
-:60-315 and ``trainTeachersModel`` :364-367) on one device.
+:60-315, ``trainTeachersModel`` :364, ``trainStudentsModel`` :370,
+``testStudentsModel`` :415) on one device.
 
 Per epoch: ``set_epoch`` on the train loader, one train step per batch with
 the scheduler stepped per iteration, the ``eval_every_iters`` cadence
@@ -27,12 +28,13 @@ from .optim import (ReduceLROnPlateau, make_optimizer, make_scheduler,
 from .steps import batch_to_tensors, make_train_step
 
 
-def run_training(cfg, model, loaders, logger=None):
+def run_training(cfg, model, loaders, logger=None, model_type="teacher"):
     """Train ``model`` (on its own device) over ``loaders = (train, test)``;
     returns ``(model, final_metrics, None)``: the trained model, the
-    ``tea*s`` metrics of the final evaluation (``acc``, ``auc``, ...) with
-    every tag's under ``detail``, the last step's ``train_loss`` and every
-    step's under ``train_losses``, and no checkpoint path."""
+    metrics of the final evaluation on the combined tag of ``model_type``
+    (``teas`` or ``stus``: ``acc``, ``auc``, ...) with every tag's under
+    ``detail``, the last step's ``train_loss`` and every step's under
+    ``train_losses``, and no checkpoint path."""
     if cfg.checkpoints not in ("#", ""):
         raise NotImplementedError(
             f"checkpoints={cfg.checkpoints!r}: the port does not save "
@@ -47,7 +49,8 @@ def run_training(cfg, model, loaders, logger=None):
     optimizer = make_optimizer(cfg, model.parameters())
     scheduler = make_scheduler(cfg, optimizer, steps_per_epoch, plateau)
     train_step = make_train_step(model, cfg, optimizer, scheduler)
-    evaluator = Evaluator(model, cfg, device)
+    evaluator = Evaluator(model, cfg, device, model_type)
+    headline = evaluator.tags[-1]  # teas / stus
     torch.manual_seed(cfg.seed + 1234)  # the dropout draws
     start = time.time()
     cur_iters = 0
@@ -71,10 +74,11 @@ def run_training(cfg, model, loaders, logger=None):
                                              for k, v in metrics.items()},
                                 "test": result})
                 print("\rFold: [%2d/%2d] Epoch: [%2d/%2d] Iter [%4d/%4d] || "
-                      "Time: %4.4f sec || Loss: %.4f || auc_teas %.4f"
+                      "Time: %4.4f sec || Loss: %.4f || auc_%s %.4f"
                       % (cfg.cur_fold, cfg.kfold, epoch, cfg.epochs, i + 1,
                          len(train_loader), time.time() - start,
-                         float(metrics["loss"]), result["auc_teas"]),
+                         float(metrics["loss"]), headline,
+                         result[f"auc_{headline}"]),
                       end="", flush=True)
         if plateau is not None and epoch_losses:
             mean_loss = float(torch.stack(epoch_losses).mean())
@@ -83,7 +87,7 @@ def run_training(cfg, model, loaders, logger=None):
     final = {}
     if test_loader is not None:
         detail = evaluate(evaluator, test_loader)
-        final = {n: detail[f"{n}_teas"] for n in METRIC_NAMES}
+        final = {n: detail[f"{n}_{headline}"] for n in METRIC_NAMES}
         final["detail"] = detail
     if losses:
         final["train_losses"] = torch.stack(losses).tolist()
@@ -101,4 +105,27 @@ def evaluate(evaluator, loader) -> dict:
 def trainTeachersModel(model, dataloader, optimizer, scheduler, logger, args):
     """Reference-named entry (``optimizer`` and ``scheduler`` are built from
     ``args``, as in JAX)."""
-    return run_training(args, model, dataloader, logger)
+    return run_training(args, model, dataloader, logger, model_type="teacher")
+
+
+def trainStudentsModel(model, dataloader, optimizer, scheduler, logger, args):
+    """Reference-named entry of the student, as :func:`trainTeachersModel`."""
+    return run_training(args, model, dataloader, logger, model_type="student")
+
+
+def _run_test(model, loader, args, model_type):
+    """The evaluator over ``loader`` in eval mode -> ``(metrics, logits)``:
+    ``{f"{metric}_{tag}": value}`` and ``{f"logits_{tag}": [M, C]}``."""
+    evaluator = Evaluator(model, args, next(model.parameters()).device,
+                          model_type)
+    model.eval()
+    logits, labels = evaluator.logits(loader)
+    return evaluator.metrics(logits, labels), logits
+
+
+def testTeachersModel(model, dataloader, args):
+    return _run_test(model, dataloader, args, "teacher")
+
+
+def testStudentsModel(model, dataloader, args):
+    return _run_test(model, dataloader, args, "student")

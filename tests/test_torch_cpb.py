@@ -165,6 +165,7 @@ def test_kernel_build_key_follows_the_sources(tmp_path, monkeypatch):
     assert first == build.library_dir()
     assert first.parent == build.BUILD_ROOT
     assert {p.name for p in build.sources()} == {
-        "cpb_exact.cu", "cpb_exact_bwd.cu", "cpb_table.cu", "cpb_table_bwd.cu"}
+        "cpb_exact.cu", "cpb_exact_bwd.cu", "cpb_table.cu", "cpb_table_bwd.cu",
+        "dpc_knn.cu"}
     (tmp_path / "cpb_table.cu").write_text("// edited\n")
     assert build.library_dir() != first

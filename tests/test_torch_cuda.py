@@ -22,7 +22,12 @@ consistency loss (1e4 x the variance of near-equal Gram diagonals)
 amplifies f32 differences (measured at full size: 7.6e-5); every gradient
 within 5e-3 rel-L2, because the CPB hidden biases sum nearly cancelling
 cotangents (measured at full size: 1.3e-3); the CPB output biases, whose
-gradient is 0 in exact arithmetic, only checked to be that small.
+gradient is 0 in exact arithmetic, only checked to be that small.  K3
+(the streamed DPC-KNN passes) against their plain versions: the kernel
+sums each C-term dot in another order than cuBLAS; each f32 sum is within
+C 2^-24 max|x|^2 of the exact dot (to first order), so the two squared
+distances (-2 dot) differ by at most 4 C 2^-24 max|x|^2; the cluster
+indices exactly.
 """
 
 import math
@@ -38,13 +43,14 @@ from disentangled_multimodal_learning_tpu_torch.data.synthetic import (
 from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
     normalized_grid)
 from disentangled_multimodal_learning_tpu_torch.models.factory import define_net
-from disentangled_multimodal_learning_tpu_torch.ops import cpb
+from disentangled_multimodal_learning_tpu_torch.ops import cluster, cpb, dpc_knn
 from disentangled_multimodal_learning_tpu_torch.train.optim import make_optimizer
 from disentangled_multimodal_learning_tpu_torch.train.steps import (
     batch_to_tensors, make_train_step)
 
 K1_TOL, K2_TOL, FORWARD_TOL = 1e-5, 1e-4, 1e-4
 K1_BWD_TOL, K2_BWD_TOL, GRAD_TOL = 1e-5, 1e-3, 5e-3
+K3_TOL_ULPS = 4
 
 
 @pytest.fixture
@@ -366,3 +372,112 @@ def test_inference_entry_on_card_with_bf16_streams(dev):
     with torch.inference_mode():
         atts = define_net(cfg, dev)(**_teacher_inputs(dev))[1]
     assert all(a.dtype == torch.bfloat16 for a in atts.values())
+
+
+def _dpc_launches():
+    return dpc_knn.knn_stream.launches, dpc_knn.parent_stream.launches
+
+
+def _ln_tokens(rng, shape, device):
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return torch.nn.functional.layer_norm(x, shape[-1:]).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C,k", [(2, 300, 32, 5), (1, 513, 16, 8),
+                                     (4, 2500, 128, 5)])
+def test_dpc_kernels_match_plain_versions(dev, B, N, C, k):
+    """K3-knn and K3-parent against their plain versions on the card: N not
+    a multiple of the 64-token block nor of the 32-row tile, k up to 8,
+    and the production shape."""
+    rng = np.random.default_rng(N + k)
+    x = _ln_tokens(rng, (B, N, C), dev)
+    x2 = (x * x).sum(-1)
+    density = torch.from_numpy(rng.uniform(size=(B, N)).astype(np.float32)
+                               ).to(dev)
+    before = _dpc_launches()
+    knn2, rmax2 = dpc_knn.knn_stream(x, x2, k)
+    parent2 = dpc_knn.parent_stream(x, x2, density)
+    torch.cuda.synchronize()
+    assert _dpc_launches() == (before[0] + 1, before[1] + 1)
+    want = dpc_knn.knn_stream_reference(x, x2, k) + (
+        dpc_knn.parent_stream_reference(x, x2, density),)
+    tol = K3_TOL_ULPS * C * 2.0 ** -24 * x2.max().item()
+    for got, w in zip((knn2, rmax2, parent2), want):
+        assert got.shape == w.shape
+        assert (got - w).abs().max().item() <= tol
+    top = density.argmax(dim=1)
+    assert (parent2[torch.arange(B), top] == dpc_knn.BIG).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "duplicates"])
+def test_dpc_cluster_on_card_matches_the_cpu(dev, case):
+    """The whole assignment on the card (kernels) and on the CPU (plain
+    versions) gives the same centres and clusters.  The duplicate case
+    repeats one vector of +-1 entries over half of each bag: its distances
+    are exactly 0 in any summation order, so ties are exact on both sides
+    and must be broken the same way (JAX's top-k order)."""
+    rng = np.random.default_rng(3)
+    x = _ln_tokens(rng, (2, 600, 128), "cpu")
+    if case == "duplicates":
+        x[:, 300:] = torch.from_numpy(rng.choice([-1.0, 1.0], size=128)
+                                      .astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(size=(2, 600)).astype(np.float32))
+    host = cluster.dpc_knn_cluster(x, 4, 5, density_noise=noise)
+    before = _dpc_launches()
+    card = cluster.dpc_knn_cluster(x.to(dev), 4, 5,
+                                   density_noise=noise.to(dev))
+    assert _dpc_launches() == (before[0] + 1, before[1] + 1)
+    for got, want in zip(card, host):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_dpc_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 8, 16, device=dev)
+    x2 = torch.zeros(1, 8, device=dev)
+    before = _dpc_launches()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dpc_knn.knn_stream(torch.zeros(1, 8, 6, device=dev), x2, 3)
+    aligned = torch.zeros(8 * 16 + 1, device=dev)[1:].view(1, 8, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        dpc_knn.knn_stream(aligned, x2, 3)
+    with pytest.raises(ValueError, match="float32"):
+        dpc_knn.parent_stream(x.double(), x2, x2)
+    with pytest.raises(ValueError, match="contiguous"):
+        dpc_knn.parent_stream(x, x2, torch.zeros(1, 16, device=dev)[:, ::2])
+    with pytest.raises(ValueError, match="CUDA"):
+        dpc_knn.parent_stream(x, x2, x2.cpu())
+    with pytest.raises(ValueError, match="k=9"):
+        dpc_knn.knn_stream(x, x2, 9)
+    with pytest.raises(ValueError, match="shared memory"):
+        dpc_knn.knn_stream(torch.zeros(1, 8, 1024, device=dev), x2, 3)
+    # empty bags give empty outputs and launch (and count) nothing
+    assert dpc_knn.parent_stream(x[:0], x2[:0], x2[:0]).shape == (0, 8)
+    assert _dpc_launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [1, 0])
+def test_student_forward_on_card_matches_cpu(dev, divisor):
+    """The whole f32 StudentsNet (fixdim 144, B=2, real widths, 2
+    clusters) on the card through the kernels, against the same seeded
+    weights on the CPU through the plain versions: per forward K3-knn and
+    K3-parent twice (one per scale), the CPB kernel of the divisor twice."""
+    cfg = Config(mode="student", fixdim=144, batch_size=2,
+                 cpb_table_divisor=divisor).validate()
+    x = {k: v for k, v in _teacher_inputs("cpu").items()
+         if k in ("x_path10", "x_path20")}
+    before = _launches() + _dpc_launches()
+    with torch.inference_mode():
+        card = define_net(cfg, dev)(**{k: v.to(dev) for k, v in x.items()})
+        host = define_net(cfg, "cpu")(**x)
+    delta = tuple(a - b for a, b in zip(_launches() + _dpc_launches(),
+                                        before))
+    assert delta == ((2, 0, 2, 2) if divisor == 1 else (0, 2, 2, 2))
+    for got, want in zip(card, host):
+        assert set(got) == set(want)
+        for k in want:
+            err = (got[k].cpu() - want[k]).abs().max().item()
+            assert err <= FORWARD_TOL, (k, err)

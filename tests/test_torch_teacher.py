@@ -182,18 +182,18 @@ def test_inference_refuses_real_data_until_ported():
 
 
 def test_define_net_refuses_unported_modes():
-    for mode, slice_name in [("student", "student slice"),
+    for mode, slice_name in [("distillation", "multiscale slice"),
                              ("multiscale", "multiscale slice"),
                              ("deformpathomic", "deformpathomic slice"),
                              ("mcat", "baselines slice")]:
         with pytest.raises(NotImplementedError, match=slice_name):
-            define_net(Config(mode=mode))
+            define_net(Config(mode=mode), "cpu")
 
 
 def test_seeded_init_is_reproducible_and_finite():
     cfg = Config(fixdim=64, cpb_table_divisor=1).validate()
-    a, b = define_net(cfg), define_net(cfg)
-    c = define_net(cfg.replace(seed=cfg.seed + 1))
+    a, b = define_net(cfg, "cpu"), define_net(cfg, "cpu")
+    c = define_net(cfg.replace(seed=cfg.seed + 1), "cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["teacher10_net._fc1.0.weight"],

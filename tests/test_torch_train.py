@@ -250,7 +250,7 @@ def test_dropout_is_live_in_train_mode_and_the_loss_reads_the_pre_dropout_map():
     the model in train mode, and in eval mode under
     ``deterministic_training``."""
     cfg = Config(fixdim=FIXDIM, batch_size=B, cpb_table_divisor=1).validate()
-    model = define_net(cfg)
+    model = define_net(cfg, "cpu")
     x = {k: _t(v) for k, v in _inputs().items()}
     torch.manual_seed(0)
     model.train()
@@ -348,7 +348,7 @@ def test_training_entry_runs_folds_with_the_eval_cadence():
     with pytest.raises(NotImplementedError, match="synthetic_data"):
         tmain.main(cfg.replace(synthetic_data=False), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
-        run_training(cfg.replace(checkpoints="x"), define_net(cfg),
+        run_training(cfg.replace(checkpoints="x"), define_net(cfg, "cpu"),
                      (None, None))
 
 
@@ -439,7 +439,7 @@ def test_train_step_trajectory_matches_jax(monkeypatch, jax_setup, divisor):
     cfg = Config(mode="teacher", fixdim=FIXDIM, batch_size=B,
                  cpb_table_divisor=divisor, epochs=STEPS,
                  deterministic_training=True).validate()
-    model = load_jax_params(define_net(cfg), params, "teacher")
+    model = load_jax_params(define_net(cfg, "cpu"), params, "teacher")
     opt = toptim.make_optimizer(cfg, model.parameters())
     step = make_train_step(model, cfg, opt,
                            toptim.make_scheduler(cfg, opt, 1))
