@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Drives ``disentangled_multimodal_learning_tpu_torch`` (never JAX) through its
-serving entry and its training entry, for the teacher and for the student,
-at the full width of ``config/config_mine_diag2021.yaml`` (fixdim 2500, B=4,
-dims 128, 8 heads; the student with ``path_cluster_num`` 0.0008, 2 clusters
-per bag) with seeded random weights:
+serving entry and its training entry, for the teacher, the student and
+deformpathomic, at the full width of ``config/config_mine_diag2021.yaml``
+(fixdim 2500, B=4, dims 128, 8 heads; the student with ``path_cluster_num``
+0.0008, 2 clusters per bag; deformpathomic at ``attn_dim`` 1, where the cls
+token makes N = 2501 and the 1-D attention K = 625, and at ``attn_dim`` 2
+with ``return_vgrid``) with seeded random weights:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, run
@@ -58,18 +60,39 @@ per bag) with seeded random weights:
    ``deterministic_training`` student step on the card with the CPU;
 6c. times K3 against its plain versions and the student's eval forward and
    train step (bags/s, median and p80), and profiles one student train
-   step (device-busy share).
+   step (device-busy share);
+2d. holds K4-fwd (the 1-D table CPB, R = 10,000 rows of B=4 x G=4 x K=625,
+   O=2, n_q=2501, clipped rows included) against its plain version within
+   ``K4_TOL`` abs, and K4-bwd against its plain version in float64 within
+   ``K4_BWD_TOL`` norm-relative, bitwise equal over two calls; then K2 at
+   the shape the 1-D attention gives it at divisor 0 (16 x 625 x 2501,
+   O=2, the coordinate padded to 2) the same way, within ``K2_TOL`` and
+   ``K2_BWD_TOL``;
+3d. runs the deformpathomic serving entry at attn_dim 1 (divisor 1: K4-fwd
+   2 per batch, 3 batches; divisor 0: K2-fwd 2, 1 batch) and at attn_dim 2
+   with return_vgrid (K1-fwd 2, 1 batch), and the training entry at the
+   same three settings (per step the forward kernel 2 and its backward 2;
+   3 steps at attn_dim 1 divisor 1, 1 step at the others), exact counts;
+5d. compares f32 deformpathomic forwards (logits within ``LOGITS_TOL``)
+   and one f32 ``deterministic_training`` step on the card with the CPU,
+   at attn_dim 1 (divisor 1 and 0) and at attn_dim 2 with return_vgrid;
+6d. times K4 and K2 at the 1-D shape (O=2) against their plain versions,
+   with their bounds, the deformpathomic eval forward and train step of
+   each setting (bags/s, median and p80), and profiles one forward and one
+   train step of each (device-busy share).
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, every count
 set to 0 just before a run and read just after.  In the kernels line the
 ``launches`` are those of the training runs (K1 and K2: the teacher's at
-divisor 1 and 0; K3: the student's at the preset).  Launches made for comparisons
-and timings are not counted.  Each kernel's ``bound_ms`` is the larger of
+divisor 1 and 0; K3: the student's at the preset; K4: deformpathomic's at
+attn_dim 1, divisor 1), and K2's ``max_abs_err`` is the larger of its
+errors at the 2-D and the 1-D shape.  Launches made for comparisons and
+timings are not counted.  Each kernel's ``bound_ms`` is the larger of
 its bytes (each input read once, each output written once) over 3.35 TB/s
 and its flops over 67 TFLOP/s (f32 outside the tensor cores), counted from
-this run's inputs (H100 SXM data sheet); ``library_ms`` is null for all six:
-no single PyTorch call computes any of their functions.
+this run's inputs (H100 SXM data sheet); ``library_ms`` is null for all
+eight: no single PyTorch call computes any of their functions.
 Any failure raises: there is no fallback and no phase is caught.  Exits
 non-zero without a result line when there is no CUDA device.
 """
@@ -120,14 +143,30 @@ K3_TOL_ULPS = 4
 # squared differences of near-equal normalized Grams, whose cancellation
 # amplifies the maps' f32 differences as the teacher's consistency loss
 # does, hence STEP_LOSS_TOL; gradients as the teacher's, the two biases
-# whose gradient is 0 in exact arithmetic checked for being small
+# whose gradient is 0 in exact arithmetic checked for being small: below
+# ZERO_GRAD_FLOOR of their weights' gradient.  In deformpathomic's 1-D
+# attention (K = 625) the CPB output bias sums 25 M cotangents per channel
+# that cancel only in exact arithmetic; their f32 residue reached 3.8e-5
+# of the weight gradient on the H100 and 2.7e-5 on the CPU, through K4 and
+# through K2 alike (this step at full width), hence ZERO_GRAD_FLOOR_1D
 ZERO_GRAD_BIASES = ("rel_pos_bias.mlp.2.bias", "cluster_merge.score.bias")
+ZERO_GRAD_FLOOR, ZERO_GRAD_FLOOR_1D = 1e-5, 1e-4
+# K4: the kernel rounds the two-term lerp op by op as its plain version
+# does, so it should agree bitwise; 1e-6 abs is the stated bound.  K4-bwd
+# against float64: the shift cotangents sum 5,002 terms d * (T[i+1] - T[i])
+# and the table entries ~4,000 contributions each, in f32
+K4_TOL = 1e-6
+K4_BWD_TOL = {"dtable": 1e-5, "dshifts": 1e-5}
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 F32_FLOPS_PER_MS = 67e9       # 67 TFLOP/s outside the tensor cores
 CSRC = "disentangled_multimodal_learning_tpu_torch/csrc"
 TABLE_SRC = f"{CSRC}/cpb_table.cu"
 EXACT_SRC = f"{CSRC}/cpb_exact.cu"
 DPC_SRC = f"{CSRC}/dpc_knn.cu"
+TABLE1D_SRC = f"{CSRC}/cpb_table_1d.cu"
+# phase 5d's f32 deformpathomic settings (the preset's divisor 1 unless named)
+DEFORMPATHOMIC_F32 = ({"attn_dim": 1}, {"attn_dim": 1, "cpb_table_divisor": 0},
+                      {"attn_dim": 2, "return_vgrid": True})
 PALLAS = "disentangled_multimodal_learning_tpu/ops/pallas/deform_attn.py"
 PALLAS_DPC = "disentangled_multimodal_learning_tpu/ops/pallas/dpc_knn.py"
 
@@ -216,14 +255,16 @@ def mlp_weights(o: int, gen, device):
 
 
 def _wrappers():
-    from disentangled_multimodal_learning_tpu_torch.ops import cpb, dpc_knn
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb, cpb1d, dpc_knn
 
     return {"k1_fwd": cpb.table_interp,
             "k1_bwd": cpb.table_interp_backward,
             "k2_fwd": cpb.cpb_bias_transposed,
             "k2_bwd": cpb.cpb_bias_transposed_backward,
             "k3_knn": dpc_knn.knn_stream,
-            "k3_parent": dpc_knn.parent_stream}
+            "k3_parent": dpc_knn.parent_stream,
+            "k4_fwd": cpb1d.table1d_interp,
+            "k4_bwd": cpb1d.table1d_interp_backward}
 
 
 def reset_counts() -> None:
@@ -244,6 +285,19 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time of the card for the work: ``(ms, bound_by)``."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOPS_PER_MS
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_fwd_flops(points: int, o: int, hid: int = 32) -> int:
+    """K2-fwd's multiply-adds (2 flops each) over ``points`` (kv, query)
+    pairs: the MLP 2 -> hid -> hid -> o."""
+    return points * 2 * (2 * hid + hid * hid + hid * o)
+
+
+def k2_bwd_flops(points: int, o: int, hid: int = 32) -> int:
+    """K2-bwd's: the forward recomputed, then w3 (dz2), the w2 product
+    (dz1), the dW2 outer product and w1 (the kv coordinates' cotangent)."""
+    return k2_fwd_flops(points, o, hid) + points * 2 * (
+        hid * o + 2 * hid * hid + 2 * hid)
 
 
 def rel_err(got, want) -> float:
@@ -547,7 +601,7 @@ def main() -> int:
         # bytes and flops counted from the shapes; peaks: 3.35 TB/s HBM,
         # 67 TFLOP/s f32 outside the tensor cores (H100 SXM data sheet)
         k1_bytes = taps.shape[0] * side * side * 4
-        k2_flops = gkv2.shape[0] * K * side * side * 2 * (2 * 32 + 32 * 32 + 32)
+        k2_flops = k2_fwd_flops(gkv2.shape[0] * K * side * side, 1)
         print(f"[time] K1 table_interp R=4608 side=50: kernel {k1_ms:.4f} ms,"
               f" plain {k1_plain:.4f} ms; {k1_bytes / k1_ms / 1e9:.3f} TB/s "
               f"written = {k1_bytes / k1_ms / 1e9 / 3.35:.1%} of 3.35 TB/s "
@@ -601,15 +655,54 @@ def main() -> int:
               f"| {card}")
         del model
     time_train_steps((student_train,), batch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 2d: K4, and K2 at the 1-D shape, against plain versions ---
+    k4 = check_table1d_kernels(dev, card)
+    torch.cuda.empty_cache()
+    k2_1d = check_exact_1d_kernels(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 3d: deformpathomic's serving and training entries --------
+    train_counts["k4"] = run_deformpathomic_entries(preset, train_preset, dev,
+                                                    card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 5d: deformpathomic in f32, card vs CPU --------------------
+    for cfg in DEFORMPATHOMIC_F32:
+        c32 = f32.replace(mode="deformpathomic", **cfg)
+        with torch.inference_mode():
+            card_out = define_net(c32, dev)(
+                **model_inputs(batch, dev, "deformpathomic"))
+            cpu_out = define_net(c32, "cpu")(
+                **model_inputs(batch, "cpu", "deformpathomic"))
+        errs = [(a.cpu() - b).abs().max().item() for a, b in
+                zip(list(card_out[:3]) + list(card_out[3]),
+                    list(cpu_out[:3]) + list(cpu_out[3]))]
+        print(f"[f32] deformpathomic {cfg} card vs CPU: features, vectors "
+              f"and logits max_abs_err {max(errs):.3e} (tol {LOGITS_TOL}); "
+              f"per output {[f'{e:.2e}' for e in errs]}")
+        if not max(errs) <= LOGITS_TOL:
+            raise RuntimeError("f32 deformpathomic outputs on the card "
+                               "disagree with the CPU")
+        del card_out, cpu_out
+        compare_train_step(c32.replace(deterministic_training=True), batch,
+                           dev)
+        torch.cuda.empty_cache()
+
+    # ---- phase 6d: K4 and deformpathomic timings ------------------------
+    k4_ms = time_table1d_kernels(k4, k2_1d, card)
+    time_deformpathomic(preset, train_preset, batch, dev, card)
 
     print(json.dumps({"kernels": kernel_line(
-        train_counts, dict(k1=k1_err, k2=max(k2_err.values()),
-                           k1_bwd=bwd["k1"]["err"], k2_bwd=bwd["k2"]["err"],
-                           k3=dpc["err"]),
+        train_counts, dict(k1=k1_err, k2=max(*k2_err.values(), k2_1d["err"]),
+                           k1_bwd=bwd["k1"]["err"],
+                           k2_bwd=max(bwd["k2"]["err"], k2_1d["bwd_err"]),
+                           k3=dpc["err"], k4=k4["err"], k4_bwd=k4["bwd_err"]),
         dict(k1=(k1_ms, k1_plain), k2=(k2_ms, k2_plain),
-             k1_bwd=bwd_ms["k1"], k2_bwd=bwd_ms["k2"], **dpc_ms),
+             k1_bwd=bwd_ms["k1"], k2_bwd=bwd_ms["k2"], **dpc_ms, **k4_ms),
         dict(table=table, taps=taps, fracs=fracs, side=side, gkv=gkv2,
-             w=w, n=side * side), bwd, dpc)}))
+             w=w, n=side * side), bwd, dpc, k4)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -617,7 +710,7 @@ def main() -> int:
     return 0
 
 
-def kernel_line(launches, errs, times, fwd, bwd, dpc) -> list[dict]:
+def kernel_line(launches, errs, times, fwd, bwd, dpc, k4) -> list[dict]:
     """The kernels JSON line: each kernel's launches in its training run,
     its error against its plain version, its time and its plain version's,
     and its bound from this run's inputs (bytes: inputs read once, outputs
@@ -632,18 +725,27 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc) -> list[dict]:
                      + k1b["dout"].numel())
     k1b_bound = bound(k1b_bytes, 16 * k1b["dout"].numel())
     points = fwd["gkv"].shape[0] * fwd["gkv"].shape[1] * n
-    hid = 32
     k2_bound = bound(4 * (points + 2 * n + fwd["gkv"].numel()),
-                     points * 2 * (2 * hid + hid * hid + hid))
+                     k2_fwd_flops(points, 1))
     k2b = bwd["k2"]
     bpoints = k2b["dbias"].numel()
     k2b_bound = bound(4 * (bpoints + 2 * k2b["gkv"].numel() + 2 * n),
-                      bpoints * 2 * (64 + 1024 + 32 + 32 + 1024 + 1024 + 64))
+                      k2_bwd_flops(bpoints, 1))
     B, N, C = dpc["x"].shape
     dots = 2 * B * N * N * C
     x_bytes = 4 * (B * N * C + B * N)  # x and x2
     k3k_bound = bound(x_bytes + 4 * B * N * (dpc["k"] + 1), dots)
     k3p_bound = bound(x_bytes + 4 * B * N * 2, dots)
+    # K4: the bias written once (fwd) or its cotangent read once (bwd), the
+    # table, taps and fractions read once; 3 flops per output (two products,
+    # a sum), 7 per cotangent element (the scatter's two products and two
+    # sums, the shift term's difference, product and sum)
+    k4_out = k4["out_numel"]
+    k4_small = 4 * (k4["table"].numel() + 2 * k4["taps"].shape[0])
+    k4_bound = bound(4 * k4_out + k4_small, 3 * k4_out)
+    k4b_bound = bound(4 * k4_out + k4_small + 4 * (k4["table"].numel()
+                                                   + k4["taps"].shape[0]),
+                      7 * k4_out)
     rows = [
         ("cpb_table_interp_fwd (K1-fwd)", TABLE_SRC, f"{PALLAS}:2158",
          launches["k1"]["k1_fwd"], errs["k1"], times["k1"], k1_bound),
@@ -660,6 +762,11 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc) -> list[dict]:
         ("dpc_parent (K3-parent)", DPC_SRC, f"{PALLAS_DPC}:111",
          launches["k3"]["k3_parent"], errs["k3"], times["k3_parent"],
          k3p_bound),
+        ("cpb_table_1d_fwd (K4-fwd)", TABLE1D_SRC, f"{PALLAS}:2434",
+         launches["k4"]["k4_fwd"], errs["k4"], times["k4_fwd"], k4_bound),
+        ("cpb_table_1d_bwd (K4-bwd)", f"{CSRC}/cpb_table_1d_bwd.cu",
+         f"{PALLAS}:2450", launches["k4"]["k4_bwd"], errs["k4_bwd"],
+         times["k4_bwd"], k4b_bound),
     ]
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -782,8 +889,7 @@ def run_training_entry(cfg, dev, steps: int, per_step: dict,
     want = expect(**{k: per_step.get(k, 0) * steps
                      + per_eval.get(k, 0) * eval_batches
                      for k in set(per_step) | set(per_eval)})
-    print(f"[train] entry, {cfg.mode}, divisor {cfg.cpb_table_divisor}, bf16 "
-          f"streams {cfg.attn_bf16_streams}: {len(losses)} steps + "
+    print(f"[train] entry, {setting(cfg)}: {len(losses)} steps + "
           f"{eval_batches} eval batch in {wall:.2f} s (data generation and "
           f"first-call set-up included); losses {losses}; launches {n} "
           f"| {card}")
@@ -815,32 +921,35 @@ def compare_train_step(cfg, batch, dev) -> None:
         step = make_train_step(model, cfg, make_optimizer(
             cfg, model.parameters()))
         m = step(batch_to_tensors(batch, device))
-        out[device] = ((m["loss"].item(), m["taskloss"].item()),
+        task_key = "loss3" if cfg.mode == "deformpathomic" else "taskloss"
+        out[device] = ((m["loss"].item(), m[task_key].item()),
                        {name: p.grad.double().cpu()
                         for name, p in model.named_parameters()})
     ((loss_card, task_card), g_card), ((loss_cpu, task_cpu), g_cpu) = (
         out[dev], out["cpu"])
     loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
     task_err = abs(task_card - task_cpu) / abs(task_cpu)
-    errs, bias_ok = {}, True
+    errs, bias_ok, bias_ratio = {}, True, 0.0
     for name, want in g_cpu.items():
         got = g_card[name]
         if name.endswith(ZERO_GRAD_BIASES):
-            floor = 1e-5 * g_cpu[name[:-4] + "weight"].abs().max().item()
-            bias_ok &= max(got.abs().max().item(),
-                           want.abs().max().item()) <= floor
+            rel = ZERO_GRAD_FLOOR_1D if ".attn1d." in name else ZERO_GRAD_FLOOR
+            scale = g_cpu[name[:-4] + "weight"].abs().max().item()
+            ratio = max(got.abs().max().item(), want.abs().max().item()) / scale
+            bias_ok &= ratio <= rel
+            bias_ratio = max(bias_ratio, ratio)
             continue
         # the MaxNets' classifiers get a zero gradient on both sides
         errs[name] = ((got - want).norm()
                       / max(want.norm().item(), 1e-30)).item()
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
-    print(f"[f32 step] {cfg.mode}, divisor {cfg.cpb_table_divisor}: card "
-          f"task loss "
+    print(f"[f32 step] {setting(cfg)}: card task loss "
           f"{task_card:.7f} vs CPU {task_cpu:.7f} (rel {task_err:.2e}, tol "
           f"{TASK_LOSS_TOL}); loss {loss_card:.7f} vs {loss_cpu:.7f} (rel "
           f"{loss_err:.2e}, tol {STEP_LOSS_TOL}); {len(errs)} gradients, "
-          f"worst rel-L2 {worst} (tol {GRAD_TOL}); zero-gradient biases "
-          f"below their floor: {bias_ok} | {card_line()}")
+          f"worst rel-L2 {worst} (tol {GRAD_TOL}); zero-gradient biases at "
+          f"most {bias_ratio:.2e} of their weights' gradient, below their "
+          f"floor: {bias_ok} | {card_line()}")
     if (not loss_err <= STEP_LOSS_TOL or not task_err <= TASK_LOSS_TOL
             or not bias_ok
             or not all(e <= GRAD_TOL for e in errs.values())):
@@ -884,9 +993,7 @@ def time_backward_kernels(cpb, bwd: dict, card: str) -> dict:
     torch.cuda.empty_cache()
     k2_explicit = cuda_ms(lambda: cpb.cpb_bias_transposed_backward_reference(
         k2["grid_q"], k2["gkv"], *k2["w"], k2["dbias"]), 3, warmup=1)
-    # flops counted from the shapes: forward recompute (2->32->32->1) and
-    # backward (w3, the w2 product for dh1, the dW2 outer product, w1)
-    flops = 32 * 144 * 2500 * 2 * (64 + 1024 + 32 + 32 + 1024 + 1024 + 64)
+    flops = k2_bwd_flops(k2["dbias"].numel(), 1)
     print(f"[time] K2-bwd 32x144x2500 O=1: kernel {k2_ms:.4f} ms, plain "
           f"(autograd) {k2_plain:.4f} ms, plain written out "
           f"{k2_explicit:.4f} ms; {flops / k2_ms / 1e9:.2f} TFLOP/s = "
@@ -914,22 +1021,306 @@ def time_train_steps(configs, batch, dev, card: str, n: int = 30) -> None:
         step = make_train_step(model, c, opt, make_scheduler(c, opt, 1000))
         ms = ms_samples(lambda: step(x), n)
         med, p80 = median(ms), ms[int(0.8 * len(ms))]
-        print(f"[time] {c.mode} train step B=4 fixdim=2500 divisor "
-              f"{c.cpb_table_divisor} bf16_streams {c.attn_bf16_streams}: "
-              f"median {med:.3f} ms = {4000.0 / med:.1f} train bags/s, p80 "
+        print(f"[time] train step B=4 fixdim=2500 {setting(c)}: median {med:.3f} ms = {4000.0 / med:.1f} train bags/s, p80 "
               f"{p80:.3f} ms = {4000.0 / p80:.1f} bags/s ({n} steps) "
               f"| {card}")
-    profile(f"{configs[-1].mode} train step", lambda: step(x), n=3)
+    profile(f"train step ({setting(configs[-1])})", lambda: step(x), n=3)
 
 
-def check_outputs(metrics: dict, logits: dict, n_bags: int) -> None:
+def check_outputs(metrics: dict, logits: dict, n_bags: int,
+                  n_metrics: int = 21) -> None:
     import numpy as np
 
     for k, v in logits.items():
         if v.shape != (n_bags, 4) or not np.isfinite(v).all():
             raise RuntimeError(f"{k}: shape {v.shape} or non-finite values")
-    if len(metrics) != 21 or not all(map(math.isfinite, metrics.values())):
+    if (len(metrics) != n_metrics
+            or not all(map(math.isfinite, metrics.values()))):
         raise RuntimeError(f"bad metrics {metrics}")
+
+
+def setting(cfg) -> str:
+    """A config's cell: mode, divisor, bf16 streams (and deformpathomic's
+    attn_dim and return_vgrid)."""
+    out = (f"{cfg.mode}, divisor {cfg.cpb_table_divisor}, bf16 streams "
+           f"{cfg.attn_bf16_streams}")
+    if cfg.mode == "deformpathomic":
+        out += f", attn_dim {cfg.attn_dim}, return_vgrid {cfg.return_vgrid}"
+    return out
+
+
+def deformpathomic_settings(cfg) -> tuple:
+    """``cfg`` (the preset, serving or training) as deformpathomic's three
+    main-path settings: attn_dim 1 at the preset's divisor 1 (K4), attn_dim
+    1 at divisor 0 (K2 with O=2), attn_dim 2 with return_vgrid (K1)."""
+    dp1 = cfg.replace(mode="deformpathomic", attn_dim=1)
+    return (dp1, dp1.replace(cpb_table_divisor=0),
+            cfg.replace(mode="deformpathomic", attn_dim=2, return_vgrid=True))
+
+
+def check_table1d_kernels(dev, card: str) -> dict:
+    """Phase 2d: K4-fwd at deformpathomic's preset shape (B=4 x G=4 rows of
+    K=625 kv points, O=2 channels, n_q=2501 queries, kv points up to 25%
+    past the bound so that some rows clip) against its plain version, and
+    K4-bwd against its plain version in float64 (the f32 plain version's
+    own error printed beside), called twice to show that it is
+    deterministic."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb1d
+
+    B, G, K, O, n_q = 4, 4, 625, 2, 2501
+    kv_bound = 1.0 + 2.0 * 2.0 / (K - 1)  # offset_scale 2 over n_ds - 1
+    gen = torch.Generator().manual_seed(4)
+    w = list(mlp_weights(O, gen, dev))
+    w[0] = w[0][:1].contiguous()  # the 1-coordinate first layer
+    table = cpb1d.cpb_table_1d(*w, n_q=n_q, kv_bound=kv_bound)
+    gkv = ((torch.rand(B * G, K, generator=gen) * 2 - 1)
+           * kv_bound * 1.25).to(dev)
+    taps, fracs = cpb1d.table1d_taps(
+        cpb1d.table1d_shifts(gkv, n_q=n_q, kv_bound=kv_bound),
+        n_q=n_q, tn=table.shape[1])
+    clipped = (fracs < 0) | (fracs > 1)
+    with torch.inference_mode():
+        got = cpb1d.table1d_interp(table, taps, fracs, n_q, K)
+        want = cpb1d.table1d_interp_reference(table, taps, fracs, n_q, K)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"[K4] R={B * G * K} O={O} n_q={n_q} tn={table.shape[1]} out "
+          f"{tuple(got.shape)} clipped rows={int(clipped.sum())} "
+          f"max_abs_err={err:.3e} (tol {K4_TOL}), bitwise equal: "
+          f"{torch.equal(got, want)} | {card}")
+    if (table.shape[1] != 5023 or not clipped.any() or got.shape != want.shape
+            or not err <= K4_TOL):
+        raise RuntimeError("K4 disagrees with its plain version")
+    del got, want
+    dout = torch.randn(B * G, O, K, n_q, generator=gen).to(dev)
+    kb = [cpb1d.table1d_interp_backward(table, taps, fracs, dout, n_q, K)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    det = all(torch.equal(a, b) for a, b in zip(*kb))
+    want = cpb1d.table1d_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), n_q, K)
+    plain = cpb1d.table1d_interp_backward_reference(table, taps, fracs, dout,
+                                                    n_q, K)
+    errs = {n: (rel_err(g, ww), rel_err(p, ww))
+            for n, g, p, ww in zip(("dtable", "dshifts"), kb[0], plain, want)}
+    bwd_err = max((g.double() - ww).abs().max().item()
+                  for g, ww in zip(kb[0], want))
+    clipped_dsh = kb[0][1][clipped].abs().min().item()
+    for n, (e, pe) in errs.items():
+        print(f"[K4-bwd] R={B * G * K} O={O} n_q={n_q} {n}: rel err vs f64 "
+              f"kernel {e:.3e}, f32 plain {pe:.3e} (tol {K4_BWD_TOL[n]}) "
+              f"| {card}")
+    print(f"[K4-bwd] clipped rows' smallest |dshift| {clipped_dsh:.3e}; "
+          f"deterministic (2 calls bitwise equal): {det}; max_abs_err "
+          f"{bwd_err:.3e}")
+    if (not det or not clipped_dsh > 0
+            or not all(e <= K4_BWD_TOL[n] for n, (e, _) in errs.items())):
+        raise RuntimeError("K4-bwd disagrees with its plain version or is "
+                           "not deterministic")
+    return dict(table=table, taps=taps, fracs=fracs, dout=dout, n_q=n_q,
+                kv=K, err=err, bwd_err=bwd_err, out_numel=dout.numel())
+
+
+def exact_backward_in_chunks(cpb, grid_q, gkv, w, dbias, dtype,
+                             rows: int = 2) -> tuple:
+    """K2's plain backward in ``dtype``, ``rows`` rows of ``gkv`` at a time
+    (the weight cotangents summed over the chunks), so that float64 fits
+    the card at the 1-D attention's shape (a chunk's [2, 625, 2501, 32]
+    float64 intermediates are 800 MB each)."""
+    import torch
+
+    parts = [cpb.cpb_bias_transposed_backward_reference(
+        grid_q.to(dtype), gkv[i:i + rows].to(dtype),
+        *(t.to(dtype) for t in w), dbias[i:i + rows].to(dtype))
+        for i in range(0, gkv.shape[0], rows)]
+    return (torch.cat([p[0] for p in parts]),) + tuple(
+        sum(p[j] for p in parts) for j in range(1, 7))
+
+
+def check_exact_1d_kernels(dev, card: str) -> dict:
+    """Phase 2d: K2 at the shape deformpathomic's attn_dim-1 layers give it
+    at divisor 0 (B=4 x G=4 rows of K=625 kv points, n_q=2501 queries, O=2
+    channels, the 1-D coordinate padded with a zero second one and a zero
+    row of ``w1``, as ``models/deform_attention.py`` pads it): K2-fwd
+    against its plain version within ``K2_TOL`` abs, and K2-bwd against
+    its plain version in float64 within ``K2_BWD_TOL`` norm-relative (the
+    f32 plain version's own error printed beside), bitwise equal over two
+    calls.  Returns the inputs (for the timings) and the errors."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+    BG, K, O, n_q = 16, 625, 2, 2501
+    gen = torch.Generator().manual_seed(5)
+    w = list(mlp_weights(O, gen, dev))
+    w[0][1].zero_()
+    grid_q = torch.stack([torch.linspace(-1, 1, n_q, device=dev),
+                          torch.zeros(n_q, device=dev)], dim=-1)
+    gkv = torch.stack([(torch.rand(BG, K, generator=gen) * 2 - 1).to(dev),
+                       torch.zeros(BG, K, device=dev)], dim=-1)
+    with torch.inference_mode():
+        got = cpb.cpb_bias_transposed(grid_q, gkv, *w)
+        want = cpb.cpb_bias_transposed_reference(grid_q, gkv, *w)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"[K2] at the 1-D shape BG={BG} K={K} N={n_q} O={O} out "
+          f"{tuple(got.shape)} bias range [{want.min().item():.3f}, "
+          f"{want.max().item():.3f}] max_abs_err={err:.3e} (tol {K2_TOL}) "
+          f"| {card}")
+    if got.shape != (BG, O, K, n_q) or not err <= K2_TOL:
+        raise RuntimeError("K2 disagrees with its plain version at the 1-D "
+                           "shape")
+    del got, want
+    dbias = torch.randn(BG, O, K, n_q, generator=gen).to(dev)
+    kb = [cpb.cpb_bias_transposed_backward(grid_q, gkv, *w, dbias)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    det = all(torch.equal(a, b) for a, b in zip(*kb))
+    want = exact_backward_in_chunks(cpb, grid_q, gkv, w, dbias, torch.float64)
+    plain = exact_backward_in_chunks(cpb, grid_q, gkv, w, dbias,
+                                     torch.float32)
+    names = ("dgrid_kv", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    errs = {n: (rel_err(g, ww), rel_err(p, ww))
+            for n, g, p, ww in zip(names, kb[0], plain, want)}
+    bwd_err = max((g.double() - ww).abs().max().item()
+                  for g, ww in zip(kb[0], want))
+    print(f"[K2-bwd] at the 1-D shape BG={BG} K={K} N={n_q} O={O} rel err "
+          "vs f64, kernel / f32 plain: " + ", ".join(
+              f"{n} {e:.2e} / {pe:.2e}" for n, (e, pe) in errs.items())
+          + f"; deterministic: {det}; max_abs_err {bwd_err:.3e} | {card}")
+    tol = {n: K2_BWD_TOL["dgrid_kv" if n == "dgrid_kv" else "dw"]
+           for n in names}
+    if not det or not all(e <= tol[n] for n, (e, _) in errs.items()):
+        raise RuntimeError("K2-bwd disagrees with its plain version at the "
+                           "1-D shape or is not deterministic")
+    return dict(grid_q=grid_q, gkv=gkv, w=w, dbias=dbias, err=err,
+                bwd_err=bwd_err)
+
+
+def run_deformpathomic_entries(preset, train_preset, dev, card: str) -> dict:
+    """Phase 3d: deformpathomic's serving entry (3 batches at attn_dim 1,
+    divisor 1; 1 batch at each other setting) and training entry (3 steps
+    at attn_dim 1, divisor 1; 1 step at each other setting), every count
+    set to 0 just before a run and read just after.  Returns the counts of
+    the attn_dim-1, divisor-1 training run (K4's main path)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+
+    kernel = ("k4", "k2", "k1")  # of each setting, in deformpathomic_settings
+    serve = deformpathomic_settings(preset)
+    for cfg, k, batches in zip(serve, kernel, (3, 1, 1)):
+        cfg = cfg.replace(synthetic_test_size=4 * batches)
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics, logits = inference.main(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts()
+        print(f"[main] serving, {setting(cfg)}: {batches} batches in "
+              f"{wall:.2f} s (set-up included); launches {n}")
+        check_outputs(metrics, logits, 4 * batches, n_metrics=7)
+        if n != expect(**{f"{k}_fwd": 2 * batches}):
+            raise RuntimeError(f"deformpathomic serving: launches {n}")
+    train = deformpathomic_settings(train_preset)
+    main_counts = None
+    for cfg, k, steps in zip(train, kernel, (3, 1, 1)):
+        n = run_training_entry(
+            cfg.replace(synthetic_train_size=4 * steps), dev, steps,
+            {f"{k}_fwd": 2, f"{k}_bwd": 2}, {f"{k}_fwd": 2}, card)
+        main_counts = main_counts or n
+        torch.cuda.empty_cache()
+    return main_counts
+
+
+def time_table1d_kernels(k4: dict, k2_1d: dict, card: str) -> dict:
+    """Phase 6d: K4-fwd and K4-bwd against their plain versions (for the
+    backward, autograd through the plain forward with its graph kept), on
+    phase 2d's inputs; then K2-fwd and K2-bwd the same way on phase 2d's
+    inputs at the 1-D attention's shape, with their bounds."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb, cpb1d
+
+    t, taps, fracs, dout = k4["table"], k4["taps"], k4["fracs"], k4["dout"]
+    n_q, kv = k4["n_q"], k4["kv"]
+    nbytes = 4 * dout.numel()
+    with torch.inference_mode():
+        fwd = interleaved_ms(
+            lambda: cpb1d.table1d_interp_reference(t, taps, fracs, n_q, kv),
+            lambda: cpb1d.table1d_interp(t, taps, fracs, n_q, kv), 50)
+    tt, ff = t.detach().requires_grad_(), fracs.detach().requires_grad_()
+    out = cpb1d.table1d_interp_reference(tt, taps, ff, n_q, kv)
+    bwd = interleaved_ms(
+        lambda: torch.autograd.grad(out, (tt, ff), dout, retain_graph=True),
+        lambda: cpb1d.table1d_interp_backward(t, taps, fracs, dout, n_q, kv),
+        20)
+    del out
+    for name, (ms, plain) in (("K4-fwd", fwd), ("K4-bwd", bwd)):
+        print(f"[time] {name} R={taps.shape[0]} O=2 n_q={n_q}: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms; {nbytes / ms / 1e9:.3f} "
+              f"TB/s of the {nbytes / 1e6:.0f} MB bias "
+              f"{'written' if name == 'K4-fwd' else 'cotangent read'} = "
+              f"{nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s | {card}")
+    torch.cuda.empty_cache()
+
+    grid_q, gkv, w, dbias = (k2_1d[k] for k in ("grid_q", "gkv", "w", "dbias"))
+    with torch.inference_mode():
+        k2f = interleaved_ms(
+            lambda: cpb.cpb_bias_transposed_reference(grid_q, gkv, *w),
+            lambda: cpb.cpb_bias_transposed(grid_q, gkv, *w), 3)
+    leaves = [gkv.detach().requires_grad_()] + [
+        x.detach().requires_grad_() for x in w]
+    out = cpb.cpb_bias_transposed_reference(grid_q, *leaves)
+    k2b = interleaved_ms(
+        lambda: torch.autograd.grad(out, leaves, dbias, retain_graph=True),
+        lambda: cpb.cpb_bias_transposed_backward(grid_q, gkv, *w, dbias), 3)
+    del out, leaves
+    torch.cuda.empty_cache()
+    n_kv = gkv.shape[0] * gkv.shape[1]
+    points = n_kv * n_q
+    fwd_bound = bound(4 * (dbias.numel() + 2 * n_q + gkv.numel()),
+                      k2_fwd_flops(points, 2))
+    bwd_bound = bound(4 * (dbias.numel() + 2 * gkv.numel() + 2 * n_q),
+                      k2_bwd_flops(points, 2))
+    for name, (ms, plain), (bms, by) in (("K2-fwd", k2f, fwd_bound),
+                                         ("K2-bwd", k2b, bwd_bound)):
+        print(f"[time] {name} at the 1-D shape {gkv.shape[0]}x{kv}x{n_q} O=2:"
+              f" kernel {ms:.4f} ms, plain{' (autograd)' * (name == 'K2-bwd')}"
+              f" {plain:.4f} ms; bound {bms:.4f} ms by {by} "
+              f"({points / 1e6:.1f} M points) | {card}")
+    return {"k4_fwd": fwd, "k4_bwd": bwd}
+
+
+def time_deformpathomic(preset, train_preset, batch, dev, card: str) -> None:
+    """Phase 6d: eval bags/s (median and p80 of 30 forwards, CUDA events,
+    batch resident) and a profiled forward of each deformpathomic setting,
+    then each setting's train step (bags/s and a profiled step)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+
+    x = model_inputs(batch, dev, "deformpathomic")
+    for cfg in deformpathomic_settings(preset):
+        model = define_net(cfg, dev)
+        with torch.inference_mode():
+            ms = ms_samples(lambda: model(**x), 30)
+            med, p80 = median(ms), ms[int(0.8 * len(ms))]
+            print(f"[time] eval forward B=4 fixdim=2500 {setting(cfg)}: "
+                  f"median {med:.3f} ms/batch = {4000.0 / med:.1f} bags/s, "
+                  f"p80 {p80:.3f} ms = {4000.0 / p80:.1f} bags/s "
+                  f"(30 forwards) | {card}")
+            profile(f"eval forward ({setting(cfg)})", lambda: model(**x))
+        del model
+        torch.cuda.empty_cache()
+    for cfg in deformpathomic_settings(train_preset):
+        time_train_steps((cfg,), batch, dev, card)
+        torch.cuda.empty_cache()
 
 
 def profile(label: str, fn, n: int = 5) -> None:

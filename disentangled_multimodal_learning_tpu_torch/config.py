@@ -1,5 +1,5 @@
-"""Experiment config of the port: the fields the teacher and student
-serving and training paths read, under the names and defaults of the JAX
+"""Experiment config of the port: the fields the teacher, student and
+deformpathomic serving and training paths read, under the names and defaults of the JAX
 ``Config`` (``disentangled_multimodal_learning_tpu/config.py``), so its YAML
 presets load unchanged.  ``yaml`` is imported only when a YAML file is read;
 :meth:`Config.diag2021` holds the flagship preset in code for machines
@@ -65,6 +65,15 @@ class Config:
     cpb_table_divisor: int = 0
     # bf16 q/k/v, sim and attention streams on the card (softmax in f32)
     attn_bf16_streams: bool = False
+    # deformpathomic (JAX config.py:153, :169, :196, :211-214): the
+    # deformable attention's dimension (1: the cls-token 1-D attention, 2:
+    # the 2-D one), the reference's degenerate 1-D sampler, the vgrid
+    # consistency loss (attn_dim 2 only), the branch fusion
+    attn_dim: int = 2
+    degenerate_1d_sampling: bool = False
+    return_vgrid: bool = False
+    fusion_type: str = "concat"
+    mmhid: int = 128
     synthetic_data: bool = False
     synthetic_train_size: int = 64
     synthetic_test_size: int = 32
@@ -115,6 +124,8 @@ class Config:
                    dropout_rate=0.1, combination_type_teas="max_confidence",
                    combination_type_stus="max_confidence",
                    path_cluster_num=0.0008, cpb_table_divisor=1,
+                   attn_dim=2, return_vgrid=False, fusion_type="concat",
+                   mmhid=128,
                    attn_bf16_streams=True, synthetic_data=False, seed=42,
                    checkpoints="./checkpoints", checkpoints_teacher="#",
                    checkpoints_student="#", epochs=10, lr=2.0e-4,
@@ -156,6 +167,19 @@ class Config:
             raise ValueError(f"fixdim={self.fixdim} must be a perfect square: "
                              "the deformable 2-D attention views the bag as a "
                              "sqrt(N) x sqrt(N) grid")
+        if self.attn_dim not in (1, 2):
+            raise ValueError(f"attn_dim={self.attn_dim}: want 1 or 2")
+        if self.attn_dim == 1 and self.return_vgrid:
+            raise ValueError(
+                "return_vgrid needs attn_dim 2: at attn_dim 1 the model has "
+                "no vgrid for batch_loss_vgrid (JAX returns None there and "
+                "the loss fails on it)")
+        if self.fusion_type != "concat":
+            raise NotImplementedError(
+                f"fusion_type={self.fusion_type!r}: the port fuses the "
+                "deformpathomic branches by concatenation; BilinearFusion "
+                "(models/fusion.py) comes with the baselines slice (ROADMAP "
+                "Queue 1)")
         return self
 
     def replace(self, **kw) -> "Config":

@@ -40,6 +40,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fixed_order_sum.cuh"
+
 namespace {
 
 constexpr int kHid = 32;
@@ -216,26 +218,11 @@ cpb_exact_bwd_partial_kernel(const float* __restrict__ grid_q,
       }
     }
     // dgrid_kv of the row: fixed-order block sum
-    for (int off = 16; off > 0; off >>= 1) {
-      gx += __shfl_down_sync(0xffffffffu, gx, off);
-      gy += __shfl_down_sync(0xffffffffu, gy, off);
-    }
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    if (lane == 0) {
-      s_red[warp] = gx;
-      s_red[kWarps + warp] = gy;
-    }
-    __syncthreads();
+    float g[2] = {gx, gy};
+    block_sum<kThreads>(g, s_red);
     if (threadIdx.x == 0) {
-      float sx = 0.0f;
-      float sy = 0.0f;
-      for (int w = 0; w < kWarps; ++w) {
-        sx += s_red[w];
-        sy += s_red[kWarps + w];
-      }
-      dgrid_kv[2 * r] = sx;
-      dgrid_kv[2 * r + 1] = sy;
+      dgrid_kv[2 * r] = g[0];
+      dgrid_kv[2 * r + 1] = g[1];
     }
   }
   float* out = partial + static_cast<size_t>(blockIdx.x) * P;
@@ -244,17 +231,6 @@ cpb_exact_bwd_partial_kernel(const float* __restrict__ grid_q,
     const int e = threadIdx.x + k * kThreads;
     if (e < P) out[e] = acc[k];
   }
-}
-
-// grads[e] = sum over the partials in block order.
-__global__ void cpb_exact_bwd_reduce_kernel(const float* __restrict__ partial,
-                                            int nparts, int P,
-                                            float* __restrict__ grads) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= P) return;
-  float s = 0.0f;
-  for (int b = 0; b < nparts; ++b) s += partial[static_cast<size_t>(b) * P + e];
-  grads[e] = s;
 }
 
 }  // namespace
@@ -294,9 +270,5 @@ extern "C" int dmlt_cpb_exact_bwd(const void* grid_q, const void* grid_kv,
       O, rows_per_block);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int P = num_params(O);
-  cpb_exact_bwd_reduce_kernel<<<(P + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), nparts, P,
-      static_cast<float*>(grads));
-  return static_cast<int>(cudaGetLastError());
+  return sum_partials(partial, nparts, num_params(O), grads, s);
 }

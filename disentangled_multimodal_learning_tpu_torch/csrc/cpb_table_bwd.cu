@@ -41,33 +41,12 @@
 
 #include <cuda_runtime.h>
 
+#include "fixed_order_sum.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// Sum of (a, b) over the block, valid in thread 0; fixed order.
-__device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, off);
-    b += __shfl_down_sync(0xffffffffu, b, off);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[warp] = a;
-    red[kWarps + warp] = b;
-  }
-  __syncthreads();
-  float2 s = make_float2(0.0f, 0.0f);
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w) {
-      s.x += red[w];
-      s.y += red[kWarps + w];
-    }
-  }
-  return s;
-}
 
 __global__ void __launch_bounds__(kThreads)
 cpb_table_bwd_partial_kernel(const float* __restrict__ table, int tn_rows,
@@ -131,26 +110,16 @@ cpb_table_bwd_partial_kernel(const float* __restrict__ table, int tn_rows,
                       ((y > 0) ? s_m[(y - 1) * w + x] : 0.0f) * fy;
       s_dtab[(y0 + y) * tn_cols + x0 + x] += v;
     }
-    const float2 s = block_sum2(sy, sx, s_red);
+    float s[2] = {sy, sx};
+    block_sum<kThreads>(s, s_red);
     if (threadIdx.x == 0) {
-      dfracs[2 * r] = s.x;
-      dfracs[2 * r + 1] = s.y;
+      dfracs[2 * r] = s[0];
+      dfracs[2 * r + 1] = s[1];
     }
   }
   __syncthreads();
   float* out = partial + static_cast<size_t>(blockIdx.x) * tsize;
   for (int i = threadIdx.x; i < tsize; i += blockDim.x) out[i] = s_dtab[i];
-}
-
-// dtable[i] = sum over the partial tables in block order.
-__global__ void cpb_table_bwd_reduce_kernel(const float* __restrict__ partial,
-                                            int nparts, int tsize,
-                                            float* __restrict__ dtable) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= tsize) return;
-  float s = 0.0f;
-  for (int p = 0; p < nparts; ++p) s += partial[static_cast<size_t>(p) * tsize + i];
-  dtable[i] = s;
 }
 
 }  // namespace
@@ -186,8 +155,5 @@ extern "C" int dmlt_cpb_table_interp_bwd(const void* table, int tn_rows,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tsize = tn_rows * tn_cols;
-  cpb_table_bwd_reduce_kernel<<<(tsize + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), nparts, tsize,
-      static_cast<float*>(dtable));
-  return static_cast<int>(cudaGetLastError());
+  return sum_partials(partial, nparts, tsize, dtable, s);
 }

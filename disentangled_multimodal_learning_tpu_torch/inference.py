@@ -1,18 +1,21 @@
-"""Serving entry of the port: evaluate a teacher or student checkpoint on
-the fold-0 test set (counterpart of the root ``inference.py`` ->
-``testTeachersModel`` / ``testStudentsModel`` -> ``Evaluator.distill_val``).
+"""Serving entry of the port: evaluate a teacher, student or deformpathomic
+checkpoint on the fold-0 test set (counterpart of the root ``inference.py``
+-> ``testTeachersModel`` / ``testStudentsModel`` -> ``Evaluator.distill_val``,
+``testDeformPathomicModel`` -> ``Evaluator.fused_val``).
 
     python -m disentangled_multimodal_learning_tpu_torch.inference \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
-        [--mode student] [--checkpoint model.pth] [--device cpu]
+        [--mode student | --mode deformpathomic --attn_dim 1] \\
+        [--checkpoint model.pth] [--device cpu]
 
 It runs on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
 and raises where there is no card.  Without ``--config`` the in-code
 diag2021 preset is used (no ``yaml`` needed).  Without a checkpoint (or
-``checkpoints_teacher`` / ``checkpoints_student``) the weights are a seeded
-random init, with a warning.  Prints ``name_tag=value`` for acc, f1, auc,
-bac, sens, spec and prec of tea10, tea20 and teas (stu10, stu20 and stus
-for the student).
+``checkpoints_teacher`` for the teachers, ``checkpoints_student`` for the
+other modes, as in JAX) the weights are a seeded random init, with a
+warning.  Prints ``name_tag=value`` for acc, f1, auc, bac, sens, spec and
+prec of tea10, tea20 and teas (stu10, stu20 and stus for the student);
+deformpathomic prints ``name=value`` for its fused logits.
 """
 
 from __future__ import annotations
@@ -23,8 +26,13 @@ from .config import Config
 from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
 from .models.factory import define_net, require_device
-from .train.trainers import testStudentsModel, testTeachersModel
+from .train.trainers import (testDeformPathomicModel, testStudentsModel,
+                             testTeachersModel)
 from .utils.jax_params import load_checkpoint
+
+_TESTS = {"teacher": testTeachersModel, "uniteacher": testTeachersModel,
+          "student": testStudentsModel,
+          "deformpathomic": testDeformPathomicModel}
 
 
 def build_fold0_test_loader(cfg: Config) -> BagLoader:
@@ -49,19 +57,18 @@ def main(cfg: Config, checkpoint: str | None = None, device="cuda",
     here is used as it is (weights already loaded, on ``device``)."""
     device = require_device(device)
     loader = build_fold0_test_loader(cfg)
-    student = cfg.mode == "student"
     if model is None:
         model = define_net(cfg, device)
-        ckpt = checkpoint or (cfg.checkpoints_student if student
-                              else cfg.checkpoints_teacher)
+        ckpt = checkpoint or (
+            cfg.checkpoints_teacher if cfg.mode in ("teacher", "uniteacher")
+            else cfg.checkpoints_student)
         if ckpt and ckpt not in ("#", ""):
             load_checkpoint(model, ckpt)
             print(f"[inference] loaded checkpoint: {ckpt}")
         else:
             print("[inference] WARNING: no checkpoint given, evaluating a "
                   f"random init (seed {cfg.seed})")
-    test = testStudentsModel if student else testTeachersModel
-    metrics, logits = test(model, loader, cfg)
+    metrics, logits = _TESTS[cfg.mode](model, loader, cfg)
     print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     return metrics, logits
 

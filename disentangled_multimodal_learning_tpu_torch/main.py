@@ -1,12 +1,12 @@
 """Training entry of the port: the k-fold training loop of the root
 ``main.py`` (synthetic folds, ``main.py:184-192``) -> ``trainTeachersModel``
-(``trainStudentsModel`` in student mode) -> ``run_training`` -> the train
-step.
+(``trainStudentsModel`` in student mode, ``trainDeformPathomicModel`` in
+deformpathomic mode) -> ``run_training`` -> the train step.
 
     python -m disentangled_multimodal_learning_tpu_torch.main \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
-        --checkpoints '#' [--mode student] [--kfold 1] [--epochs 1] \\
-        [--device cpu]
+        --checkpoints '#' [--mode student | --mode deformpathomic \\
+        --attn_dim 1] [--kfold 1] [--epochs 1] [--device cpu]
 
 It trains on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
 and raises where there is no card.  Without ``--config`` the in-code
@@ -26,7 +26,11 @@ from .config import Config
 from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
 from .models.factory import define_net, require_device
-from .train.trainers import trainStudentsModel, trainTeachersModel
+from .train.trainers import (trainDeformPathomicModel, trainStudentsModel,
+                             trainTeachersModel)
+
+_TRAINS = {"student": trainStudentsModel,
+           "deformpathomic": trainDeformPathomicModel}
 
 
 def synthetic_fold_datasets(cfg: Config, fold: int):
@@ -55,7 +59,7 @@ def main(cfg: Config, device="cuda", logger=None) -> dict:
             "the port has no real-data loaders yet (ROADMAP Queue 1, entry "
             "points slice); pass --synthetic_data true")
     device = require_device(device)
-    train = trainStudentsModel if cfg.mode == "student" else trainTeachersModel
+    train = _TRAINS.get(cfg.mode, trainTeachersModel)
     np.random.seed(cfg.seed)
     results = {}
     for fold in range(cfg.kfold):

@@ -1,20 +1,25 @@
-"""2-D deformable cross attention with the CPB bias (counterpart of
-``disentangled_multimodal_learning_tpu/models/deform_attention.py``:
-``CPB`` :166 and ``DeformCrossAttention2D`` :382).
+"""2-D and 1-D deformable cross attention with the CPB bias (counterpart
+of ``disentangled_multimodal_learning_tpu/models/deform_attention.py``:
+``CPB`` :166, ``DeformCrossAttention2D`` :382 and
+``DeformCrossAttention1D`` :566).
 
 The port runs the kv-major **"kn"** attention layout ``[B, H, K, N]`` that
 the TPU runs: the CPB bias comes out of its kernel in that layout, and
 sim, softmax (over K) and PV consume it with no transpose.
 
 Parameter names and shapes follow the reference state_dict that
-``utils/torch_export.py`` writes (grouped 1x1 convs ``[out, in/G, 1, 1]``,
-the depthwise offset conv ``[od, 1, k, k]``, the CPB MLP as
-``mlp.{0.0,1.0,2}``), so exported JAX weights load with ``strict=True``.
+``utils/torch_export.py`` writes (2-D: grouped 1x1 convs ``[out, in/G, 1,
+1]``, the depthwise offset conv ``[od, 1, k, k]``; 1-D: ungrouped 1x1
+conv1ds ``[out, in, 1]``, the depthwise offset conv ``[od, 1, k]``; the CPB
+MLP as ``mlp.{0.0,1.0,2}``), so exported JAX weights load with
+``strict=True``.
 
-Dtype policy (JAX ``:38-42``, ``:534-545``): on the card with
-``attn_bf16_streams`` the q/k/v projections and both attention matmuls take
-bf16 operands and the ``[B, H, K, N]`` sim / attention streams are stored in
-bf16, while the softmax upcasts and reduces in f32.  Everywhere else (and
+Dtype policy (JAX ``:38-42``, ``:534-545``, ``:664-680``): on the card
+with ``attn_bf16_streams`` both attention matmuls take bf16 operands and the
+``[B, H, K, N]`` sim / attention streams are stored in bf16, while the
+softmax upcasts and reduces in f32; the 2-D module's grouped q/k/v
+projections take bf16 operands too (the 1-D module's ungrouped ones stay
+f32, as JAX's ``nn.Dense`` there has no dtype).  Everywhere else (and
 always on the CPU) everything is f32.
 """
 
@@ -27,24 +32,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cpb as cpb_ops
+from ..ops import cpb1d as cpb1d_ops
 
 
 class PointwiseConv(nn.Module):
     """1x1 conv, optionally grouped, applied to channels-last tokens
     ``[..., in] -> [..., out]``.  Holds the reference's Conv2d weight
-    ``[out, in/groups, 1, 1]``; computes as a (block-diagonal) matmul, so the
-    tokens never go through NCHW."""
+    ``[out, in/groups, 1, 1]`` (Conv1d ``[out, in/groups, 1]`` with
+    ``conv1d``); computes as a (block-diagonal) matmul, so the tokens never
+    go through NCHW."""
 
     def __init__(self, in_features: int, out_features: int, groups: int = 1,
-                 bias: bool = False):
+                 bias: bool = False, conv1d: bool = False):
         super().__init__()
         self.groups = groups
+        kernel = (1,) if conv1d else (1, 1)
         self.weight = nn.Parameter(
-            torch.empty(out_features, in_features // groups, 1, 1))
+            torch.empty(out_features, in_features // groups, *kernel))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x, dtype: torch.dtype | None = None):
-        w = self.weight[..., 0, 0]
+        w = self.weight.flatten(1)
         if dtype is not None:
             x, w = x.to(dtype), w.to(dtype)
         if self.groups == 1:
@@ -67,17 +75,22 @@ class Scale(nn.Module):
 
 
 class CPB(nn.Module):
-    """SwinV2 continuous position bias MLP (2 -> dim -> dim -> heads/groups,
-    relu).  :meth:`forward` returns the kv-major bias ``[B, H, K, N]``:
-    through the table kernel K1 at ``table_divisor == 1``, through the exact
-    kernel K2 at 0."""
+    """SwinV2 continuous position bias MLP (``coords`` -> dim -> dim ->
+    heads/groups, relu; ``coords`` 2 for the 2-D module, 1 for the 1-D).
+    :meth:`forward` returns the kv-major bias ``[B, H, K, N]``: in 2-D
+    through the table kernel K1 at ``table_divisor == 1``; in 1-D through
+    the 1-D table kernel K4 at any ``table_divisor > 0`` (the 1-D lattice
+    always has the query spacing, JAX ``:190-195``); through the exact
+    kernel K2 at 0, the 1-D coordinate padded with a zero second one and a
+    zero row of ``w1`` (JAX ``:285-298``)."""
 
-    def __init__(self, dim: int, heads: int, offset_groups: int):
+    def __init__(self, dim: int, heads: int, offset_groups: int,
+                 coords: int = 2):
         super().__init__()
         self.heads = heads
         self.offset_groups = offset_groups
         self.mlp = nn.Sequential(
-            nn.Sequential(nn.Linear(2, dim), nn.ReLU()),
+            nn.Sequential(nn.Linear(coords, dim), nn.ReLU()),
             nn.Sequential(nn.Linear(dim, dim), nn.ReLU()),
             nn.Linear(dim, heads // offset_groups))
 
@@ -89,11 +102,19 @@ class CPB(nn.Module):
 
     def forward(self, grid_q, grid_kv, *, side: int, table_divisor: int,
                 kv_bound: float):
-        """``grid_q [N, 2]``, ``grid_kv [B*G, K, 2]`` -> ``[B, H, K, N]``."""
-        bg, k, _ = grid_kv.shape
+        """``grid_q [N, P]``, ``grid_kv [B*G, K, P]`` -> ``[B, H, K, N]``
+        (``side`` is the 2-D grid's side; the 1-D table needs none)."""
+        bg, k, P = grid_kv.shape
         b = bg // self.offset_groups
         w = self.weights()
-        if table_divisor == 1 and w[4].shape[1] == 1:
+        if P == 1 and table_divisor > 0:
+            bias = cpb1d_ops.cpb_bias_table_1d(
+                grid_kv[..., 0], *w, n_q=grid_q.shape[0], kv_bound=kv_bound)
+        elif P == 1:
+            bias = cpb_ops.cpb_bias_transposed(
+                F.pad(grid_q, (0, 1)), F.pad(grid_kv, (0, 1)),
+                torch.cat([w[0], torch.zeros_like(w[0])]), *w[1:])
+        elif table_divisor == 1 and w[4].shape[1] == 1:
             bias = cpb_ops.cpb_bias_table(grid_kv, *w, side=side,
                                           kv_bound=kv_bound)
         else:
@@ -152,7 +173,7 @@ class DeformCrossAttention2D(nn.Module):
         self.rel_pos_bias = CPB(dim // 4, heads, offset_groups)
         self.to_out = PointwiseConv(inner, dim, bias=True)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, return_vgrid: bool = False):
         B, N, C = x1.shape
         side = math.isqrt(N)
         if side * side != N:
@@ -205,4 +226,103 @@ class DeformCrossAttention2D(nn.Module):
         out = torch.matmul(dropped.transpose(-1, -2).to(opd),
                            vh.to(opd)).float()
         out = out.transpose(1, 2).reshape(B, N, H * dh)
-        return self.to_out(out), attn
+        return self.to_out(out), (vgrid if return_vgrid else attn)
+
+
+class DeformCrossAttention1D(nn.Module):
+    """x1 queries, x2 sampled as kv at ``n_ds`` deformed positions along the
+    sequence (``deform_attention.py:566``; the reference instantiates it
+    with dim 128, downsample 4, offset scale 2, kernel 6, 4 offset groups
+    and ungrouped q/k/v).  Inputs ``[B, N, C]``; returns ``out [B, N, C]``.
+    No attention map leaves the module, as in JAX.
+
+    ``degenerate_sampling`` reproduces the reference's pad-to-2-D
+    ``grid_sample`` (JAX ``grid_sample_1d_torchtrick``: the sequence's
+    centre token times ``max(1 - |v| / 2, 0)``); the default samples the
+    sequence bilinearly (zeros padding, align_corners=False), here
+    ``F.grid_sample`` on a ``[B*G, C/G, 1, N]`` image at y = 0.  The CPB
+    takes the 1-D table (K4) at any ``cpb_table_divisor > 0`` and the exact
+    MLP (K2) at 0."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
+                 dropout: float = 0.0, downsample_factor: int = 4,
+                 offset_scale: float = 2.0, offset_groups: int = 4,
+                 offset_kernel_size: int = 6,
+                 degenerate_sampling: bool = False, cpb_table_divisor: int = 0,
+                 attn_bf16_streams: bool = False):
+        super().__init__()
+        inner = dim_head * heads
+        od = inner // offset_groups
+        self.dim_head, self.heads, self.offset_groups = dim_head, heads, offset_groups
+        self.dropout = dropout
+        self.offset_scale = offset_scale
+        self.degenerate_sampling = degenerate_sampling
+        self.cpb_table_divisor = cpb_table_divisor
+        self.attn_bf16_streams = attn_bf16_streams
+        self.to_q = PointwiseConv(dim, inner, conv1d=True)
+        self.to_k = PointwiseConv(dim, inner, conv1d=True)
+        self.to_v = PointwiseConv(dim, inner, conv1d=True)
+        pad = (offset_kernel_size - downsample_factor) // 2
+        self.to_offsets = nn.Sequential(
+            nn.Conv1d(od, od, offset_kernel_size, stride=downsample_factor,
+                      padding=pad, groups=od),
+            nn.GELU(),
+            nn.Conv1d(od, 1, 1, bias=False),
+            nn.Tanh(),
+            Scale(offset_scale))
+        self.rel_pos_bias = CPB(dim // 4, heads, offset_groups, coords=1)
+        self.to_out = PointwiseConv(inner, dim, bias=True, conv1d=True)
+
+    def forward(self, x1, x2):
+        B, N, C = x1.shape
+        G, H, dh = self.offset_groups, self.heads, self.dim_head
+        low = self.attn_bf16_streams and x1.is_cuda
+        # the attention's matmul operands and its sim / attn streams
+        sdt = torch.bfloat16 if low else torch.float32
+
+        q = self.to_q(x1)                                        # [B, N, inner]
+        # offsets: the depthwise conv is shared by the G groups, so the
+        # groups fold into the batch ([B*G, od, N])
+        qg = q.reshape(B, N, G, -1).permute(0, 2, 3, 1).reshape(B * G, -1, N)
+        off = self.to_offsets(qg)[:, 0]                          # [B*G, n_ds]
+        n_ds = off.shape[-1]
+        vgrid = torch.arange(n_ds, dtype=off.dtype, device=off.device) + off
+        pts = 2.0 * vgrid / max(n_ds - 1, 1) - 1.0               # [B*G, n_ds]
+
+        x2g = x2.reshape(B, N, G, -1).permute(0, 2, 1, 3).reshape(B * G, N, -1)
+        if self.degenerate_sampling:
+            mid = (N - 1) // 2
+            center = (x2g[:, mid] if N % 2 else
+                      0.5 * (x2g[:, N // 2 - 1] + x2g[:, N // 2]))
+            gain = torch.clamp(1.0 - pts.abs() * 0.5, min=0.0)
+            kv = center[:, None, :] * gain[..., None]            # [B*G,n_ds,cg]
+        else:
+            grid = torch.stack([pts, torch.zeros_like(pts)], dim=-1)
+            kv = F.grid_sample(x2g.transpose(1, 2)[:, :, None, :],
+                               grid[:, None], mode="bilinear",
+                               padding_mode="zeros", align_corners=False)
+            kv = kv[:, :, 0].transpose(1, 2)                     # [B*G,n_ds,cg]
+        kv = kv.reshape(B, G, n_ds, -1).transpose(1, 2).reshape(B, n_ds, C)
+        k = self.to_k(kv)
+        v = self.to_v(kv)
+
+        def split(t):
+            return t.reshape(B, -1, H, dh).transpose(1, 2)       # [B,H,L,dh]
+
+        qh = split(q) * dh ** -0.5
+        kh, vh = split(k), split(v)
+        seq = torch.arange(N, dtype=torch.float32, device=x1.device)
+        grid_q = (2.0 * seq / max(N - 1, 1) - 1.0)[:, None]      # [N, 1]
+        # |pts| <= 1 + 2 * offset_scale / (n_ds - 1): tanh-bounded offsets
+        # normalized by the downsampled extent
+        kv_bound = 1.0 + 2.0 * self.offset_scale / (n_ds - 1) if n_ds > 1 else 0.0
+        bias = self.rel_pos_bias(
+            grid_q, pts[..., None], side=N,
+            table_divisor=self.cpb_table_divisor if n_ds > 1 else 0,
+            kv_bound=kv_bound)                                   # [B,H,K,N]
+        sim = torch.matmul(kh.to(sdt), qh.to(sdt).transpose(-1, -2))
+        sim = sim + bias.to(sdt)
+        attn = torch.softmax(sim.float(), dim=-2).to(sdt)
+        attn = F.dropout(attn, self.dropout, self.training)
+        out = torch.matmul(attn.transpose(-1, -2), vh.to(sdt)).float()
+        return self.to_out(out.transpose(1, 2).reshape(B, N, H * dh))

@@ -14,13 +14,13 @@ import math
 import torch
 from torch import nn
 
+from .deform_mil import DeformPathomicNet
 from .teacher_student import StudentsNet, TeachersNet
 
 # modes the JAX factory knows, with the ROADMAP (Queue 1) slice that ports each
 _LATER = {
     "distillation": "the distillation/multiscale slice",
     "multiscale": "the distillation/multiscale slice",
-    "deformpathomic": "the deformpathomic slice",
     **{m: "the baselines slice" for m in (
         "path", "transmil", "omic", "pathomic", "pathomic_original", "mcat",
         "cmta", "pathomic_fg", "pathomic_ensemble")},
@@ -57,7 +57,7 @@ def define_net(cfg, device="cuda") -> nn.Module:
     if mode in _LATER:
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet: ROADMAP Queue 1, {_LATER[mode]}")
-    if mode not in ("teacher", "uniteacher", "student"):
+    if mode not in ("teacher", "uniteacher", "student", "deformpathomic"):
         raise NotImplementedError(f"model [{mode}] is not implemented")
     device = require_device(device)
     full_f32_matmuls()
@@ -65,7 +65,15 @@ def define_net(cfg, device="cuda") -> nn.Module:
                   path_dim=cfg.path_dim,
                   cpb_table_divisor=cfg.cpb_table_divisor,
                   attn_bf16_streams=cfg.attn_bf16_streams)
-    if mode == "student":
+    if mode == "deformpathomic":
+        model = DeformPathomicNet(
+            input_size_omic_tumor=cfg.input_size_omic_tumor,
+            input_size_omic_immune=cfg.input_size_omic_immune,
+            omic_dim=cfg.omic_dim, dropout_rate=cfg.dropout_rate,
+            attn_dim=cfg.attn_dim, return_vgrid=cfg.return_vgrid,
+            task_type=cfg.task_type,
+            degenerate_1d_sampling=cfg.degenerate_1d_sampling, **common)
+    elif mode == "student":
         model = StudentsNet(sample_ratio=cfg.path_cluster_num,
                             combination_type=cfg.combination_type_stus,
                             **common)
@@ -83,9 +91,10 @@ def define_net(cfg, device="cuda") -> nn.Module:
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded init: every weight ~ N(0, 1/fan_in) (the scale of flax's
-    lecun_normal and of MaxNet's max_init), biases 0, LayerNorms 1/0.  The
-    draws come from one CPU ``torch.Generator``, so a seed gives the same
-    weights on every device."""
+    lecun_normal and of MaxNet's max_init), the cls tokens ~ N(0, 1) (JAX's
+    ``normal(1.0)``), biases 0, LayerNorms 1/0.  The draws come from one
+    CPU ``torch.Generator``, so a seed gives the same weights on every
+    device."""
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -95,6 +104,8 @@ def init_weights(model: nn.Module, seed: int) -> None:
             continue
         if leaf == "in_proj_weight":  # packed q/k/v, each [d, d]
             fan_in = p.shape[1]
+        elif leaf == "cls_token":
+            fan_in = 1
         else:
             fan_in = math.prod(p.shape[1:])
         p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))

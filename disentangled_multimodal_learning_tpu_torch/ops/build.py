@@ -2,9 +2,11 @@
 
 Each source compiles with its own ``nvcc`` (all started together), and the
 objects link into one shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  The library lands in ``build/torch_kernels/<hash>/`` at the root
-of the checkout, keyed by a hash of the sources and the flags, so an edit to
-a kernel rebuilds it and an unchanged tree reuses the last build.  Each C
+``ctypes`` (no PyTorch headers, so a build takes seconds).  The library
+lands in ``build/torch_kernels/<hash>/`` at the root of the checkout, keyed
+by a hash of the sources, the headers they share (``csrc/*.cuh``) and the
+flags, so an edit to a kernel rebuilds it and an unchanged tree reuses the
+last build.  Each C
 entry point returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on anything but 0.
 
@@ -41,6 +43,9 @@ SIGNATURES = {
                            _P),
     "dmlt_cpb_exact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _P),
+    "dmlt_cpb_table_1d_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
+    "dmlt_cpb_table_1d_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _P),
     "dmlt_dpc_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "dmlt_dpc_parent": (_P, _P, _P, _I, _I, _I, _P, _P),
     "dmlt_dpc_smem_bytes": (_I,),
@@ -52,6 +57,11 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The headers the sources include (``csrc/*.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -70,7 +80,7 @@ def _nvcc() -> str:
 
 def library_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

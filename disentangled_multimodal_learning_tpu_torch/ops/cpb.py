@@ -41,10 +41,11 @@ import torch.nn.functional as F
 HID = 32  # CPB hidden width (dim // 4 at dim 128); the K2 kernels' constant
 MAX_OUT_CHANNELS = 64  # K2 keeps w3 [HID, O] in shared memory
 # partial results of the backward kernels (one per block, summed in block
-# order; fixed counts, so the sum order and the result are fixed).  K1-bwd:
-# two 108 KB blocks per SM on the H100's 132 SMs (0.196 ms at production
-# shapes, against 0.345 ms with 128 blocks); K2-bwd: its 255-register,
-# 128-thread blocks also fit two per SM
+# order by csrc/fixed_order_sum.cuh; fixed counts, so the sum order and the
+# result are fixed).  The table kernels, K1-bwd and K4-bwd (ops/cpb1d.py):
+# two 108 KB (K4: 80 KB) blocks per SM on the H100's 132 SMs (K1-bwd 0.196
+# ms at production shapes, against 0.345 ms with 128 blocks); K2-bwd: its
+# 255-register, 128-thread blocks also fit two per SM
 TABLE_BWD_PARTS = 264
 EXACT_BWD_PARTS = 256
 SMEM_LIMIT = 227 * 1024  # shared memory one block may opt in to (H100)

@@ -1,7 +1,9 @@
-"""Held-out evaluation of the teacher and the student (counterpart of
-``disentangled_multimodal_learning_tpu/train/evaluation.py:41 Evaluator``,
-``distill_val`` :78): the deterministic forward over a loader, softmax of the
-logits on the host, and the seven classification metrics per tag."""
+"""Held-out evaluation of the teacher, the student and deformpathomic
+(counterpart of ``disentangled_multimodal_learning_tpu/train/evaluation.py:41
+Evaluator``, ``distill_val`` :78, ``fused_val`` :176): the deterministic
+forward over a loader, softmax of the logits on the host, and the seven
+classification metrics per tag (deformpathomic: one tag, ``fused``, the
+fused logits ``logits[2]``)."""
 
 from __future__ import annotations
 
@@ -13,9 +15,11 @@ from .metrics import compute_avg_metrics
 from .steps import MODEL_INPUTS
 
 METRIC_NAMES = ("acc", "f1", "auc", "bac", "sens", "spec", "prec")
-# the logits tags evaluated per model type (JAX distill_val :81-86)
+# the logits tags evaluated per model type (JAX distill_val :81-86; the
+# fused logits of fused_val)
 TAGS = {"teacher": ("tea10", "tea20", "teas"),
-        "student": ("stu10", "stu20", "stus")}
+        "student": ("stu10", "stu20", "stus"),
+        "fused": ("fused",)}
 _LABEL_COL = {"diag2021": LabelCol.DIAG, "grade": LabelCol.GRADE,
               "subtype": LabelCol.SUBTYPE}
 
@@ -27,13 +31,14 @@ def _softmax_np(x):
 
 def model_inputs(batch, device, mode: str) -> dict:
     """Host batch -> the forward kwargs of ``mode``'s model on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(getattr(batch, k))).to(
-        device, non_blocking=True) for k in MODEL_INPUTS[mode]}
+    return {arg: torch.from_numpy(np.ascontiguousarray(getattr(batch, key)))
+            .to(device, non_blocking=True)
+            for arg, key in MODEL_INPUTS[mode].items()}
 
 
 class Evaluator:
     """Metrics of ``model`` (a ``cfg.mode`` model) on ``device`` over the
-    tags of ``model_type`` (``teacher`` or ``student``)."""
+    tags of ``model_type`` (``teacher``, ``student`` or ``fused``)."""
 
     def __init__(self, model, cfg, device, model_type: str):
         if cfg.task_type not in _LABEL_COL:
@@ -45,13 +50,14 @@ class Evaluator:
         self.cfg = cfg
         self.device = torch.device(device)
         self.tags = TAGS[model_type]
+        self.fused = model_type == "fused"
 
     @torch.inference_mode()
     def step(self, batch) -> dict:
         """One deterministic forward -> the logits dict, as host numpy.  The
         attention maps are not copied back (``need_attention=False``)."""
-        _, _, logits, *_ = self.model(**model_inputs(batch, self.device,
-                                                     self.cfg.mode))
+        out = self.model(**model_inputs(batch, self.device, self.cfg.mode))
+        logits = {"logits_fused": out[3][2]} if self.fused else out[2]
         return {k: v.float().cpu().numpy() for k, v in logits.items()}
 
     def logits(self, loader):

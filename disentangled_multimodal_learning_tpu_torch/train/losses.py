@@ -1,8 +1,9 @@
-"""Task losses and the attention consistency losses of the teacher and the
-student (counterpart of ``disentangled_multimodal_learning_tpu/train/losses.py``:
-weighted CE :30, ``nll_surv_loss`` :42, ``task_loss`` :89,
-``path_batch_loss`` :131, ``diag_variance_loss`` :176,
-``omic_domain_scale_loss`` :183).
+"""Task losses, the attention consistency losses of the teacher and the
+student, and the vgrid consistency loss of deformpathomic (counterpart of
+``disentangled_multimodal_learning_tpu/train/losses.py``: weighted CE :30,
+``nll_surv_loss`` :42, ``task_loss`` :89, ``path_batch_loss`` :131,
+``diag_variance_loss`` :176, ``omic_domain_scale_loss`` :183,
+``batch_loss_vgrid`` :200).
 
 Label tensors are integer ``[B, 12]`` in the column order of
 ``data/contract.py``.  The attention maps the consistency losses read may be
@@ -95,3 +96,22 @@ def omic_domain_scale_loss(att1_10, att1_20, att2_10, att2_20):
         return diag_variance_loss(s, weight=10000.0)
 
     return sim_loss(att1_10, att1_20) + sim_loss(att2_10, att2_20)
+
+
+def _row_normalized_gram(a):
+    """``a a^T`` over the last two axes, each row divided by its L2 norm."""
+    s = a @ a.transpose(-1, -2)
+    return s / torch.linalg.vector_norm(s, dim=-1, keepdim=True)
+
+
+def batch_loss_vgrid(omic, vgrid):
+    """deformpathomic's omic-similarity vs vgrid-similarity consistency:
+    ``omic [n, ...]`` (the broadcast omic features), ``vgrid [n*G, 2, gh,
+    gw]`` with G = 8.  The vgrid is reshaped to ``(8, n, -1)`` in flat C
+    order, verbatim from the reference: the leading axis is (batch,
+    group)-major, so that interleaves batch and group (a documented
+    reference quirk, kept)."""
+    n = omic.shape[0]
+    s = _row_normalized_gram(omic.reshape(n, -1))
+    mean_vs = _row_normalized_gram(vgrid.reshape(8, n, -1)).mean(dim=0)
+    return ((s - mean_vs) ** 2 / n).sum()

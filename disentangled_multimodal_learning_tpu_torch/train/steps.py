@@ -1,19 +1,26 @@
-"""The teacher and student train steps (counterpart of
+"""The teacher, student and deformpathomic train steps (counterpart of
 ``disentangled_multimodal_learning_tpu/train/steps.py``: ``TASK_LABEL_COL``
 :30, ``batch_to_arrays`` :38, ``_model_kwargs`` :48, ``task_class_weights``
-:100 and the teacher / uniteacher / student branches of ``make_train_step``
-:109-322).
+:100 and the teacher / uniteacher / student / deformpathomic branches of
+``make_train_step`` :109-322).
 
-One step, in order: the train-mode forward (``TeachersNet`` or
-``StudentsNet``); the two-scale task loss (weighted CE, or the survival
-NLL) plus, with ``multiscale_attention``, the attention consistency loss
-(the teacher's ``omic_domain_scale_loss`` on its four maps, the student's
-``1000 * path_batch_loss`` on its two), both on the pre-dropout maps;
-``loss.backward()``; for the teachers, with ``gradient_modulate``, the
-modulation of both classifiers' weight gradients (JAX modulates no student
-gradient); the optimizer step; the per-iteration scheduler step.
-``deterministic_training`` runs the forward in eval mode (dropout off, the
-DPC noise pinned), the JAX trajectory-parity setting.
+One step, in order: the train-mode forward (``TeachersNet``,
+``StudentsNet`` or ``DeformPathomicNet``); the loss of the mode (below);
+``loss.backward()``; with ``gradient_modulate``, the modulation of the
+classifier weight gradients (the teachers' two classifiers from their two
+feature halves, the deformpathomic top-level ``classifier`` from the
+detached tumor and immune vectors; JAX modulates no student gradient); the
+optimizer step; the per-iteration scheduler step.  ``deterministic_training``
+runs the forward in eval mode (dropout off, the DPC noise pinned), the JAX
+trajectory-parity setting.
+
+Losses: teacher and student, the two-scale task loss (weighted CE, or the
+survival NLL) plus, with ``multiscale_attention``, the attention
+consistency loss (the teacher's ``omic_domain_scale_loss`` on its four
+maps, the student's ``1000 * path_batch_loss`` on its two), both on the
+pre-dropout maps; deformpathomic, ``loss3`` (the task loss on the fused
+logits) plus, with ``return_vgrid``, ``0.5 * bs_t + 0.5 * bs_i`` of
+``batch_loss_vgrid``.
 """
 
 from __future__ import annotations
@@ -31,10 +38,14 @@ TASK_LABEL_COL = {
     "subtype": LabelCol.SUBTYPE,
     "survival": LabelCol.SURVIVAL_BIN,
 }
-_TEACHER_INPUTS = ("x_path10", "x_path20", "x_omic_tumor", "x_omic_immune")
-# the forward's inputs per mode
+_TEACHER_INPUTS = {k: k for k in ("x_path10", "x_path20", "x_omic_tumor",
+                                  "x_omic_immune")}
+# the forward's inputs per mode: model argument -> batch field
 MODEL_INPUTS = {"teacher": _TEACHER_INPUTS, "uniteacher": _TEACHER_INPUTS,
-                "student": ("x_path10", "x_path20")}
+                "student": {"x_path10": "x_path10", "x_path20": "x_path20"},
+                "deformpathomic": {"x_path": "x_path10", "x_omic": "x_omic",
+                                   "x_omic_tumor": "x_omic_tumor",
+                                   "x_omic_immune": "x_omic_immune"}}
 
 
 def batch_to_tensors(batch, device) -> dict:
@@ -43,7 +54,8 @@ def batch_to_tensors(batch, device) -> dict:
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device, dtype=dtype, non_blocking=True)
 
-    out = {k: to(getattr(batch, k)) for k in _TEACHER_INPUTS + ("x_omic",)}
+    out = {k: to(getattr(batch, k)) for k in tuple(_TEACHER_INPUTS)
+           + ("x_omic",)}
     out["label"] = to(batch.label, torch.int64)
     return out
 
@@ -56,55 +68,79 @@ def task_class_weights(cfg, task: str):
     return cfg.class_weights
 
 
-def _two_scale_task_loss(task, label, logits, hazards, S, class_weights,
-                         tags):
-    return sum(L.task_loss(task, logits=logits[f"logits_{t}"],
-                           hazards=hazards[f"hazards_{t}"], S=S[f"S_{t}"],
-                           label=label, class_weights=class_weights)
-               for t in tags)
+def _two_scale_loss(model, cfg, out, label, cw):
+    """Teacher / student: -> (loss, metrics, modulated classifiers)."""
+    student = cfg.mode == "student"
+    features, atts, logits, hazards, S, _ = out
+    tags = ("stu10", "stu20") if student else ("tea10", "tea20")
+    taskloss = sum(L.task_loss(cfg.task_type, logits=logits[f"logits_{t}"],
+                               hazards=hazards[f"hazards_{t}"], S=S[f"S_{t}"],
+                               label=label, class_weights=cw)
+                   for t in tags)
+    loss = taskloss
+    metrics = {"taskloss": taskloss}
+    if cfg.multiscale_attention:
+        if student:
+            batchloss = 1000.0 * L.path_batch_loss(atts["att_stu10"],
+                                                   atts["att_stu20"])
+        else:
+            batchloss = L.omic_domain_scale_loss(
+                atts["att1_tea10"], atts["att1_tea20"],
+                atts["att2_tea10"], atts["att2_tea20"])
+        loss = loss + batchloss
+        metrics["batchloss"] = batchloss
+    modulated = [] if student else [
+        (getattr(model, net).classifier, features[f"feature1_{tag}"],
+         features[f"feature2_{tag}"])
+        for net, tag in (("teacher10_net", "tea10"), ("teacher20_net", "tea20"))]
+    return loss, metrics, modulated
+
+
+def _deformpathomic_loss(model, cfg, out, label, cw):
+    """DeformPathomicNet: -> (loss, metrics, modulated classifiers).  On
+    the survival task the fused output is already a sigmoid, the hazards
+    of ``nll_surv_loss``."""
+    _, vec_t, vec_i, logits, *_ = out
+    fused = logits[2]
+    loss3 = L.task_loss(cfg.task_type, logits=fused, hazards=fused,
+                        label=label, class_weights=cw)
+    loss = loss3
+    metrics = {"loss3": loss3}
+    if cfg.return_vgrid:
+        batch_sim = (0.5 * L.batch_loss_vgrid(logits[3], logits[4])
+                     + 0.5 * L.batch_loss_vgrid(logits[5], logits[6]))
+        loss = loss + batch_sim
+        metrics["batch_sim_loss"] = batch_sim
+    return loss, metrics, [(model.classifier, vec_t, vec_i)]
 
 
 def make_train_step(model, cfg, optimizer, scheduler=None):
-    """The train step of ``cfg.mode`` (teacher, uniteacher or student):
-    ``step(tensors) -> metrics``, a dict of detached 0-d tensors (``loss``,
-    ``taskloss`` and, with ``multiscale_attention``, ``batchloss``); read
-    them with ``float()`` only where the host needs the value."""
+    """The train step of ``cfg.mode`` (teacher, uniteacher, student or
+    deformpathomic): ``step(tensors) -> metrics``, a dict of detached 0-d
+    tensors (``loss``, ``taskloss`` and, with ``multiscale_attention``,
+    ``batchloss``; deformpathomic: ``loss``, ``loss3`` and, with
+    ``return_vgrid``, ``batch_sim_loss``); read them with ``float()`` only
+    where the host needs the value."""
     mode = cfg.mode
     if mode not in MODEL_INPUTS:
         raise NotImplementedError(
-            f"mode {mode!r}: the port trains the teacher, the uniteacher and "
-            "the student (ROADMAP Queue 1 names the slice of each other mode)")
-    student = mode == "student"
+            f"mode {mode!r}: the port trains the teacher, the uniteacher, "
+            "the student and deformpathomic (ROADMAP Queue 1 names the slice"
+            " of each other mode)")
     inputs = MODEL_INPUTS[mode]
-    tags = ("stu10", "stu20") if student else ("tea10", "tea20")
-    task = cfg.task_type
-    cw = task_class_weights(cfg, task)
-    label_col = int(TASK_LABEL_COL[task])
+    loss_fn = (_deformpathomic_loss if mode == "deformpathomic"
+               else _two_scale_loss)
+    cw = task_class_weights(cfg, cfg.task_type)
+    label_col = int(TASK_LABEL_COL[cfg.task_type])
     train_mode = not cfg.deterministic_training
-    modulate = cfg.gradient_modulate and not student
-    nets = (("teacher10_net", "tea10"), ("teacher20_net", "tea20"))
     params = list(model.parameters())
 
     def train_step(tensors: dict) -> dict:
         model.train(train_mode)
         optimizer.zero_grad(set_to_none=True)
         label = tensors["label"]
-        features, atts, logits, hazards, S, _ = model(
-            **{k: tensors[k] for k in inputs})
-        taskloss = _two_scale_task_loss(task, label, logits, hazards, S, cw,
-                                        tags)
-        loss = taskloss
-        metrics = {"taskloss": taskloss.detach()}
-        if cfg.multiscale_attention:
-            if student:
-                batchloss = 1000.0 * L.path_batch_loss(atts["att_stu10"],
-                                                       atts["att_stu20"])
-            else:
-                batchloss = L.omic_domain_scale_loss(
-                    atts["att1_tea10"], atts["att1_tea20"],
-                    atts["att2_tea10"], atts["att2_tea20"])
-            loss = loss + batchloss
-            metrics["batchloss"] = batchloss.detach()
+        out = model(**{arg: tensors[key] for arg, key in inputs.items()})
+        loss, metrics, modulated = loss_fn(model, cfg, out, label, cw)
         loss.backward()
         # a parameter the loss does not reach (the MaxNets' classifiers)
         # gets a zero gradient, so the optimizer still decays it, as optax
@@ -112,18 +148,16 @@ def make_train_step(model, cfg, optimizer, scheduler=None):
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if modulate:
+        if cfg.gradient_modulate:
             y = label[:, label_col]
-            for net, tag in nets:
-                cls = getattr(model, net).classifier
+            for cls, f1, f2 in modulated:
                 cls.weight.grad = modulate_kernel_grad(
-                    cls.weight.grad, features[f"feature1_{tag}"].detach(),
-                    features[f"feature2_{tag}"].detach(), cls.weight.detach(),
-                    cls.bias.detach(), y)
+                    cls.weight.grad, f1.detach(), f2.detach(),
+                    cls.weight.detach(), cls.bias.detach(), y)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        metrics["loss"] = loss.detach()
-        return metrics
+        metrics["loss"] = loss
+        return {k: v.detach() for k, v in metrics.items()}
 
     return train_step

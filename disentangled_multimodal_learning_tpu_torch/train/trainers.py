@@ -1,7 +1,9 @@
-"""The training driver of the teacher and the student (counterpart of
-``disentangled_multimodal_learning_tpu/train/trainers.py``: ``run_training``
-:60-315, ``trainTeachersModel`` :364, ``trainStudentsModel`` :370,
-``testStudentsModel`` :415) on one device.
+"""The training driver of the teacher, the student and deformpathomic
+(counterpart of ``disentangled_multimodal_learning_tpu/train/trainers.py``:
+``run_training`` :60-315, ``trainTeachersModel`` :364,
+``trainStudentsModel`` :370, ``trainDeformPathomicModel`` :384,
+``testStudentsModel`` :415, ``testDeformPathomicModel`` :423) on one
+device.
 
 Per epoch: ``set_epoch`` on the train loader, one train step per batch with
 the scheduler stepped per iteration, the ``eval_every_iters`` cadence
@@ -32,8 +34,8 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher"):
     """Train ``model`` (on its own device) over ``loaders = (train, test)``;
     returns ``(model, final_metrics, None)``: the trained model, the
     metrics of the final evaluation on the combined tag of ``model_type``
-    (``teas`` or ``stus``: ``acc``, ``auc``, ...) with every tag's under
-    ``detail``, the last step's ``train_loss`` and every step's under
+    (``teas``, ``stus`` or ``fused``: ``acc``, ``auc``, ...) with every
+    tag's under ``detail``, the last step's ``train_loss`` and every step's under
     ``train_losses``, and no checkpoint path."""
     if cfg.checkpoints not in ("#", ""):
         raise NotImplementedError(
@@ -50,7 +52,7 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher"):
     scheduler = make_scheduler(cfg, optimizer, steps_per_epoch, plateau)
     train_step = make_train_step(model, cfg, optimizer, scheduler)
     evaluator = Evaluator(model, cfg, device, model_type)
-    headline = evaluator.tags[-1]  # teas / stus
+    headline = evaluator.tags[-1]  # teas / stus / fused
     torch.manual_seed(cfg.seed + 1234)  # the dropout draws
     start = time.time()
     cur_iters = 0
@@ -113,14 +115,27 @@ def trainStudentsModel(model, dataloader, optimizer, scheduler, logger, args):
     return run_training(args, model, dataloader, logger, model_type="student")
 
 
+def trainDeformPathomicModel(model, dataloader, optimizer, scheduler, logger,
+                             args):
+    """Reference-named entry of deformpathomic, as
+    :func:`trainTeachersModel`; the metrics are those of the fused
+    logits."""
+    return run_training(args, model, dataloader, logger, model_type="fused")
+
+
 def _run_test(model, loader, args, model_type):
     """The evaluator over ``loader`` in eval mode -> ``(metrics, logits)``:
-    ``{f"{metric}_{tag}": value}`` and ``{f"logits_{tag}": [M, C]}``."""
+    ``{f"{metric}_{tag}": value}`` and ``{f"logits_{tag}": [M, C]}``; for
+    the one ``fused`` tag the metrics are flat (``{"acc": ...}``), as JAX
+    ``_metricdicts_to_flat`` gives them."""
     evaluator = Evaluator(model, args, next(model.parameters()).device,
                           model_type)
     model.eval()
     logits, labels = evaluator.logits(loader)
-    return evaluator.metrics(logits, labels), logits
+    metrics = evaluator.metrics(logits, labels)
+    if model_type == "fused":
+        metrics = {n: metrics[f"{n}_fused"] for n in METRIC_NAMES}
+    return metrics, logits
 
 
 def testTeachersModel(model, dataloader, args):
@@ -129,3 +144,7 @@ def testTeachersModel(model, dataloader, args):
 
 def testStudentsModel(model, dataloader, args):
     return _run_test(model, dataloader, args, "student")
+
+
+def testDeformPathomicModel(model, dataloader, args):
+    return _run_test(model, dataloader, args, "fused")

@@ -6,7 +6,8 @@ package's numpy-only exporter ``utils/torch_export.py``, so that the port
 imports nothing of that package): it writes the reference's names and torch
 layouts, which the port's modules carry.  The map covers the modes the port
 has, in the unstacked layout.  The reference's members that its forward
-never uses (StudentNet's ``norm`` and ``pooler1``) have no counterpart in
+never uses (StudentNet's ``norm`` and ``pooler1``, the attention of the
+other ``attn_dim`` in ``DeformCrossTransLayer``) have no counterpart in
 the port, so the load stays strict.
 """
 
@@ -63,6 +64,19 @@ def _attn2d(p, key, out):
     out[f"{key}.to_out.bias"] = _np(p["to_out"]["bias"])
 
 
+def _attn1d(p, key, out):
+    for name in ("to_q", "to_k", "to_v"):  # Dense [in, out] -> Conv1d
+        out[f"{key}.{name}.weight"] = _np(p[name]["kernel"]).T[:, :, None]
+    dw = _np(p["offset_conv_kernel"])  # HIO [k, 1, od]
+    out[f"{key}.to_offsets.0.weight"] = dw.transpose(2, 1, 0)
+    out[f"{key}.to_offsets.0.bias"] = _np(p["offset_conv_bias"])
+    ow = _np(p["offset_out"]["kernel"])  # [od, 1]
+    out[f"{key}.to_offsets.2.weight"] = ow.T[:, :, None]
+    _cpb(p["rel_pos_bias"], f"{key}.rel_pos_bias", out)
+    out[f"{key}.to_out.weight"] = _np(p["to_out"]["kernel"]).T[:, :, None]
+    out[f"{key}.to_out.bias"] = _np(p["to_out"]["bias"])
+
+
 def _maxnet(p, key, out):
     for i in range(4):
         _dense(p[f"encoder_{i}"], f"{key}.encoder.{i}.0", out)
@@ -105,9 +119,26 @@ def _student_net(p, key, out):
     _dense(p["classifier"], f"{key}.classifier", out)
 
 
-def jax_state_dict(params, mode: str) -> dict:
-    """A JAX param tree of ``mode`` (``teacher``, ``uniteacher`` or
-    ``student``, unstacked) -> reference-named state_dict of numpy arrays."""
+def _deform_mil(p, key, out, attn_dim):
+    _dense(p["_fc1"], f"{key}._fc1.0", out)
+    _dense(p["fusion_layer"]["fusion_layer"],
+           f"{key}.fusion_layer.fusion_layer", out)
+    _ln(p["layer3"]["norm"], f"{key}.layer3.norm", out)
+    if attn_dim == 2:
+        _attn2d(p["layer3"]["attn2d"], f"{key}.layer3.attn2d", out)
+        _dense(p["pooler"]["dense"], f"{key}.pooler.dense", out)
+    else:
+        _attn1d(p["layer3"]["attn1d"], f"{key}.layer3.attn1d", out)
+        out[f"{key}.cls_token"] = _np(p["cls_token"])
+    _ln(p["norm"], f"{key}.norm", out)
+    _dense(p["_fc2"], f"{key}._fc2", out)
+    _dense(p["multimodal_projection"], f"{key}.multimodal_projection", out)
+
+
+def jax_state_dict(params, mode: str, attn_dim: int = 2) -> dict:
+    """A JAX param tree of ``mode`` (``teacher``, ``uniteacher``,
+    ``student`` or ``deformpathomic`` at ``attn_dim``, unstacked) ->
+    reference-named state_dict of numpy arrays."""
     out: dict = {}
     if mode in ("teacher", "uniteacher"):
         _maxnet(params["omic_net_tumor"], "omic_net_tumor", out)
@@ -117,16 +148,29 @@ def jax_state_dict(params, mode: str) -> dict:
     elif mode == "student":
         _student_net(params["student10_net"], "student10_net", out)
         _student_net(params["student20_net"], "student20_net", out)
+    elif mode == "deformpathomic":
+        _maxnet(params["omic_net_tumor"], "omic_net_tumor", out)
+        _maxnet(params["omic_net_immune"], "omic_net_immune", out)
+        for key in ("pathomic_net_tumor", "pathomic_net_immune"):
+            _deform_mil(params[key], key, out, attn_dim)
+        _dense(params["classifier"], "classifier", out)
+        _dense(params["classifier_tumor"], "classifier_tumor.0", out)
+        _dense(params["classifier_immune"], "classifier_immune.0", out)
+        # the reference's constant members (models/model.py:509-510)
+        out["output_range"] = np.asarray([6.0], np.float32)
+        out["output_shift"] = np.asarray([-3.0], np.float32)
     else:
         raise ValueError(f"mode {mode!r}: the port loads JAX params of the "
-                         "teacher, uniteacher and student modes")
+                         "teacher, uniteacher, student and deformpathomic "
+                         "modes")
     return out
 
 
-def load_jax_params(model: torch.nn.Module, params, mode: str):
+def load_jax_params(model: torch.nn.Module, params, mode: str,
+                    attn_dim: int = 2):
     """Load a JAX param tree of ``mode`` (see :func:`jax_state_dict`)."""
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-          for k, v in jax_state_dict(params, mode).items()}
+          for k, v in jax_state_dict(params, mode, attn_dim).items()}
     model.load_state_dict(sd, strict=True)
     return model
 

@@ -157,15 +157,19 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back(rng):
 
 def test_kernel_build_key_follows_the_sources(tmp_path, monkeypatch):
     """The library directory is keyed by the kernel sources: unchanged
-    sources reuse it, an edited source gets a new one."""
-    for src in build.sources():
+    sources reuse it, an edited source or shared header gets a new one."""
+    for src in build.sources() + build.headers():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     first = build.library_dir()
     assert first == build.library_dir()
     assert first.parent == build.BUILD_ROOT
     assert {p.name for p in build.sources()} == {
-        "cpb_exact.cu", "cpb_exact_bwd.cu", "cpb_table.cu", "cpb_table_bwd.cu",
-        "dpc_knn.cu"}
+        "cpb_exact.cu", "cpb_exact_bwd.cu", "cpb_table.cu", "cpb_table_1d.cu",
+        "cpb_table_1d_bwd.cu", "cpb_table_bwd.cu", "dpc_knn.cu"}
+    assert [p.name for p in build.headers()] == ["fixed_order_sum.cuh"]
+    (tmp_path / "fixed_order_sum.cuh").write_text("// edited\n")
+    second = build.library_dir()
+    assert second != first
     (tmp_path / "cpb_table.cu").write_text("// edited\n")
-    assert build.library_dir() != first
+    assert build.library_dir() not in (first, second)

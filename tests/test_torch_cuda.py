@@ -27,7 +27,11 @@ gradient is 0 in exact arithmetic, only checked to be that small.  K3
 sums each C-term dot in another order than cuBLAS; each f32 sum is within
 C 2^-24 max|x|^2 of the exact dot (to first order), so the two squared
 distances (-2 dot) differ by at most 4 C 2^-24 max|x|^2; the cluster
-indices exactly.
+indices exactly.  K4 (the 1-D table CPB) against its plain version: 1e-6
+abs (the same two-term lerp, rounded op by op as the plain version rounds
+it); K4-bwd against its plain version in float64: 1e-5 norm-relative.
+deformpathomic on the card against the CPU: as the teacher (logits 1e-4,
+task loss 1e-5, loss 5e-4 with the vgrid loss, gradients 5e-3).
 """
 
 import math
@@ -43,7 +47,8 @@ from disentangled_multimodal_learning_tpu_torch.data.synthetic import (
 from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
     normalized_grid)
 from disentangled_multimodal_learning_tpu_torch.models.factory import define_net
-from disentangled_multimodal_learning_tpu_torch.ops import cluster, cpb, dpc_knn
+from disentangled_multimodal_learning_tpu_torch.ops import (cluster, cpb, cpb1d,
+                                                          dpc_knn)
 from disentangled_multimodal_learning_tpu_torch.train.optim import make_optimizer
 from disentangled_multimodal_learning_tpu_torch.train.steps import (
     batch_to_tensors, make_train_step)
@@ -51,6 +56,7 @@ from disentangled_multimodal_learning_tpu_torch.train.steps import (
 K1_TOL, K2_TOL, FORWARD_TOL = 1e-5, 1e-4, 1e-4
 K1_BWD_TOL, K2_BWD_TOL, GRAD_TOL = 1e-5, 1e-3, 5e-3
 K3_TOL_ULPS = 4
+K4_TOL, K4_BWD_TOL = 1e-6, 1e-5
 
 
 @pytest.fixture
@@ -481,3 +487,172 @@ def test_student_forward_on_card_matches_cpu(dev, divisor):
         for k in want:
             err = (got[k].cpu() - want[k]).abs().max().item()
             assert err <= FORWARD_TOL, (k, err)
+
+
+def _k4_launches():
+    return (cpb1d.table1d_interp.launches,
+            cpb1d.table1d_interp_backward.launches)
+
+
+def _table1d_case(rng, n_q, bg, kv, dev):
+    """The 1-D table of a random MLP (O = 2) and taps of kv points up to
+    25% past the bound, so that clipped rows extrapolate."""
+    kv_bound = 1.0 + 4.0 / (kv - 1)
+    w = _mlp(rng, 2, dev)
+    w[0] = w[0][:1].contiguous()  # the 1-coordinate first layer
+    table = cpb1d.cpb_table_1d(*w, n_q=n_q, kv_bound=kv_bound)
+    gkv = _uniform(rng, 1.25 * kv_bound, (bg, kv), dev)
+    taps, fracs = cpb1d.table1d_taps(
+        cpb1d.table1d_shifts(gkv, n_q=n_q, kv_bound=kv_bound),
+        n_q=n_q, tn=table.shape[1])
+    return table, taps, fracs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,bg,kv", [(65, 8, 16), (2501, 16, 625)])
+def test_table1d_kernel_matches_plain_version(dev, n_q, bg, kv):
+    """K4 at the 1-D attention of fixdim 64 and of the preset (n_q 2501,
+    K 625; 16 of the preset's 16 (batch, group) rows), written straight
+    into the [B*G, O, K, N] layout, clipped rows included."""
+    rng = np.random.default_rng(n_q)
+    table, taps, fracs = _table1d_case(rng, n_q, bg, kv, dev)
+    assert ((fracs < 0) | (fracs > 1)).any()
+    before = _k4_launches()
+    with torch.inference_mode():
+        got = cpb1d.table1d_interp(table, taps, fracs, n_q, kv)
+    assert _k4_launches() == (before[0] + 1, before[1])
+    want = cpb1d.table1d_interp_reference(table, taps, fracs, n_q, kv)
+    assert got.shape == want.shape == (bg, 2, kv, n_q)
+    assert (got - want).abs().max().item() <= K4_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,bg,kv", [(65, 8, 16), (2501, 16, 625)])
+def test_table1d_backward_kernel_matches_float64(dev, n_q, bg, kv):
+    """K4-bwd against its plain version in float64, clipped rows included
+    (their shift cotangent kept), and bitwise equal over two calls."""
+    rng = np.random.default_rng(10 + n_q)
+    table, taps, fracs = _table1d_case(rng, n_q, bg, kv, dev)
+    dout = torch.from_numpy(rng.normal(size=(bg, 2, kv, n_q))
+                            .astype(np.float32)).to(dev)
+    before = _k4_launches()
+    got = [cpb1d.table1d_interp_backward(table, taps, fracs, dout, n_q, kv)
+           for _ in range(2)]
+    assert _k4_launches() == (before[0], before[1] + 2)
+    want = cpb1d.table1d_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), n_q, kv)
+    for a, b, w in zip(*got, want):
+        assert torch.equal(a, b)
+        assert a.shape == w.shape and _rel(a, w) <= K4_BWD_TOL
+    clipped = (fracs < 0) | (fracs > 1)
+    assert clipped.any() and (got[0][1][clipped] != 0).all()
+
+
+@pytest.mark.cuda
+def test_table1d_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    table = torch.zeros(2, 40, device=dev)
+    taps = torch.zeros(6, dtype=torch.int32, device=dev)
+    fracs = torch.zeros(6, device=dev)
+    before = _k4_launches()
+    with pytest.raises(ValueError, match="int32"):
+        cpb1d.table1d_interp(table, taps.float(), fracs, 10, 3)
+    with pytest.raises(ValueError, match="bad shapes"):
+        cpb1d.table1d_interp(table, taps, fracs, 10, 4)
+    with pytest.raises(ValueError, match="bad shapes"):
+        cpb1d.table1d_interp(table, taps, fracs, 39, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        cpb1d.table1d_interp(table, taps, fracs.cpu(), 10, 3)
+    with pytest.raises(ValueError, match="dout"):
+        cpb1d.table1d_interp_backward(table, taps, fracs,
+                                      torch.zeros(2, 2, 3, 9, device=dev),
+                                      10, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        cpb1d.table1d_interp_backward(
+            torch.zeros(2, 15000, device=dev), taps, fracs,
+            torch.zeros(2, 2, 3, 10, device=dev), 10, 3)
+    # empty inputs give empty outputs and launch (and count) nothing
+    assert cpb1d.table1d_interp(table, taps[:0], fracs[:0], 10, 3).shape == (
+        0, 2, 3, 10)
+    assert _k4_launches() == before
+
+
+def _deformpathomic_inputs(device, seed=0):
+    r = np.random.default_rng(seed)
+    x = dict(x_path=r.normal(size=(2, 144, 1024)),
+             x_omic=r.normal(size=(2, 431)),
+             x_omic_tumor=r.normal(size=(2, 59)),
+             x_omic_immune=r.normal(size=(2, 361)))
+    return {k: torch.from_numpy(v.astype(np.float32)).to(device)
+            for k, v in x.items()}
+
+
+# (attn_dim, return_vgrid, divisor) -> launches per forward of K1, K2, K4
+DEFORMPATHOMIC = {(1, False, 1): (0, 0, 2), (1, False, 0): (0, 2, 0),
+                  (2, True, 1): (2, 0, 0)}
+
+
+def _fwd_launches():
+    return (cpb.table_interp.launches, cpb.cpb_bias_transposed.launches,
+            cpb1d.table1d_interp.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_dim,return_vgrid,divisor", list(DEFORMPATHOMIC))
+def test_deformpathomic_forward_on_card_matches_cpu(dev, attn_dim,
+                                                    return_vgrid, divisor):
+    """The whole f32 DeformPathomicNet (fixdim 144, B=2, real widths) on
+    the card through the kernels, against the same seeded weights on the
+    CPU through the plain versions: features, branch vectors and every
+    logits entry."""
+    cfg = Config(mode="deformpathomic", fixdim=144, batch_size=2,
+                 attn_dim=attn_dim, return_vgrid=return_vgrid,
+                 cpb_table_divisor=divisor).validate()
+    before = _fwd_launches()
+    with torch.inference_mode():
+        card = define_net(cfg, dev)(**_deformpathomic_inputs(dev))
+        host = define_net(cfg, "cpu")(**_deformpathomic_inputs("cpu"))
+    delta = tuple(a - b for a, b in zip(_fwd_launches(), before))
+    assert delta == DEFORMPATHOMIC[(attn_dim, return_vgrid, divisor)]
+    flat = lambda out: list(out[:3]) + list(out[3])  # noqa: E731
+    for got, want in zip(flat(card), flat(host)):
+        assert got.dtype == torch.float32
+        assert (got.cpu() - want).abs().max().item() <= FORWARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_dim,return_vgrid,divisor", list(DEFORMPATHOMIC))
+def test_deformpathomic_train_step_on_card_matches_cpu(dev, attn_dim,
+                                                       return_vgrid, divisor):
+    """One ``deterministic_training`` step in f32 (fixdim 144, B=2, real
+    widths) from the same seeded weights on the same batch, on the card
+    through the forward and backward kernels and on the CPU through the
+    plain versions: ``loss3``, the loss, and every gradient after the
+    modulation of the top classifier."""
+    cfg = Config(mode="deformpathomic", fixdim=144, batch_size=2,
+                 attn_dim=attn_dim, return_vgrid=return_vgrid,
+                 cpb_table_divisor=divisor,
+                 deterministic_training=True).validate()
+    batch = SyntheticBagDataset(size=2, fixdim=144, seed=0).batch([0, 1])
+    out = {}
+    before = _fwd_launches() + _k4_launches()[1:] + _bwd_launches()
+    for device in ("cpu", dev):
+        model = define_net(cfg, device)
+        opt = make_optimizer(cfg, model.parameters())
+        m = make_train_step(model, cfg, opt)(batch_to_tensors(batch, device))
+        out[device] = ((m["loss"].item(), m["loss3"].item()),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+    delta = tuple(a - b for a, b in zip(
+        _fwd_launches() + _k4_launches()[1:] + _bwd_launches(), before))
+    k1, k2, k4 = DEFORMPATHOMIC[(attn_dim, return_vgrid, divisor)]
+    assert delta == (k1, k2, k4, k4, k1, k2)
+    ((loss_card, task_card), g_card), ((loss_cpu, task_cpu), g_cpu) = (
+        out[dev], out["cpu"])
+    assert abs(task_card - task_cpu) <= 1e-5 * abs(task_cpu)
+    assert abs(loss_card - loss_cpu) <= 5e-4 * abs(loss_cpu)
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        if name.endswith("rel_pos_bias.mlp.2.bias"):
+            floor = 1e-5 * g_cpu[name[:-4] + "weight"].abs().max().item()
+            assert got.abs().max().item() <= floor, name
+            continue
+        assert _rel(got, want.double()) <= GRAD_TOL, name

@@ -184,7 +184,6 @@ def test_inference_refuses_real_data_until_ported():
 def test_define_net_refuses_unported_modes():
     for mode, slice_name in [("distillation", "multiscale slice"),
                              ("multiscale", "multiscale slice"),
-                             ("deformpathomic", "deformpathomic slice"),
                              ("mcat", "baselines slice")]:
         with pytest.raises(NotImplementedError, match=slice_name):
             define_net(Config(mode=mode), "cpu")
