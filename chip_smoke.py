@@ -79,20 +79,50 @@ with ``return_vgrid``) with seeded random weights:
 6d. times K4 and K2 at the 1-D shape (O=2) against their plain versions,
    with their bounds, the deformpathomic eval forward and train step of
    each setting (bags/s, median and p80), and profiles one forward and one
-   train step of each (device-busy share).
+   train step of each (device-busy share);
+2e. holds K1-fwd with the bf16 store (``cpb_table_bf16``) and K5-fwd (the
+   table CPB at divisor 2 and 4, tn 274 and 544, f32 and bf16 store, R =
+   4608 rows of side 50, clipped rows included) bitwise against their plain
+   versions, K1-bwd with a bf16 cotangent (within ``K1_BWD_TOL``) and
+   K5-bwd (f32 and bf16 cotangents, within ``K5_BWD_TOL``) against their
+   plain version in float64, deterministic, every clipped row's shift
+   cotangent kept; K6-fwd (the fused table attention, BH=32, K=144,
+   N=2500, D=64) against its plain version at dropout 0 and 0.1 with the
+   same mask, and K6-bwd against the plain version's autograd in float64,
+   deterministic;
+3e. runs the teacher's serving entry (1 batch) and training entry (2
+   steps and 1 eval batch) in the three opt-in settings of the preset:
+   (a) ``fused_table_attention`` (K6-fwd 4 per forward, K6-bwd 4 per step,
+   K1's wrappers never; each K6-bwd launch also runs K1-bwd's two scatter
+   kernels on its ``ds``, counted as part of K6-bwd), (b) ``cpb_table_divisor 4`` (K5-fwd and K5-bwd the same way,
+   K1 never), (c) ``cpb_table_bf16`` (K1-fwd and K1-bwd with the bf16
+   store and cotangent), exact counts;
+5e. compares the f32 forward (logits within 1e-4) and one f32
+   ``deterministic_training`` step of (a) and (b) on the card with the CPU;
+6e. times K1-fwd with the bf16 store, K5-fwd (divisor 2 and 4, f32 and
+   bf16) and K5-bwd against their plain versions, K6-fwd and K6-bwd at
+   dropout 0 and 0.1 against their plain versions and beside the port's
+   unfused divisor-1 composition (K1 + matmul + softmax + dropout +
+   matmul, and its autograd backward), and the teacher's eval forward and
+   train step in (a), (b) and (c) (bags/s and a profiled call each).
 
 The main paths (the inference entry and the training entry) each run at
-the preset's divisor 1 and at the ``Config`` default divisor 0, every count
-set to 0 just before a run and read just after.  In the kernels line the
+the preset's divisor 1 and at the ``Config`` default divisor 0, and the
+teacher's also in the opt-in settings (a), (b) and (c), every count set to
+0 just before a run and read just after.  In the kernels line the
 ``launches`` are those of the training runs (K1 and K2: the teacher's at
 divisor 1 and 0; K3: the student's at the preset; K4: deformpathomic's at
-attn_dim 1, divisor 1), and K2's ``max_abs_err`` is the larger of its
-errors at the 2-D and the 1-D shape.  Launches made for comparisons and
-timings are not counted.  Each kernel's ``bound_ms`` is the larger of
-its bytes (each input read once, each output written once) over 3.35 TB/s
-and its flops over 67 TFLOP/s (f32 outside the tensor cores), counted from
-this run's inputs (H100 SXM data sheet); ``library_ms`` is null for all
-eight: no single PyTorch call computes any of their functions.
+attn_dim 1, divisor 1; K5: the teacher's in (b); K6: the teacher's in
+(a)), and K2's ``max_abs_err`` is the larger of its errors at the 2-D and
+the 1-D shape.  Launches made for comparisons and timings are not counted.
+K5's times are at divisor 4 in f32, K6's at the preset's dropout 0.1.
+Each kernel's ``bound_ms`` is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its flops over 67
+TFLOP/s (f32 outside the tensor cores), counted from this run's inputs
+(H100 SXM data sheet); ``library_ms`` is null for all twelve: no single
+PyTorch call computes any of their functions (K6 includes the table
+windows and a softmax over the kv axis, which
+``scaled_dot_product_attention`` does not take as a bias it builds).
 Any failure raises: there is no fallback and no phase is caught.  Exits
 non-zero without a result line when there is no CUDA device.
 """
@@ -157,6 +187,20 @@ ZERO_GRAD_FLOOR, ZERO_GRAD_FLOOR_1D = 1e-5, 1e-4
 # and the table entries ~4,000 contributions each, in f32
 K4_TOL = 1e-6
 K4_BWD_TOL = {"dtable": 1e-5, "dshifts": 1e-5}
+# K5 (and K1 with the bf16 store) rounds every op as its plain version does
+# and is held to bitwise equality.  K5-bwd against float64: dtable entries
+# sum up to a few hundred contributions, the shift cotangents 2,500 terms
+# that cancel, in f32
+K5_BWD_TOL = 1e-5
+# K6-fwd against its plain version: the products sum in another order than
+# cuBLAS (sim of O(1), 64 terms), the softmax sums in another order; attn
+# within 1e-6 abs, out (sums of 144 weighted v) within 1e-5.  K6-bwd against
+# the plain version's autograd in float64, norm-relative: dq, dk and dv
+# 2e-5 (sums over 144 kv points or 2,500 queries); dtable and dfracs (the
+# K1-bwd scatter of ds, whose column sums cancel) 1e-4 or twice the f32
+# plain version's own error, whichever is larger
+K6_ATTN_TOL, K6_OUT_TOL = 1e-6, 1e-5
+K6_BWD_TOL, K6_TABLE_BWD_TOL = 2e-5, 1e-4
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 F32_FLOPS_PER_MS = 67e9       # 67 TFLOP/s outside the tensor cores
 CSRC = "disentangled_multimodal_learning_tpu_torch/csrc"
@@ -164,6 +208,8 @@ TABLE_SRC = f"{CSRC}/cpb_table.cu"
 EXACT_SRC = f"{CSRC}/cpb_exact.cu"
 DPC_SRC = f"{CSRC}/dpc_knn.cu"
 TABLE1D_SRC = f"{CSRC}/cpb_table_1d.cu"
+STRIDED_SRC = f"{CSRC}/cpb_table_strided.cu"
+FUSED_SRC = f"{CSRC}/fused_table.cu"
 # phase 5d's f32 deformpathomic settings (the preset's divisor 1 unless named)
 DEFORMPATHOMIC_F32 = ({"attn_dim": 1}, {"attn_dim": 1, "cpb_table_divisor": 0},
                       {"attn_dim": 2, "return_vgrid": True})
@@ -255,7 +301,8 @@ def mlp_weights(o: int, gen, device):
 
 
 def _wrappers():
-    from disentangled_multimodal_learning_tpu_torch.ops import cpb, cpb1d, dpc_knn
+    from disentangled_multimodal_learning_tpu_torch.ops import (
+        cpb, cpb1d, dpc_knn, fused_table)
 
     return {"k1_fwd": cpb.table_interp,
             "k1_bwd": cpb.table_interp_backward,
@@ -264,7 +311,11 @@ def _wrappers():
             "k3_knn": dpc_knn.knn_stream,
             "k3_parent": dpc_knn.parent_stream,
             "k4_fwd": cpb1d.table1d_interp,
-            "k4_bwd": cpb1d.table1d_interp_backward}
+            "k4_bwd": cpb1d.table1d_interp_backward,
+            "k5_fwd": cpb.table_interp_strided,
+            "k5_bwd": cpb.table_interp_strided_backward,
+            "k6_fwd": fused_table.fused_table_attention,
+            "k6_bwd": fused_table.fused_table_attention_backward}
 
 
 def reset_counts() -> None:
@@ -693,16 +744,52 @@ def main() -> int:
     # ---- phase 6d: K4 and deformpathomic timings ------------------------
     k4_ms = time_table1d_kernels(k4, k2_1d, card)
     time_deformpathomic(preset, train_preset, batch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 2e: K5 (and the bf16 store) and K6 against plain versions -
+    k5 = check_table_strided_kernels(cpb, dev, card)
+    k6 = check_fused_kernels(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 3e: the teacher's entries in the opt-in settings ---------
+    train_counts.update(run_opt_in_entries(preset, train_preset, dev, card))
+
+    # ---- phase 5e: (a) and (b) in f32, card vs CPU ----------------------
+    for cfg in opt_in_settings(f32)[:2]:
+        with torch.inference_mode():
+            card_out = define_net(cfg, dev)(
+                **model_inputs(batch, dev, "teacher"))[2]
+            cpu_out = define_net(cfg, "cpu")(
+                **model_inputs(batch, "cpu", "teacher"))[2]
+        errs = {k: (card_out[k].cpu() - cpu_out[k]).abs().max().item()
+                for k in cpu_out}
+        print(f"[f32] {setting(cfg)} card vs CPU logits max_abs_err "
+              f"{max(errs.values()):.3e} (tol {LOGITS_TOL}); per output "
+              f"{errs}")
+        if not max(errs.values()) <= LOGITS_TOL:
+            raise RuntimeError("f32 logits on the card disagree with the CPU")
+        compare_train_step(cfg.replace(deterministic_training=True), batch,
+                           dev)
+        torch.cuda.empty_cache()
+
+    # ---- phase 6e: K5, K6 and the opt-in settings' timings --------------
+    opt_ms = time_opt_in_kernels(cpb, k5, k6, card)
+    time_opt_in_settings(preset, train_preset, batch, dev, card)
 
     print(json.dumps({"kernels": kernel_line(
         train_counts, dict(k1=k1_err, k2=max(*k2_err.values(), k2_1d["err"]),
-                           k1_bwd=bwd["k1"]["err"],
+                           k1_bwd=max(bwd["k1"]["err"], k5["k1_bwd_err"]),
                            k2_bwd=max(bwd["k2"]["err"], k2_1d["bwd_err"]),
-                           k3=dpc["err"], k4=k4["err"], k4_bwd=k4["bwd_err"]),
+                           k3=dpc["err"], k4=k4["err"], k4_bwd=k4["bwd_err"],
+                           k5=k5["err"], k5_bwd=k5["bwd_err"], k6=k6["err"],
+                           k6_bwd=k6["bwd_err"]),
         dict(k1=(k1_ms, k1_plain), k2=(k2_ms, k2_plain),
-             k1_bwd=bwd_ms["k1"], k2_bwd=bwd_ms["k2"], **dpc_ms, **k4_ms),
+             k1_bwd=bwd_ms["k1"], k2_bwd=bwd_ms["k2"], **dpc_ms, **k4_ms,
+             k5_fwd=opt_ms[("k5_fwd", 4, torch.float32)],
+             k5_bwd=opt_ms[("k5_bwd", 4)],
+             k6_fwd=opt_ms[("k6", 0.1)][0], k6_bwd=opt_ms[("k6", 0.1)][1]),
         dict(table=table, taps=taps, fracs=fracs, side=side, gkv=gkv2,
-             w=w, n=side * side), bwd, dpc, k4)}))
+             w=w, n=side * side), bwd, dpc, k4, k5, k6)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -710,7 +797,8 @@ def main() -> int:
     return 0
 
 
-def kernel_line(launches, errs, times, fwd, bwd, dpc, k4) -> list[dict]:
+def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5,
+                k6) -> list[dict]:
     """The kernels JSON line: each kernel's launches in its training run,
     its error against its plain version, its time and its plain version's,
     and its bound from this run's inputs (bytes: inputs read once, outputs
@@ -746,6 +834,23 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc, k4) -> list[dict]:
     k4b_bound = bound(4 * k4_out + k4_small + 4 * (k4["table"].numel()
                                                    + k4["taps"].shape[0]),
                       7 * k4_out)
+    # K5 at divisor 4, f32 (phase 6e's timed case)
+    k5_bound, k5b_bound = table_bounds(k5[4]["table"], k5[4]["taps"], side)
+    # K6: q, k, v, the table, taps and fractions read, out and attn written
+    # (forward); the backward also reads attn and both cotangents and
+    # writes dq, dk, dv, dtable and dfracs; 2 flops per multiply-add of the
+    # two (forward) or four (backward) BH x K x N x D products
+    bh, n6, d6 = k6["q"].shape
+    kv6 = k6["k"].shape[1]
+    small6 = 4 * (k6["table"].numel() + 4 * bh * kv6)
+    qkv = 4 * (bh * n6 * d6 + 2 * bh * kv6 * d6)
+    macs = bh * kv6 * n6 * d6
+    k6_bound = bound(qkv + small6 + 4 * (bh * n6 * d6 + bh * kv6 * n6),
+                     4 * macs)
+    k6b_bound = bound(2 * qkv + small6 + 4 * (bh * n6 * d6
+                                              + 2 * bh * kv6 * n6
+                                              + k6["table"].numel()
+                                              + 2 * bh * kv6), 8 * macs)
     rows = [
         ("cpb_table_interp_fwd (K1-fwd)", TABLE_SRC, f"{PALLAS}:2158",
          launches["k1"]["k1_fwd"], errs["k1"], times["k1"], k1_bound),
@@ -767,6 +872,16 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc, k4) -> list[dict]:
         ("cpb_table_1d_bwd (K4-bwd)", f"{CSRC}/cpb_table_1d_bwd.cu",
          f"{PALLAS}:2450", launches["k4"]["k4_bwd"], errs["k4_bwd"],
          times["k4_bwd"], k4b_bound),
+        ("cpb_table_strided_fwd (K5-fwd)", STRIDED_SRC, f"{PALLAS}:2019",
+         launches["k5"]["k5_fwd"], errs["k5"], times["k5_fwd"], k5_bound),
+        ("cpb_table_strided_bwd (K5-bwd)", f"{CSRC}/cpb_table_strided_bwd.cu",
+         f"{PALLAS}:2040", launches["k5"]["k5_bwd"], errs["k5_bwd"],
+         times["k5_bwd"], k5b_bound),
+        ("fused_table_fwd (K6-fwd)", FUSED_SRC, f"{PALLAS}:2910",
+         launches["k6"]["k6_fwd"], errs["k6"], times["k6_fwd"], k6_bound),
+        ("fused_table_bwd (K6-bwd)", f"{CSRC}/fused_table_bwd.cu",
+         f"{PALLAS}:2949", launches["k6"]["k6_bwd"], errs["k6_bwd"],
+         times["k6_bwd"], k6b_bound),
     ]
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1040,10 +1155,14 @@ def check_outputs(metrics: dict, logits: dict, n_bags: int,
 
 
 def setting(cfg) -> str:
-    """A config's cell: mode, divisor, bf16 streams (and deformpathomic's
-    attn_dim and return_vgrid)."""
+    """A config's cell: mode, divisor, bf16 streams, the opt-in table paths
+    when set (and deformpathomic's attn_dim and return_vgrid)."""
     out = (f"{cfg.mode}, divisor {cfg.cpb_table_divisor}, bf16 streams "
            f"{cfg.attn_bf16_streams}")
+    if cfg.fused_table_attention:
+        out += ", fused table attention"
+    if cfg.cpb_table_bf16:
+        out += ", bf16 table store"
     if cfg.mode == "deformpathomic":
         out += f", attn_dim {cfg.attn_dim}, return_vgrid {cfg.return_vgrid}"
     return out
@@ -1319,6 +1438,444 @@ def time_deformpathomic(preset, train_preset, batch, dev, card: str) -> None:
         del model
         torch.cuda.empty_cache()
     for cfg in deformpathomic_settings(train_preset):
+        time_train_steps((cfg,), batch, dev, card)
+        torch.cuda.empty_cache()
+
+
+def opt_in_settings(cfg) -> tuple:
+    """``cfg`` (the preset, serving or training) in the three opt-in
+    settings of the 2-D attention: (a) the fused table attention (K6), (b)
+    the table at divisor 4 (K5), (c) the bf16 table store (K1)."""
+    return (cfg.replace(fused_table_attention=True),
+            cfg.replace(cpb_table_divisor=4),
+            cfg.replace(cpb_table_bf16=True))
+
+
+# the teacher's kernels in each opt-in setting, per forward or train step
+OPT_IN_KERNELS = (("k6_fwd", "k6_bwd"), ("k5_fwd", "k5_bwd"),
+                  ("k1_fwd", "k1_bwd"))
+
+
+def table_bounds(table, taps, side: int, out_bytes: int = 4) -> tuple:
+    """``(forward, backward)`` bounds of a table kernel (K1, K5): the
+    forward reads the table, taps and fractions once and writes the
+    windows (``out_bytes`` a value), 9 flops a value (four products, three
+    sums, the two 1 - f); the backward reads the window cotangent, the
+    table, taps and fractions, and writes the table cotangent and the
+    fraction cotangents, 16 flops a cotangent value."""
+    R = taps.shape[0]
+    values = R * side * side
+    small = 4 * table.numel() + 16 * R
+    return (bound(small + out_bytes * values, 9 * values),
+            bound(small + 4 * table.numel() + 8 * R + out_bytes * values,
+                  16 * values))
+
+
+def strided_case(cpb, dev, divisor: int, gen, side: int = 50, bh: int = 32,
+                 k: int = 144):
+    """A table at ``divisor`` and the taps and fractions of ``bh x k`` kv
+    points up to 25% past the bound of the teacher's 12 x 12 deformed grid,
+    so that some rows clip and extrapolate."""
+    import torch
+
+    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    w = mlp_weights(1, gen, dev)
+    table = cpb.cpb_table(*w, side=side, kv_bound=kv_bound, divisor=divisor)
+    gkv = ((torch.rand(bh, k, 2, generator=gen) * 2 - 1)
+           * kv_bound * 1.25).to(dev)
+    taps, fracs = cpb.table_taps(
+        cpb.table_shifts(gkv, side=side, kv_bound=kv_bound, divisor=divisor),
+        side=side, tn=table.shape[0], divisor=divisor)
+    return table, taps, fracs
+
+
+def check_table_strided_kernels(cpb, dev, card: str) -> dict:
+    """Phase 2e (K5 and the bf16 store): K1-fwd with the bf16 store, and
+    K5-fwd at divisor 2 and 4 (tn 274 and 544) in f32 and with the bf16
+    store, at R = 4608 rows of side 50 with clipped rows, each against its
+    plain version (bitwise equal: the same ops rounded the same way); K1-bwd
+    with a bf16 window cotangent and K5-bwd with f32 and bf16 ones through
+    :func:`check_table_backward`.  Returns the inputs (for the timings) and
+    the errors."""
+    import torch
+
+    gen = torch.Generator().manual_seed(6)
+    side = 50
+    out = {"err": 0.0, "bwd_err": 0.0}
+    table, taps, fracs = strided_case(cpb, dev, 1, gen)
+    with torch.inference_mode():
+        got = cpb.table_interp(table, taps, fracs, side, torch.bfloat16)
+        want = cpb.table_interp_reference(table, taps, fracs, side,
+                                          out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    same = got.dtype == want.dtype == torch.bfloat16 and torch.equal(got, want)
+    print(f"[K1 bf16] R={taps.shape[0]} side={side} tn={table.shape[0]} bf16 "
+          f"store bitwise equal to its plain version: {same} | {card}")
+    if not same:
+        raise RuntimeError("K1 with the bf16 store disagrees with its plain "
+                           "version")
+    dout = torch.randn(taps.shape[0], side, side, generator=gen).to(dev)
+    out["k1_bwd_err"] = check_table_backward(
+        cpb, "K1-bwd", table, taps, fracs, dout.to(torch.bfloat16), side, 1,
+        K1_BWD_TOL, card)
+    out["k1_bf16"] = dict(table=table, taps=taps, fracs=fracs)
+    for d in (2, 4):
+        table, taps, fracs = strided_case(cpb, dev, d, gen)
+        R = taps.shape[0]
+        clipped = ((fracs < 0) | (fracs > 1)).any(dim=1)
+        for dt in (torch.float32, torch.bfloat16):
+            with torch.inference_mode():
+                got = cpb.table_interp_strided(table, taps, fracs, side, d, dt)
+                want = cpb.table_interp_reference(table, taps, fracs, side, d,
+                                                  dt)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            same = got.dtype == want.dtype == dt and torch.equal(got, want)
+            print(f"[K5] divisor {d} R={R} side={side} tn={table.shape[0]} "
+                  f"{str(dt)[6:]} store: clipped rows {int(clipped.sum())}, "
+                  f"max_abs_err {err:.3e}, bitwise equal {same} | {card}")
+            if not same or not clipped.any():
+                raise RuntimeError("K5 disagrees with its plain version")
+            out["err"] = max(out["err"], err)
+        dout = torch.randn(R, side, side, generator=gen).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            out["bwd_err"] = max(out["bwd_err"], check_table_backward(
+                cpb, "K5-bwd", table, taps, fracs, dout.to(dt),
+                side, d, dict.fromkeys(("dtable", "dfracs"), K5_BWD_TOL),
+                card))
+        out[d] = dict(table=table, taps=taps, fracs=fracs, dout=dout)
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_table_backward(cpb, name: str, table, taps, fracs, dout,
+                         side: int, divisor: int, tol: dict,
+                         card: str) -> float:
+    """K1-bwd (divisor 1) or K5-bwd with the window cotangent ``dout`` (f32
+    or bf16) against its plain version in float64, each cotangent
+    norm-relative within its ``tol`` (the f32 plain version's own error
+    beside), bitwise equal over two calls, every clipped row's shift
+    cotangent kept.  Returns the largest absolute error against float64."""
+    import torch
+
+    def bwd():
+        if divisor == 1:
+            return cpb.table_interp_backward(table, taps, fracs, dout, side)
+        return cpb.table_interp_strided_backward(table, taps, fracs, dout,
+                                                 side, divisor)
+
+    clipped = ((fracs < 0) | (fracs > 1)).any(dim=1)
+    kb = [bwd() for _ in range(2)]
+    torch.cuda.synchronize()
+    det = all(torch.equal(a, b) for a, b in zip(*kb))
+    want = cpb.table_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), side, divisor)
+    plain = cpb.table_interp_backward_reference(table, taps, fracs, dout,
+                                                side, divisor)
+    errs = {n: (rel_err(g, ww), rel_err(p, ww)) for n, g, p, ww in
+            zip(("dtable", "dfracs"), kb[0], plain, want)}
+    clipped_dsh = (kb[0][1][clipped].abs().amax(dim=1).min().item()
+                   if clipped.any() else 0.0)
+    abs_err = max((g.double() - ww).abs().max().item()
+                  for g, ww in zip(kb[0], want))
+    print(f"[{name}] divisor {divisor} R={taps.shape[0]} side={side} "
+          f"{str(dout.dtype)[6:]} cotangent: rel "
+          f"err vs f64, kernel / f32 plain: " + ", ".join(
+              f"{n} {e:.3e} / {pe:.3e} (tol {tol[n]})"
+              for n, (e, pe) in errs.items())
+          + f"; clipped rows {int(clipped.sum())}, their "
+          f"smallest |dfracs| {clipped_dsh:.3e}; deterministic {det}; "
+          f"max_abs_err {abs_err:.3e} | {card}")
+    if (not det or not clipped_dsh > 0
+            or not all(e <= tol[n] for n, (e, _) in errs.items())):
+        raise RuntimeError(f"{name} disagrees with its plain "
+                           "version or is not deterministic")
+    return abs_err
+
+
+def fused_case(dev, gen, bh: int = 32, k: int = 144, side: int = 50,
+               d: int = 64) -> dict:
+    """q (pre-scaled), k, v, the divisor-1 table and the shifts of the
+    teacher's attention (BH = 32, K = 144, N = 2500, D = 64), kv points up
+    to 25% past the bound, and random output and map cotangents."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    w = mlp_weights(1, gen, dev)
+    gkv = (torch.rand(bh, k, 2, generator=gen) * 2 - 1) * kv_bound * 1.25
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    n = side * side
+    return dict(q=rnd(bh, n, d, scale=d ** -0.5), k=rnd(bh, k, d),
+                v=rnd(bh, k, d),
+                table=cpb.cpb_table(*w, side=side, kv_bound=kv_bound),
+                shifts=cpb.table_shifts(gkv.to(dev), side=side,
+                                        kv_bound=kv_bound),
+                g_out=rnd(bh, n, d), g_attn=rnd(bh, k, n), side=side)
+
+
+def check_fused_kernels(dev, card: str) -> dict:
+    """Phase 2e (K6): K6-fwd against its plain version at rate 0 and 0.1
+    (the same mask), ``attn`` within ``K6_ATTN_TOL`` and ``out`` within
+    ``K6_OUT_TOL`` abs; K6-bwd (with the map's own cotangent) against the
+    plain version's autograd in float64, norm-relative: dq, dk, dv within
+    ``K6_BWD_TOL``, dtable and dfracs within ``K6_TABLE_BWD_TOL`` or twice
+    the f32 plain version's own error, whichever is larger; bitwise equal
+    over two calls.  Returns the inputs (for the timings) and the errors."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb, fused_table
+
+    gen = torch.Generator().manual_seed(7)
+    c = fused_case(dev, gen)
+    q, k, v, table, shifts, side = (c[n] for n in ("q", "k", "v", "table",
+                                                   "shifts", "side"))
+    taps, fracs = cpb.table_taps(shifts, side=side, tn=table.shape[0])
+    out = {"err": 0.0, "bwd_err": 0.0}
+    names = ("dq", "dk", "dv", "dtable", "dfracs")
+    for rate in (0.0, 0.1):
+        seed = 1234 + int(rate * 10)
+        with torch.inference_mode():
+            got = fused_table.fused_table_attention(q, k, v, table, shifts,
+                                                    side, seed, rate)
+            want = fused_table.fused_table_attention_reference(
+                q, k, v, table, shifts, side, seed, rate)
+        torch.cuda.synchronize()
+        e_out, e_attn = ((a - b).abs().max().item() for a, b in zip(got, want))
+        kept = (fused_table.dropout_keep_mask(seed, want[1].shape, rate, dev)
+                .float().mean().item())
+        print(f"[K6] BH={q.shape[0]} K={k.shape[1]} N={q.shape[1]} "
+              f"D={q.shape[2]} rate {rate}: kept {kept:.4f}; max_abs_err out "
+              f"{e_out:.3e} (tol {K6_OUT_TOL}), attn {e_attn:.3e} (tol "
+              f"{K6_ATTN_TOL}) | {card}")
+        if not e_out <= K6_OUT_TOL or not e_attn <= K6_ATTN_TOL:
+            raise RuntimeError("K6 disagrees with its plain version")
+        out["err"] = max(out["err"], e_out, e_attn)
+        attn = got[1]
+        kb = [fused_table.fused_table_attention_backward(
+            q, k, v, table, taps, fracs, attn, c["g_out"], c["g_attn"], side,
+            seed, rate) for _ in range(2)]
+        torch.cuda.synchronize()
+        det = all(torch.equal(a, b) for a, b in zip(*kb))
+        del got, want
+        ref = {}
+        for dt in (torch.float64, torch.float32):
+            ref[dt] = fused_table.fused_table_attention_backward_reference(
+                *(c[n].to(dt) for n in ("q", "k", "v", "table")), taps,
+                fracs.to(dt), c["g_out"].to(dt), c["g_attn"].to(dt), side,
+                seed, rate)
+            torch.cuda.empty_cache()
+        errs = {n: (rel_err(g, w64), rel_err(p, w64)) for n, g, p, w64 in
+                zip(names, kb[0], ref[torch.float32], ref[torch.float64])}
+        tol = {n: (K6_BWD_TOL if n in ("dq", "dk", "dv")
+                   else max(K6_TABLE_BWD_TOL, 2 * errs[n][1])) for n in names}
+        abs_err = max((g.double() - w64).abs().max().item()
+                      for g, w64 in zip(kb[0], ref[torch.float64]))
+        print(f"[K6-bwd] rate {rate}: rel err vs f64, kernel / f32 plain: "
+              + ", ".join(f"{n} {e:.3e} / {pe:.3e} (tol {tol[n]:.1e})"
+                          for n, (e, pe) in errs.items())
+              + f"; deterministic {det}; max_abs_err {abs_err:.3e} | {card}")
+        if not det or not all(e <= tol[n] for n, (e, _) in errs.items()):
+            raise RuntimeError("K6-bwd disagrees with its plain version or is "
+                               "not deterministic")
+        out["bwd_err"] = max(out["bwd_err"], abs_err)
+        del kb, ref
+        torch.cuda.empty_cache()
+    out.update(c, taps=taps, fracs=fracs)
+    return out
+
+
+def run_opt_in_entries(preset, train_preset, dev, card: str) -> dict:
+    """Phase 3e: the teacher's serving entry (1 batch) and training entry
+    (2 steps and 1 eval batch) in each opt-in setting, every count set to
+    0 just before a run and read just after: per forward 4 launches of the
+    setting's forward kernel (K6, K5 or K1), per step 4 of its backward, 0
+    of every other kernel (K6-bwd's count includes the K1-bwd scatter
+    kernels that each of its launches runs on its ``ds``).  Returns the training runs' counts of (a) and
+    (b), the main paths of K6 and K5."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+
+    for cfg, (fwd, _) in zip(opt_in_settings(preset), OPT_IN_KERNELS):
+        cfg = cfg.replace(synthetic_test_size=4)
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics, logits = inference.main(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts()
+        print(f"[main] serving, {setting(cfg)}: 1 batch in {wall:.2f} s "
+              f"(set-up included); launches {n}")
+        check_outputs(metrics, logits, 4)
+        if n != expect(**{fwd: 4}):
+            raise RuntimeError(f"opt-in serving, {setting(cfg)}: launches {n}")
+    runs = []
+    for cfg, (fwd, bwd) in zip(opt_in_settings(train_preset), OPT_IN_KERNELS):
+        runs.append(run_training_entry(
+            cfg.replace(synthetic_train_size=8), dev, 2, {fwd: 4, bwd: 4},
+            {fwd: 4}, card))
+        torch.cuda.empty_cache()
+    print("[main] fused: each K6-bwd launch above includes one launch of "
+          "K1-bwd's scatter kernels (partial tables + block-order sum) on "
+          "its ds; K1-bwd's own wrapper is not called, so its count is 0")
+    return {"k6": runs[0], "k5": runs[1]}
+
+
+def unfused_attention(cpb, q, k, v, table, shifts, side, rate):
+    """The port's unfused divisor-1 composition that K6 replaces: the taps,
+    K1, then ``k q^T + bias``, the softmax over K, dropout and PV, in f32."""
+    import torch
+    import torch.nn.functional as F
+
+    taps, fracs = cpb.table_taps(shifts, side=side, tn=table.shape[0])
+    bias = cpb.table_interp(table, taps, fracs, side).reshape(
+        k.shape[0], k.shape[1], -1)
+    attn = torch.softmax(torch.matmul(k, q.transpose(1, 2)) + bias, dim=1)
+    return torch.matmul(F.dropout(attn, rate, True).transpose(1, 2), v), attn
+
+
+def time_opt_in_kernels(cpb, k5: dict, k6: dict, card: str) -> dict:
+    """Phase 6e, kernels: K5-fwd (divisor 2 and 4, f32 and the bf16 store)
+    and K1-fwd with the bf16 store against their plain versions; K5-bwd
+    against the plain backward (autograd through the plain forward, its
+    graph kept); K6-fwd and K6-bwd (rate 0 and 0.1) against their plain
+    versions and beside the port's unfused composition (K1 + matmul +
+    softmax + dropout + matmul, forward, and its backward by autograd,
+    K1-bwd included).  Returns the times of the kernels line: K5 at
+    divisor 4 in f32, K6 at rate 0.1 (the preset's dropout)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import fused_table
+
+    side, times = 50, {}
+    with torch.inference_mode():
+        c1 = k5["k1_bf16"]
+        ms, plain = interleaved_ms(
+            lambda: cpb.table_interp_reference(c1["table"], c1["taps"],
+                                               c1["fracs"], side,
+                                               out_dtype=torch.bfloat16),
+            lambda: cpb.table_interp(c1["table"], c1["taps"], c1["fracs"],
+                                     side, torch.bfloat16), 50)
+        bms, by = table_bounds(c1["table"], c1["taps"], side, 2)[0]
+        print(f"[time] K1-fwd bf16 store R=4608 side=50: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms; bound {bms:.4f} ms by {by} | {card}")
+        times["k1_bf16"] = (ms, plain)
+        for d in (2, 4):
+            c = k5[d]
+            for dt in (torch.float32, torch.bfloat16):
+                ms, plain = interleaved_ms(
+                    lambda: cpb.table_interp_reference(
+                        c["table"], c["taps"], c["fracs"], side, d, dt),
+                    lambda: cpb.table_interp_strided(
+                        c["table"], c["taps"], c["fracs"], side, d, dt), 50)
+                nbytes = c["dout"].numel() * (4 if dt == torch.float32 else 2)
+                print(f"[time] K5-fwd divisor {d} {str(dt)[6:]} store "
+                      f"R=4608 side=50 tn={c['table'].shape[0]}: kernel "
+                      f"{ms:.4f} ms, plain {plain:.4f} ms; "
+                      f"{nbytes / ms / 1e9:.3f} TB/s written = "
+                      f"{nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s | {card}")
+                times[("k5_fwd", d, dt)] = (ms, plain)
+    for d in (2, 4):
+        c = k5[d]
+        t = c["table"].detach().requires_grad_()
+        f = c["fracs"].detach().requires_grad_()
+        o = cpb.table_interp_reference(t, c["taps"], f, side, d)
+        ms, plain = interleaved_ms(
+            lambda: torch.autograd.grad(o, (t, f), c["dout"],
+                                        retain_graph=True),
+            lambda: cpb.table_interp_strided_backward(
+                c["table"], c["taps"], c["fracs"], c["dout"], side, d), 20)
+        del o
+        print(f"[time] K5-bwd divisor {d} R=4608 side=50: kernel {ms:.4f} ms,"
+              f" plain (autograd) {plain:.4f} ms; "
+              f"{4 * c['dout'].numel() / ms / 1e9:.3f} TB/s of dw read | "
+              f"{card}")
+        times[("k5_bwd", d)] = (ms, plain)
+        torch.cuda.empty_cache()
+
+    q, k, v, table, shifts, side = (k6[n] for n in ("q", "k", "v", "table",
+                                                     "shifts", "side"))
+    taps, fracs = k6["taps"], k6["fracs"]
+    for rate in (0.0, 0.1):
+        seed = 99
+        with torch.inference_mode():
+            fwd = interleaved_ms(
+                lambda: fused_table.fused_table_attention_reference(
+                    q, k, v, table, shifts, side, seed, rate),
+                lambda: fused_table.fused_table_attention(
+                    q, k, v, table, shifts, side, seed, rate), 10)
+            unfused = cuda_ms(lambda: unfused_attention(
+                cpb, q, k, v, table, shifts, side, rate), 10)
+            attn = fused_table.fused_table_attention(q, k, v, table, shifts,
+                                                     side, seed, rate)[1]
+        leaves = [x.detach().requires_grad_()
+                  for x in (q, k, v, table, shifts)]
+        outs = fused_table.fused_table_attention_reference(*leaves, side,
+                                                           seed, rate)
+        cot = (k6["g_out"], k6["g_attn"])
+        bwd = interleaved_ms(
+            lambda: torch.autograd.grad(outs, leaves, cot, retain_graph=True),
+            lambda: fused_table.fused_table_attention_backward(
+                q, k, v, table, taps, fracs, attn, *cot, side, seed, rate), 5)
+        del outs
+        uouts = unfused_attention(cpb, *leaves, side, rate)
+        unfused_bwd = cuda_ms(lambda: torch.autograd.grad(
+            uouts, leaves, cot, retain_graph=True), 5)
+        del uouts
+        torch.cuda.empty_cache()
+        for name, (ms, plain), un in (("K6-fwd", fwd, unfused),
+                                      ("K6-bwd", bwd, unfused_bwd)):
+            print(f"[time] {name} BH=32 K=144 N=2500 D=64 rate {rate}: kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, the port's unfused "
+                  f"composition (K1 + matmul + softmax + dropout + matmul"
+                  f"{', backward by autograd' if name == 'K6-bwd' else ''}) "
+                  f"{un:.4f} ms | {card}")
+        times[("k6", rate)] = (fwd, bwd, unfused, unfused_bwd)
+    return times
+
+
+def time_opt_in_settings(preset, train_preset, batch, dev, card: str) -> None:
+    """Phase 6e, end to end: the teacher's eval forward (bags/s, median and
+    p80 of 30, and a profiled forward) and train step (30 steps and a
+    profiled step) in each opt-in setting; in (c) the CPB bias is checked
+    to come out of the table in bf16."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+
+    x = model_inputs(batch, dev, "teacher")
+    for cfg in opt_in_settings(preset):
+        model = define_net(cfg, dev)
+        dtypes = set()
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out: dtypes.add(out.dtype))
+            for name, m in model.named_modules() if name.endswith(
+                "rel_pos_bias")]
+        with torch.inference_mode():
+            model(**x)
+            for h in hooks:
+                h.remove()
+            ms = ms_samples(lambda: model(**x), 30)
+            med, p80 = median(ms), ms[int(0.8 * len(ms))]
+            print(f"[time] eval forward B=4 fixdim=2500 {setting(cfg)}: "
+                  f"median {med:.3f} ms/batch = {4000.0 / med:.1f} bags/s, "
+                  f"p80 {p80:.3f} ms = {4000.0 / p80:.1f} bags/s (30 "
+                  f"forwards); CPB bias dtypes {sorted(map(str, dtypes))} "
+                  f"| {card}")
+            profile(f"eval forward ({setting(cfg)})", lambda: model(**x))
+        if cfg.cpb_table_bf16 and dtypes != {torch.bfloat16}:
+            raise RuntimeError("cpb_table_bf16: the CPB bias is not bf16")
+        del model
+        torch.cuda.empty_cache()
+    for cfg in opt_in_settings(train_preset):
         time_train_steps((cfg,), batch, dev, card)
         torch.cuda.empty_cache()
 

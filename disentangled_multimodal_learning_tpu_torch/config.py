@@ -61,10 +61,16 @@ class Config:
     # the student's DPC-KNN keeps ceil(fixdim * path_cluster_num) clusters
     # per bag, at least 2
     path_cluster_num: float = 0.0008
-    # 0 = exact CPB (kernel K2); 1 = divisor-1 table CPB (kernel K1)
+    # 0 = exact CPB (kernel K2); d >= 1 = the table CPB on a lattice d times
+    # finer than the query grid (kernel K1 at 1, K5 at d >= 2)
     cpb_table_divisor: int = 0
+    # the fused table attention (kernel K6: bias windows, sim, softmax,
+    # dropout and PV in one kernel) at divisor 1
+    fused_table_attention: bool = False
     # bf16 q/k/v, sim and attention streams on the card (softmax in f32)
     attn_bf16_streams: bool = False
+    # bf16 store of the 2-D table CPB windows on the card (blend in f32)
+    cpb_table_bf16: bool = False
     # deformpathomic (JAX config.py:153, :169, :196, :211-214): the
     # deformable attention's dimension (1: the cls-token 1-D attention, 2:
     # the 2-D one), the reference's degenerate 1-D sampler, the vgrid

@@ -28,18 +28,28 @@
 // Every product and sum is rounded separately (__fmul_rn / __fadd_rn), so
 // the result is bitwise that of the plain PyTorch version
 // (ops/cpb.py table_interp_reference), which rounds each op the same way.
+// Under cpb_table_bf16 (the TPU's TBL_BF16_OUT) the blend stays f32 and
+// only the store rounds to bf16 (round to nearest even, as the plain
+// version's .to(torch.bfloat16)), halving the write.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename Out>
 __global__ void __launch_bounds__(kThreads)
 cpb_table_interp_fwd_kernel(const float* __restrict__ table, int tn_rows,
                             int tn_cols, const int* __restrict__ taps,
                             const float* __restrict__ fracs,
-                            float* __restrict__ out, int side) {
+                            Out* __restrict__ out, int side) {
   extern __shared__ float win[];  // (side + 1) x (side + 1), row-major
   const int r = blockIdx.x;
   const int w = side + 1;
@@ -58,33 +68,41 @@ cpb_table_interp_fwd_kernel(const float* __restrict__ table, int tn_rows,
   const float fx = fracs[2 * r + 1];
   const float gy = __fsub_rn(1.0f, fy);
   const float gx = __fsub_rn(1.0f, fx);
-  float* o = out + static_cast<size_t>(r) * side * side;
+  Out* o = out + static_cast<size_t>(r) * side * side;
   for (int i = threadIdx.x; i < side * side; i += blockDim.x) {
     const int y = i / side;
     const int x = i - y * side;
     const float* t = win + y * w + x;
     const float a = __fadd_rn(__fmul_rn(t[0], gy), __fmul_rn(t[w], fy));
     const float b = __fadd_rn(__fmul_rn(t[1], gy), __fmul_rn(t[w + 1], fy));
-    o[i] = __fadd_rn(__fmul_rn(a, gx), __fmul_rn(b, fx));
+    store(o + i, __fadd_rn(__fmul_rn(a, gx), __fmul_rn(b, fx)));
   }
 }
 
 }  // namespace
 
 // table [tn_rows, tn_cols] f32, taps [rows, 2] int32 (y0, x0),
-// fracs [rows, 2] f32 (fy, fx) -> out [rows, side, side] f32.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// fracs [rows, 2] f32 (fy, fx) -> out [rows, side, side], f32 or, with
+// out_bf16, bf16.  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int dmlt_cpb_table_interp_fwd(const void* table, int tn_rows,
                                          int tn_cols, const void* taps,
                                          const void* fracs, void* out,
-                                         int rows, int side, void* stream) {
+                                         int out_bf16, int rows, int side,
+                                         void* stream) {
   if (rows == 0) return 0;
   const size_t smem = static_cast<size_t>(side + 1) * (side + 1) * sizeof(float);
-  cpb_table_interp_fwd_kernel<<<rows, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), tn_rows, tn_cols,
-      static_cast<const int*>(taps), static_cast<const float*>(fracs),
-      static_cast<float*>(out), side);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(table);
+  const int* tp = static_cast<const int*>(taps);
+  const float* f = static_cast<const float*>(fracs);
+  if (out_bf16) {
+    cpb_table_interp_fwd_kernel<<<rows, kThreads, smem, s>>>(
+        t, tn_rows, tn_cols, tp, f, static_cast<__nv_bfloat16*>(out), side);
+  } else {
+    cpb_table_interp_fwd_kernel<<<rows, kThreads, smem, s>>>(
+        t, tn_rows, tn_cols, tp, f, static_cast<float*>(out), side);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,8 +37,11 @@
 // give bitwise-equal results.  dw is read once, coalesced, into shared
 // memory; the x-blended cotangent m is kept there for the scatter.  The
 // shift sums cancel heavily (terms O(1), result O(1e-2), the _tbl_sum2d
-// note), so everything stays in f32 with no fast-math.
+// note), so everything stays in f32 with no fast-math.  Under
+// cpb_table_bf16 the window cotangent arrives in bf16 (the forward stored
+// bf16 windows) and is upcast per element as it is read; every sum is f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "fixed_order_sum.cuh"
@@ -48,11 +51,17 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename In>
 __global__ void __launch_bounds__(kThreads)
 cpb_table_bwd_partial_kernel(const float* __restrict__ table, int tn_rows,
                              int tn_cols, const int* __restrict__ taps,
                              const float* __restrict__ fracs,
-                             const float* __restrict__ dout,
+                             const In* __restrict__ dout,
                              float* __restrict__ dfracs,
                              float* __restrict__ partial, int rows, int side,
                              int rows_per_block) {
@@ -77,8 +86,10 @@ cpb_table_bwd_partial_kernel(const float* __restrict__ table, int tn_rows,
       const int y = i / w;
       s_win[i] = table[static_cast<size_t>(y0 + y) * tn_cols + x0 + i - y * w];
     }
-    const float* dwr = dout + static_cast<size_t>(r) * side * side;
-    for (int i = threadIdx.x; i < side * side; i += blockDim.x) s_dw[i] = dwr[i];
+    const In* dwr = dout + static_cast<size_t>(r) * side * side;
+    for (int i = threadIdx.x; i < side * side; i += blockDim.x) {
+      s_dw[i] = load(dwr + i);
+    }
     __syncthreads();
 
     const float fy = fracs[2 * r];
@@ -122,38 +133,51 @@ cpb_table_bwd_partial_kernel(const float* __restrict__ table, int tn_rows,
   for (int i = threadIdx.x; i < tsize; i += blockDim.x) out[i] = s_dtab[i];
 }
 
+template <typename In>
+cudaError_t launch_partial(const float* table, int tn_rows, int tn_cols,
+                           const int* taps, const float* fracs,
+                           const void* dout, float* dfracs, float* partial,
+                           int rows, int side, int nparts, size_t smem,
+                           cudaStream_t s) {
+  auto* kernel = cpb_table_bwd_partial_kernel<In>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<nparts, kThreads, smem, s>>>(
+      table, tn_rows, tn_cols, taps, fracs, static_cast<const In*>(dout),
+      dfracs, partial, rows, side, (rows + nparts - 1) / nparts);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // table [tn_rows, tn_cols] f32, taps [rows, 2] int32 (y0, x0), fracs
-// [rows, 2] f32 (fy, fx), dout [rows, side, side] f32 -> dtable
-// [tn_rows, tn_cols] f32 and dfracs [rows, 2] f32 (dfy, dfx).  partial is
-// scratch of nparts * tn_rows * tn_cols f32; block b takes rows
-// [b * ceil(rows / nparts), ...).  Returns cudaGetLastError() after the
-// launches (0 = launched).
+// [rows, 2] f32 (fy, fx), dout [rows, side, side] f32 (bf16 with
+// dout_bf16) -> dtable [tn_rows, tn_cols] f32 and dfracs [rows, 2] f32
+// (dfy, dfx).  partial is scratch of nparts * tn_rows * tn_cols f32; block
+// b takes rows [b * ceil(rows / nparts), ...).  Returns cudaGetLastError()
+// after the launches (0 = launched).
 extern "C" int dmlt_cpb_table_interp_bwd(const void* table, int tn_rows,
                                          int tn_cols, const void* taps,
                                          const void* fracs, const void* dout,
-                                         void* dtable, void* dfracs,
-                                         void* partial, int rows, int side,
-                                         int nparts, void* stream) {
+                                         int dout_bf16, void* dtable,
+                                         void* dfracs, void* partial,
+                                         int rows, int side, int nparts,
+                                         void* stream) {
   if (rows == 0 || nparts <= 0) return 0;
   const size_t w = side + 1;
   const size_t smem = (static_cast<size_t>(tn_rows) * tn_cols + w * w +
                        static_cast<size_t>(side) * side + side * w +
                        2 * kWarps) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cpb_table_bwd_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = (rows + nparts - 1) / nparts;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cpb_table_bwd_partial_kernel<<<nparts, kThreads, smem, s>>>(
+  const auto launch = dout_bf16 ? launch_partial<__nv_bfloat16>
+                                : launch_partial<float>;
+  const cudaError_t err = launch(
       static_cast<const float*>(table), tn_rows, tn_cols,
-      static_cast<const int*>(taps), static_cast<const float*>(fracs),
-      static_cast<const float*>(dout), static_cast<float*>(dfracs),
-      static_cast<float*>(partial), rows, side, rows_per_block);
-  err = cudaGetLastError();
+      static_cast<const int*>(taps), static_cast<const float*>(fracs), dout,
+      static_cast<float*>(dfracs), static_cast<float*>(partial), rows, side,
+      nparts, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tsize = tn_rows * tn_cols;
-  return sum_partials(partial, nparts, tsize, dtable, s);
+  return sum_partials(partial, nparts, tn_rows * tn_cols, dtable, s);
 }

@@ -1,0 +1,55 @@
+// What K6-fwd (fused_table.cu) and K6-bwd (fused_table_bwd.cu) share: the
+// block shape, the shared-memory row stride of k and v, and the dropout
+// mask.
+//
+// The dropout mask is a counter-based hash of (seed, element index), the
+// element index of attn [BH, K, N] being (bh * K + k) * N + n: the forward
+// and the backward regenerate the same mask from the seed, with no mask in
+// device memory.  ops/fused_table.py dropout_keep_mask computes the same
+// bits with int64 tensor ops masked to 32 bits, so the kernels and the
+// plain version drop the same elements.  mix32 is the "lowbias32" integer
+// finaliser (C. Wellons, hash-prospector); the top 24 bits of the hash are
+// compared with round(rate * 2^24).
+//
+// Everything here has internal linkage: each source that includes it
+// compiles to its own object, and the objects link into one library.
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kQT = 64;     // queries of one tile
+constexpr int kRows = 10;   // kv rows per thread in the [K, kQT] passes
+constexpr int kMaxK = 16 * kRows;  // 160: K of a block
+constexpr int kMaxD = 64;   // dim_head: 16 threads x 4 columns
+
+// row stride of k, v and the row-major q / g_out tiles in shared memory:
+// 16-byte aligned rows (float4 reads), and the two rows a warp reads at
+// once fall in different banks
+__host__ __device__ constexpr int row_stride(int D) { return D + 4; }
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// keep element idx of the attention map?  threshold = round(rate * 2^24);
+// threshold 0 keeps every element.
+__device__ __forceinline__ bool dropout_keep(uint32_t seed_mix,
+                                             unsigned long long idx,
+                                             uint32_t threshold) {
+  const uint32_t h = mix32(static_cast<uint32_t>(idx) ^
+                           mix32(static_cast<uint32_t>(idx >> 32) ^ seed_mix));
+  return (h >> 8) >= threshold;
+}
+
+}  // namespace

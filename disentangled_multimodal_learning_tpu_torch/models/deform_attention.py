@@ -19,8 +19,12 @@ with ``attn_bf16_streams`` both attention matmuls take bf16 operands and the
 ``[B, H, K, N]`` sim / attention streams are stored in bf16, while the
 softmax upcasts and reduces in f32; the 2-D module's grouped q/k/v
 projections take bf16 operands too (the 1-D module's ungrouped ones stay
-f32, as JAX's ``nn.Dense`` there has no dtype).  Everywhere else (and
-always on the CPU) everything is f32.
+f32, as JAX's ``nn.Dense`` there has no dtype).  With ``cpb_table_bf16`` the
+2-D table CPB (K1, K5) stores its windows in bf16 on the card (the blend
+stays f32; JAX's ``TBL_BF16_OUT``).  Everywhere else (and always on the
+CPU) everything is f32.  The fused table attention
+(``fused_table_attention``, kernel K6) takes q, k and v in f32 and returns
+an f32 map whatever the stream dtypes, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from torch import nn
 
 from ..ops import cpb as cpb_ops
 from ..ops import cpb1d as cpb1d_ops
+from ..ops import fused_table as fused_ops
 
 
 class PointwiseConv(nn.Module):
@@ -78,11 +83,15 @@ class CPB(nn.Module):
     """SwinV2 continuous position bias MLP (``coords`` -> dim -> dim ->
     heads/groups, relu; ``coords`` 2 for the 2-D module, 1 for the 1-D).
     :meth:`forward` returns the kv-major bias ``[B, H, K, N]``: in 2-D
-    through the table kernel K1 at ``table_divisor == 1``; in 1-D through
-    the 1-D table kernel K4 at any ``table_divisor > 0`` (the 1-D lattice
-    always has the query spacing, JAX ``:190-195``); through the exact
-    kernel K2 at 0, the 1-D coordinate padded with a zero second one and a
-    zero row of ``w1`` (JAX ``:285-298``)."""
+    with one output channel (``heads == offset_groups``) through the table
+    kernel K1 at ``table_divisor == 1`` and K5 at ``table_divisor >= 2``
+    (JAX's ``use_table`` gate, ``:223-226``); in 1-D through the 1-D table
+    kernel K4 at any ``table_divisor > 0`` (the 1-D lattice always has the
+    query spacing, JAX ``:190-195``); through the exact kernel K2 at 0 (and
+    in 2-D with several channels), the 1-D coordinate padded with a zero
+    second one and a zero row of ``w1`` (JAX ``:285-298``).
+    :meth:`table_parts` hands the fused table attention its divisor-1
+    table and shifts instead (JAX ``table_parts=True``)."""
 
     def __init__(self, dim: int, heads: int, offset_groups: int,
                  coords: int = 2):
@@ -100,10 +109,18 @@ class CPB(nn.Module):
         return (l1.weight.t().contiguous(), l1.bias, l2.weight.t().contiguous(),
                 l2.bias, l3.weight.t().contiguous(), l3.bias)
 
+    def table_parts(self, grid_kv, *, side: int, kv_bound: float):
+        """``grid_kv [B*G, K, 2]`` -> the divisor-1 ``table [tn, tn]`` and
+        the rows' lattice ``shifts [B*G*K, 2]``, both differentiable."""
+        w = self.weights()
+        return (cpb_ops.cpb_table(*w, side=side, kv_bound=kv_bound),
+                cpb_ops.table_shifts(grid_kv, side=side, kv_bound=kv_bound))
+
     def forward(self, grid_q, grid_kv, *, side: int, table_divisor: int,
-                kv_bound: float):
+                kv_bound: float, out_dtype=torch.float32):
         """``grid_q [N, P]``, ``grid_kv [B*G, K, P]`` -> ``[B, H, K, N]``
-        (``side`` is the 2-D grid's side; the 1-D table needs none)."""
+        (``side`` is the 2-D grid's side; the 1-D table needs none); the
+        2-D table stores ``out_dtype``, every other path f32."""
         bg, k, P = grid_kv.shape
         b = bg // self.offset_groups
         w = self.weights()
@@ -114,9 +131,11 @@ class CPB(nn.Module):
             bias = cpb_ops.cpb_bias_transposed(
                 F.pad(grid_q, (0, 1)), F.pad(grid_kv, (0, 1)),
                 torch.cat([w[0], torch.zeros_like(w[0])]), *w[1:])
-        elif table_divisor == 1 and w[4].shape[1] == 1:
+        elif table_divisor > 0 and w[4].shape[1] == 1:
             bias = cpb_ops.cpb_bias_table(grid_kv, *w, side=side,
-                                          kv_bound=kv_bound)
+                                          kv_bound=kv_bound,
+                                          divisor=table_divisor,
+                                          out_dtype=out_dtype)
         else:
             bias = cpb_ops.cpb_bias_transposed(grid_q, grid_kv, *w)
         # head = g * (heads/groups) + o, as in the JAX module
@@ -139,19 +158,23 @@ class DeformCrossAttention2D(nn.Module):
     square; returns ``(out [B, N, C], attn [B, H, K, N])``.  In train mode
     the attention weights go through ``dropout`` before PV; the returned
     map is the one before dropout (JAX ``attn_return``, :541-542), which is
-    what the attention consistency loss reads."""
+    what the attention consistency loss reads.
+
+    ``fused_table_attention`` runs the fused table attention (kernel K6:
+    bias windows, sim, softmax, dropout and PV in one kernel, JAX ``:494-526``)
+    where JAX's gate holds: divisor 1, a deformed grid of more than one
+    point a side, ``heads == offset_groups``; elsewhere the module runs the
+    unfused path.  JAX's further ``v10_supported`` condition is a TPU layout
+    rule that the card's kernel does not have."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  dropout: float = 0.0, downsample_factor: int = 4,
                  offset_scale: float = 4.0, offset_groups: int = 8,
                  offset_kernel_size: int = 6, cpb_table_divisor: int = 0,
-                 attn_bf16_streams: bool = False):
+                 attn_bf16_streams: bool = False,
+                 fused_table_attention: bool = False,
+                 cpb_table_bf16: bool = False):
         super().__init__()
-        if cpb_table_divisor not in (0, 1):
-            raise NotImplementedError(
-                f"cpb_table_divisor={cpb_table_divisor}: the port has the "
-                "exact CPB (0) and the divisor-1 table (1); divisors >= 2 "
-                "wait for the K5 kernel (ROADMAP, Queue 2)")
         inner = dim_head * heads
         od = inner // offset_groups
         self.dim_head, self.heads, self.offset_groups = dim_head, heads, offset_groups
@@ -159,6 +182,8 @@ class DeformCrossAttention2D(nn.Module):
         self.offset_scale = offset_scale
         self.cpb_table_divisor = cpb_table_divisor
         self.attn_bf16_streams = attn_bf16_streams
+        self.fused_table_attention = fused_table_attention
+        self.cpb_table_bf16 = cpb_table_bf16
         self.to_q = PointwiseConv(dim, inner, groups=offset_groups)
         self.to_k = PointwiseConv(dim, inner, groups=offset_groups)
         self.to_v = PointwiseConv(dim, inner, groups=offset_groups)
@@ -213,11 +238,27 @@ class DeformCrossAttention2D(nn.Module):
 
         qh = split(q) * dh ** -0.5
         kh, vh = split(k), split(v)
-        grid_q = normalized_grid(side, side, x1.device).reshape(N, 2)
         divisor = self.cpb_table_divisor if min(gh, gw) > 1 else 0
+        kv_bound = cpb_ops.kv_bound_2d(self.offset_scale, gh, gw)
+        if self.fused_table_attention and divisor == 1 and H == G:
+            table, shifts = self.rel_pos_bias.table_parts(
+                pts.reshape(B * G, K, 2), side=side, kv_bound=kv_bound)
+            rate = self.dropout if self.training else 0.0
+            # the mask's seed, from torch's RNG (JAX: make_rng("dropout"))
+            seed = int(torch.randint(0, 2 ** 31 - 1, ())) if rate > 0 else 0
+            # q, k and v are f32 here (the projections return f32)
+            out, attn = fused_ops.fused_table_attention(
+                qh.reshape(B * H, N, dh), kh.reshape(B * H, K, dh),
+                vh.reshape(B * H, K, dh), table, shifts, side, seed, rate)
+            out = out.reshape(B, H, N, dh).transpose(1, 2).reshape(B, N, H * dh)
+            return (self.to_out(out),
+                    vgrid if return_vgrid else attn.reshape(B, H, K, N))
+        grid_q = normalized_grid(side, side, x1.device).reshape(N, 2)
         bias = self.rel_pos_bias(
             grid_q, pts.reshape(B * G, K, 2), side=side, table_divisor=divisor,
-            kv_bound=cpb_ops.kv_bound_2d(self.offset_scale, gh, gw))
+            kv_bound=kv_bound,
+            out_dtype=(torch.bfloat16 if self.cpb_table_bf16 and x1.is_cuda
+                       else torch.float32))
         opd = cdt or torch.float32
         sim = torch.matmul(kh.to(opd), qh.to(opd).transpose(-1, -2)).to(sdt)
         sim = sim + bias.to(sdt)                                 # [B,H,K,N]

@@ -5,7 +5,9 @@
 
 ``attn_dim`` 1 prepends a cls token and runs the 1-D deformable attention
 (``DeformCrossAttention1D``, whose CPB is the 1-D table kernel K4 at any
-``cpb_table_divisor > 0``); ``attn_dim`` 2 runs the 2-D one and a Pooler.
+``cpb_table_divisor > 0``); ``attn_dim`` 2 runs the 2-D one and a Pooler,
+which alone takes ``fused_table_attention`` and ``cpb_table_bf16`` (JAX's
+1-D table has neither).
 Each model holds only the attention its ``attn_dim`` runs, so a state_dict
 from the port's JAX name map (``utils/jax_params.py``) loads with
 ``strict=True``.  Train mode turns on the dropouts of the JAX model:
@@ -30,7 +32,9 @@ class DeformCrossTransLayer(nn.Module):
 
     def __init__(self, dim: int = 128, attn_dim: int = 2,
                  degenerate_1d_sampling: bool = False,
-                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False):
+                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False,
+                 fused_table_attention: bool = False,
+                 cpb_table_bf16: bool = False):
         super().__init__()
         self.attn_dim = attn_dim
         self.norm = layer_norm(dim)
@@ -46,7 +50,9 @@ class DeformCrossTransLayer(nn.Module):
                 dim=dim, dim_head=64, heads=8, dropout=0.1,
                 downsample_factor=4, offset_scale=4, offset_groups=8,
                 offset_kernel_size=6, cpb_table_divisor=cpb_table_divisor,
-                attn_bf16_streams=attn_bf16_streams)
+                attn_bf16_streams=attn_bf16_streams,
+                fused_table_attention=fused_table_attention,
+                cpb_table_bf16=cpb_table_bf16)
 
     def forward(self, x1, x2, return_vgrid: bool = False):
         if self.attn_dim == 1:
@@ -66,16 +72,14 @@ class DeformCrossTransMIL(nn.Module):
     def __init__(self, label_dim: int = 4, input_dim: int = 1024,
                  path_dim: int = 128, attn_dim: int = 2,
                  return_vgrid: bool = False,
-                 degenerate_1d_sampling: bool = False,
-                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False):
+                 degenerate_1d_sampling: bool = False, **attn_kw):
         super().__init__()
         self.attn_dim = attn_dim
         self.return_vgrid = return_vgrid
         self._fc1 = nn.Sequential(nn.Linear(input_dim, path_dim), nn.ReLU())
         self.fusion_layer = FusionNet(path_dim)
         self.layer3 = DeformCrossTransLayer(
-            path_dim, attn_dim, degenerate_1d_sampling, cpb_table_divisor,
-            attn_bf16_streams)
+            path_dim, attn_dim, degenerate_1d_sampling, **attn_kw)
         if attn_dim == 1:
             self.cls_token = nn.Parameter(torch.empty(1, 1, path_dim))
         else:
@@ -127,7 +131,9 @@ class DeformPathomicNet(nn.Module):
                  dropout_rate: float = 0.1, attn_dim: int = 2,
                  return_vgrid: bool = False, task_type: str = "diag2021",
                  degenerate_1d_sampling: bool = False,
-                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False):
+                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False,
+                 fused_table_attention: bool = False,
+                 cpb_table_bf16: bool = False):
         super().__init__()
         self.return_vgrid = return_vgrid
         self.survival = task_type == "survival"
@@ -140,7 +146,9 @@ class DeformPathomicNet(nn.Module):
                   return_vgrid=return_vgrid,
                   degenerate_1d_sampling=degenerate_1d_sampling,
                   cpb_table_divisor=cpb_table_divisor,
-                  attn_bf16_streams=attn_bf16_streams)
+                  attn_bf16_streams=attn_bf16_streams,
+                  fused_table_attention=fused_table_attention,
+                  cpb_table_bf16=cpb_table_bf16)
         self.pathomic_net_tumor = DeformCrossTransMIL(**kw)
         self.pathomic_net_immune = DeformCrossTransMIL(**kw)
         self.classifier = nn.Linear(2 * path_dim, label_dim)

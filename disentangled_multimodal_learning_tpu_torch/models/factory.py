@@ -2,9 +2,10 @@
 ``disentangled_multimodal_learning_tpu/models/factory.py``).
 
 Unlike the JAX ``define_net``, which sets module globals
-(``CPB_TABLE_DIVISOR``, ``ATTN_BF16_STREAMS``, ...), the port passes
-``cpb_table_divisor`` and ``attn_bf16_streams`` down as constructor
-arguments.
+(``CPB_TABLE_DIVISOR``, ``ATTN_BF16_STREAMS``, ``FUSED_TABLE_ATTENTION``,
+``TBL_BF16_OUT``), the port passes ``cpb_table_divisor``,
+``attn_bf16_streams``, ``fused_table_attention`` and ``cpb_table_bf16``
+down as constructor arguments.
 """
 
 from __future__ import annotations
@@ -64,7 +65,9 @@ def define_net(cfg, device="cuda") -> nn.Module:
     common = dict(label_dim=cfg.label_dim, input_path_dim=cfg.input_path_dim,
                   path_dim=cfg.path_dim,
                   cpb_table_divisor=cfg.cpb_table_divisor,
-                  attn_bf16_streams=cfg.attn_bf16_streams)
+                  attn_bf16_streams=cfg.attn_bf16_streams,
+                  fused_table_attention=cfg.fused_table_attention,
+                  cpb_table_bf16=cfg.cpb_table_bf16)
     if mode == "deformpathomic":
         model = DeformPathomicNet(
             input_size_omic_tumor=cfg.input_size_omic_tumor,

@@ -27,15 +27,14 @@ from .layers import (FusionNet, Pooler, TransFusionLayer, combine_logits,
 from .maxnet import MaxNet
 
 
-def _deform2d(dim: int, cpb_table_divisor: int, attn_bf16_streams: bool):
+def _deform2d(dim: int, **attn_kw):
     # instantiation constants of the reference (models/Modules.py:107-126;
-    # JAX teacher_student.py:47-50)
+    # JAX teacher_student.py:47-50); attn_kw: the attention options of the
+    # config (cpb_table_divisor, attn_bf16_streams, fused_table_attention,
+    # cpb_table_bf16)
     return DeformCrossAttention2D(
         dim=dim, dim_head=64, heads=8, dropout=0.1, downsample_factor=4,
-        offset_scale=4,
-        offset_groups=8, offset_kernel_size=6,
-        cpb_table_divisor=cpb_table_divisor,
-        attn_bf16_streams=attn_bf16_streams)
+        offset_scale=4, offset_groups=8, offset_kernel_size=6, **attn_kw)
 
 
 class ClusterMergeNet(nn.Module):
@@ -69,12 +68,11 @@ class TeacherEncoder(nn.Module):
     token.  One LayerNorm is shared by every normalization, as in the
     reference."""
 
-    def __init__(self, dim: int = 128, cpb_table_divisor: int = 0,
-                 attn_bf16_streams: bool = False):
+    def __init__(self, dim: int = 128, **attn_kw):
         super().__init__()
         self.norm = layer_norm(dim)
-        self.attn2d_omic1 = _deform2d(dim, cpb_table_divisor, attn_bf16_streams)
-        self.attn2d_omic2 = _deform2d(dim, cpb_table_divisor, attn_bf16_streams)
+        self.attn2d_omic1 = _deform2d(dim, **attn_kw)
+        self.attn2d_omic2 = _deform2d(dim, **attn_kw)
         self.fusion_layer = FusionNet(dim)
         self.transfusion_layer1 = TransFusionLayer(dim)
         self.transfusion_layer2 = TransFusionLayer(dim)
@@ -96,10 +94,10 @@ class StudentEncoder(nn.Module):
     to ``ceil(N * sample_ratio)`` (at least 2) tokens."""
 
     def __init__(self, dim: int = 128, sample_ratio: float = 0.0008,
-                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False):
+                 **attn_kw):
         super().__init__()
         self.norm = layer_norm(dim)
-        self.attn2d = _deform2d(dim, cpb_table_divisor, attn_bf16_streams)
+        self.attn2d = _deform2d(dim, **attn_kw)
         self.cluster_merge = ClusterMergeNet(dim, sample_ratio, min_clusters=2)
 
     def forward(self, x1, x2):
@@ -112,13 +110,11 @@ class TeacherNet(nn.Module):
     classifier."""
 
     def __init__(self, label_dim: int, input_dim: int = 1024,
-                 path_dim: int = 128, unimodal: bool = False,
-                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False):
+                 path_dim: int = 128, unimodal: bool = False, **attn_kw):
         super().__init__()
         self.unimodal = unimodal
         self._fc1 = nn.Sequential(nn.Linear(input_dim, path_dim), nn.ReLU())
-        self.encoder = TeacherEncoder(path_dim, cpb_table_divisor,
-                                      attn_bf16_streams)
+        self.encoder = TeacherEncoder(path_dim, **attn_kw)
         self.norm = layer_norm(path_dim)
         self.pooler1 = Pooler(path_dim)
         self.pooler2 = Pooler(path_dim)
@@ -146,11 +142,10 @@ class StudentNet(nn.Module):
 
     def __init__(self, label_dim: int, input_dim: int = 1024,
                  path_dim: int = 128, sample_ratio: float = 0.0008,
-                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False):
+                 **attn_kw):
         super().__init__()
         self._fc1 = nn.Sequential(nn.Linear(input_dim, path_dim), nn.ReLU())
-        self.encoder = StudentEncoder(path_dim, sample_ratio,
-                                      cpb_table_divisor, attn_bf16_streams)
+        self.encoder = StudentEncoder(path_dim, sample_ratio, **attn_kw)
         self.classifier = nn.Linear(2 * path_dim, label_dim)
 
     def forward(self, path):
@@ -171,7 +166,9 @@ class TeachersNet(nn.Module):
                  dropout_rate: float = 0.1,
                  combination_type: str = "max_confidence",
                  unimodal: bool = False, cpb_table_divisor: int = 0,
-                 attn_bf16_streams: bool = False):
+                 attn_bf16_streams: bool = False,
+                 fused_table_attention: bool = False,
+                 cpb_table_bf16: bool = False):
         super().__init__()
         self.combination_type = combination_type
         self.omic_net_tumor = MaxNet(input_size_omic_tumor, omic_dim,
@@ -181,7 +178,9 @@ class TeachersNet(nn.Module):
         kw = dict(label_dim=label_dim, input_dim=input_path_dim,
                   path_dim=path_dim, unimodal=unimodal,
                   cpb_table_divisor=cpb_table_divisor,
-                  attn_bf16_streams=attn_bf16_streams)
+                  attn_bf16_streams=attn_bf16_streams,
+                  fused_table_attention=fused_table_attention,
+                  cpb_table_bf16=cpb_table_bf16)
         self.teacher10_net = TeacherNet(**kw)
         self.teacher20_net = TeacherNet(**kw)
 
@@ -213,13 +212,17 @@ class StudentsNet(nn.Module):
     def __init__(self, label_dim: int, input_path_dim: int = 1024,
                  path_dim: int = 128, sample_ratio: float = 0.0008,
                  combination_type: str = "max_confidence",
-                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False):
+                 cpb_table_divisor: int = 0, attn_bf16_streams: bool = False,
+                 fused_table_attention: bool = False,
+                 cpb_table_bf16: bool = False):
         super().__init__()
         self.combination_type = combination_type
         kw = dict(label_dim=label_dim, input_dim=input_path_dim,
                   path_dim=path_dim, sample_ratio=sample_ratio,
                   cpb_table_divisor=cpb_table_divisor,
-                  attn_bf16_streams=attn_bf16_streams)
+                  attn_bf16_streams=attn_bf16_streams,
+                  fused_table_attention=fused_table_attention,
+                  cpb_table_bf16=cpb_table_bf16)
         self.student10_net = StudentNet(**kw)
         self.student20_net = StudentNet(**kw)
 

@@ -33,12 +33,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them); each returns an int
 SIGNATURES = {
-    "dmlt_cpb_table_interp_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _P),
-    "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _P),
+    "dmlt_cpb_table_interp_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
+    "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                                  _I, _I, _P),
+    "dmlt_cpb_table_strided_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                                   _P),
+    "dmlt_cpb_table_strided_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                                   _I, _I, _I, _P),
+    "dmlt_fused_table_fwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _P),
+    "dmlt_fused_table_fwd_smem": (_I, _I, _I, _I),
+    "dmlt_fused_table_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _P),
+    "dmlt_fused_table_bwd_smem": (_I, _I),
     "dmlt_cpb_exact_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),
     "dmlt_cpb_exact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -6,13 +6,20 @@ Two ways to the same ``[BH, K, N]`` kv-major bias (``[BH, O, K, N]`` for
 O > 1 output channels), both from one 2 -> 32 -> 32 -> O relu MLP with its
 weights in the JAX layout (``w1 [2, 32]``, ``w2 [32, 32]``, ``w3 [32, O]``):
 
-- **table** (``cpb_table_divisor = 1``, the presets): the MLP runs once on a
-  ``[tn, tn]`` lattice with the query spacing (:func:`cpb_table`, plain torch
-  in full f32), and each kv row's ``[side, side]`` window is blended
-  bilinearly from it (:func:`table_interp`, kernel K1 in
-  ``csrc/cpb_table.cu``, its backward in ``csrc/cpb_table_bwd.cu``).  Same
-  arithmetic as ``cpb_bias_table`` at divisor 1, without the TPU's
-  lane-split table layout.  Autograd carries the table cotangent back to
+- **table** (``cpb_table_divisor = d >= 1``; 1 in the presets): the MLP runs
+  once on a ``[tn, tn]`` lattice of spacing (query spacing) / d
+  (:func:`cpb_table`, plain torch in full f32), and each kv row's
+  ``[side, side]`` window, every d-th lattice point, is blended bilinearly
+  from it: at divisor 1 by :func:`table_interp` (kernel K1 in
+  ``csrc/cpb_table.cu``, its backward in ``csrc/cpb_table_bwd.cu``), at
+  d >= 2 by :func:`table_interp_strided` (kernel K5 in
+  ``csrc/cpb_table_strided.cu``, its backward in
+  ``csrc/cpb_table_strided_bwd.cu``).  Same arithmetic as
+  ``cpb_bias_table``, on the full lattice, without the TPU's lane-split
+  (divisor 1) or phase-decomposed (d >= 2) table layouts.  Both kernels
+  can store the windows in bf16 (``out_dtype``; ``cpb_table_bf16``): the
+  blend stays f32 and only the store rounds, and the backward reads a bf16
+  cotangent and sums in f32.  Autograd carries the table cotangent back to
   the MLP weights, and the fraction cotangent back to ``grid_kv``.
 - **exact** (``cpb_table_divisor = 0``, the ``Config`` default): the MLP at
   every (row, query) pair (:func:`cpb_bias_transposed`, kernel K2 in
@@ -23,11 +30,13 @@ through the wrappers below.  Wrapper rule: a tensor on the CPU goes to the
 plain PyTorch version (``*_reference``, also what the card's kernels are
 checked against); a CUDA tensor launches the kernel or raises.  There is no
 fallback.  Each wrapper counts its launches in ``<wrapper>.launches`` (a
-plain int), and nowhere else: :func:`table_interp` and
-:func:`cpb_bias_transposed` count forward launches,
-:func:`table_interp_backward` and :func:`cpb_bias_transposed_backward`
-backward launches.  The backward kernels are deterministic (two calls on
-the same inputs give bitwise-equal results).
+plain int), and nowhere else: :func:`table_interp`,
+:func:`table_interp_strided` and :func:`cpb_bias_transposed` count forward
+launches, :func:`table_interp_backward`,
+:func:`table_interp_strided_backward` and
+:func:`cpb_bias_transposed_backward` backward launches.  The backward
+kernels are deterministic (two calls on the same inputs give bitwise-equal
+results).
 """
 
 from __future__ import annotations
@@ -35,8 +44,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-import torch.nn.functional as F
 
 HID = 32  # CPB hidden width (dim // 4 at dim 128); the K2 kernels' constant
 MAX_OUT_CHANNELS = 64  # K2 keeps w3 [HID, O] in shared memory
@@ -48,30 +55,41 @@ MAX_OUT_CHANNELS = 64  # K2 keeps w3 [HID, O] in shared memory
 # 255-register, 128-thread blocks also fit two per SM
 TABLE_BWD_PARTS = 264
 EXACT_BWD_PARTS = 256
+# K5-bwd: one block per 16 x 32 tile of a phase of the table and group of
+# rows; the rows split into enough groups (at most 8) for about 8 blocks per
+# SM (1056 on the H100's 132 SMs), a function of the shapes alone, so that
+# the groups' partial tables are summed in one fixed order
+STRIDED_BWD_BLOCKS = 1056
+STRIDED_BWD_GROUPS_MAX = 8
 SMEM_LIMIT = 227 * 1024  # shared memory one block may opt in to (H100)
 
 
 # ---------------------------------------------------------------------------
-# table CPB (divisor 1)
+# table CPB (divisor d >= 1)
 # ---------------------------------------------------------------------------
 
-def table_consts(side: int, kv_bound: float) -> tuple[float, float, int]:
-    """Divisor-1 lattice geometry (``_tbl_consts`` at divisor 1): spacing
-    ``h`` (the query spacing), origin ``t0`` and size ``tn`` of a lattice
-    that covers every query-minus-kv offset when ``|grid_kv| <= kv_bound``."""
-    h = 2.0 / (side - 1)
+def table_consts(side: int, kv_bound: float,
+                 divisor: int = 1) -> tuple[float, float, int]:
+    """Lattice geometry (``_tbl_consts``): spacing ``h`` (the query spacing
+    over ``divisor``), origin ``t0`` and size ``tn`` (a multiple of
+    ``divisor``) of a lattice that covers every query-minus-kv offset when
+    ``|grid_kv| <= kv_bound``."""
+    h = (2.0 / (side - 1)) / divisor
     n_lo = int(-(-(1.0 + kv_bound) // h)) + 2  # ceil + 2 cells of margin
-    return h, -n_lo * h, 2 * n_lo + 1
+    rn = -(-(2 * n_lo + 1) // divisor)
+    return h, -n_lo * h, rn * divisor
 
 
-def cpb_table(w1, b1, w2, b2, w3, b3, *, side: int, kv_bound: float):
-    """The MLP on the divisor-1 lattice: ``T[a, b] = MLP(fx=f[b], fy=f[a])``
-    with ``f`` the sign*log1p lattice coordinates -> ``[tn, tn]`` f32
-    (port of ``cpb_bias_table_parts``).  Every bias value interpolates from
+def cpb_table(w1, b1, w2, b2, w3, b3, *, side: int, kv_bound: float,
+              divisor: int = 1):
+    """The MLP on the lattice: ``T[a, b] = MLP(fx=f[b], fy=f[a])`` with
+    ``f`` the sign*log1p lattice coordinates -> ``[tn, tn]`` f32 (port of
+    ``cpb_bias_table_parts`` and of ``cpb_bias_table``'s divisor-d build,
+    without the phase decomposition).  Every bias value interpolates from
     this table, so its matmuls must run in full f32 (no TF32 on the card)."""
     if w3.shape[1] != 1:
         raise ValueError("table CPB supports one output channel")
-    h, t0, tn = table_consts(side, kv_bound)
+    h, t0, tn = table_consts(side, kv_bound, divisor)
     lattice = t0 + h * torch.arange(tn, dtype=torch.float32, device=w1.device)
     f = torch.sign(lattice) * torch.log1p(torch.abs(lattice))
     hid = torch.relu(f[None, :, None] * w1[0] + f[:, None, None] * w1[1] + b1)
@@ -79,76 +97,101 @@ def cpb_table(w1, b1, w2, b2, w3, b3, *, side: int, kv_bound: float):
     return (hid @ w3 + b3)[..., 0].contiguous()
 
 
-def table_shifts(grid_kv, *, side: int, kv_bound: float):
+def table_shifts(grid_kv, *, side: int, kv_bound: float, divisor: int = 1):
     """Each kv row's continuous lattice shift ``(ty, tx)``: the lattice index
     of its first query offset.  ``grid_kv [BH, K, 2]`` (x, y) -> ``[BH*K, 2]``."""
-    h, t0, _ = table_consts(side, kv_bound)
+    h, t0, _ = table_consts(side, kv_bound, divisor)
     ty = (-1.0 - grid_kv[..., 1] - t0) / h
     tx = (-1.0 - grid_kv[..., 0] - t0) / h
     return torch.stack([ty, tx], dim=-1).reshape(-1, 2)
 
 
-def table_taps(shifts, *, side: int, tn: int):
+def table_taps(shifts, *, side: int, tn: int, divisor: int = 1):
     """Shifts ``[R, 2]`` -> integer taps ``[R, 2]`` int32 (first window row
-    and column) and fractions ``[R, 2]`` f32 (port of ``_tbl_idx`` at
-    divisor 1).  The tap is clipped so that the window (and its +1
-    neighbour) lies inside the table, and the fraction is taken against the
-    CLIPPED tap: a clipped row extrapolates (fraction outside [0, 1]), as
-    on the TPU."""
-    hi = tn - side - 1
+    and column on the full lattice) and fractions ``[R, 2]`` f32 (port of
+    ``_tbl_idx``).  The tap is clipped so that the window, lattice rows
+    ``tap + divisor*i`` and their +1 neighbours, lies inside the table, and
+    the fraction is taken against the CLIPPED tap: a clipped row
+    extrapolates (fraction outside [0, 1]), as on the TPU."""
+    rn = tn // divisor
+    hi = (rn - side) * divisor + divisor - 2  # tn - side - 1 at divisor 1
     i0 = torch.clamp(torch.floor(shifts), 0.0, float(hi))
     return i0.to(torch.int32), (shifts - i0).to(torch.float32)
 
 
-def table_interp_reference(table, taps, fracs, side: int):
-    """Plain version of K1: ``[R, side, side]`` windows blended from the four
-    taps, y first, then x (the TPU kernel's order)."""
-    ar = torch.arange(side + 1, device=table.device)
-    rows = taps[:, 0:1].long() + ar                       # [R, side+1]
-    cols = taps[:, 1:2].long() + ar
-    win = table[rows[:, :, None], cols[:, None, :]]      # [R, side+1, side+1]
-    fy = fracs[:, 0, None, None]
-    fx = fracs[:, 1, None, None]
-    ty = win[:, :-1, :] * (1 - fy) + win[:, 1:, :] * fy  # [R, side, side+1]
-    return ty[:, :, :-1] * (1 - fx) + ty[:, :, 1:] * fx
+def _window_lines(taps, side: int, divisor: int):
+    """The lattice rows ``[R, n, 1]`` and columns ``[R, 1, n]`` that each
+    window reads, lines ``divisor*i`` and ``divisor*i + 1`` past its tap
+    (``n = side + 1`` at divisor 1, where neighbouring window points share
+    a tap, else ``2*side``), and the slices of those lines that are the
+    first and the second taps."""
+    if divisor == 1:
+        off = torch.arange(side + 1, device=taps.device)
+    else:
+        i = torch.arange(2 * side, device=taps.device)
+        off = divisor * (i // 2) + i % 2
+    rows = taps[:, 0:1].long() + off
+    cols = taps[:, 1:2].long() + off
+    step = 1 if divisor == 1 else 2
+    return (rows[:, :, None], cols[:, None, :], slice(0, -1, step),
+            slice(1, None, step))
 
 
-def table_interp_backward_reference(table, taps, fracs, dout, side: int):
-    """Plain version of K1-bwd: the cotangents ``(dtable, dfracs)`` of
-    :func:`table_interp_reference` for the window cotangent ``dout
-    [R, side, side]``, written out (any float dtype).  ``dfracs[:, 0]`` is
-    d/dfy, ``[:, 1]`` d/dfx; a clipped row keeps the derivative of its
-    extrapolation."""
-    ar = torch.arange(side + 1, device=table.device)
-    rows = (taps[:, 0:1].long() + ar)[:, :, None]         # [R, side+1, 1]
-    cols = (taps[:, 1:2].long() + ar)[:, None, :]         # [R, 1, side+1]
-    win = table[rows, cols]                               # [R, side+1, side+1]
+def table_interp_reference(table, taps, fracs, side: int, divisor: int = 1,
+                           out_dtype=torch.float32):
+    """Plain version of K1 (divisor 1) and K5 (divisor >= 2): ``[R, side,
+    side]`` windows blended from the four taps, y first, then x (the TPU
+    kernels' order), in the table's dtype, then stored as ``out_dtype``."""
+    rows, cols, t0, t1 = _window_lines(taps, side, divisor)
+    win = table[rows, cols]                            # one gather [R, n, n]
     fy = fracs[:, 0, None, None]
     fx = fracs[:, 1, None, None]
-    # x-blended cotangent of the y-blended window [R, side, side+1]
-    m = F.pad(dout * (1 - fx), (0, 1)) + F.pad(dout * fx, (1, 0))
-    dwin = F.pad(m * (1 - fy), (0, 0, 0, 1)) + F.pad(m * fy, (0, 0, 1, 0))
+    ty = win[:, t0] * (1 - fy) + win[:, t1] * fy       # [R, side, n]
+    return (ty[:, :, t0] * (1 - fx) + ty[:, :, t1] * fx).to(out_dtype)
+
+
+def table_interp_backward_reference(table, taps, fracs, dout, side: int,
+                                    divisor: int = 1):
+    """Plain version of K1-bwd and K5-bwd: the cotangents ``(dtable,
+    dfracs)`` of :func:`table_interp_reference` for the window cotangent
+    ``dout [R, side, side]`` (a bf16 one is upcast), written out in the
+    table's dtype.  ``dfracs[:, 0]`` is d/dfy, ``[:, 1]`` d/dfx; a clipped
+    row keeps the derivative of its extrapolation."""
+    dout = dout.to(table.dtype)
+    rows, cols, t0, t1 = _window_lines(taps, side, divisor)
+    win = table[rows, cols]                            # one gather [R, n, n]
+    fy = fracs[:, 0, None, None]
+    fx = fracs[:, 1, None, None]
+    m = dout.new_zeros(win.shape[:1] + (side,) + win.shape[2:])
+    m[:, :, t0] += dout * (1 - fx)   # cotangent of the y-blend [R, side, n]
+    m[:, :, t1] += dout * fx
+    dwin = torch.zeros_like(win)
+    dwin[:, t0] += m * (1 - fy)
+    dwin[:, t1] += m * fy
     dtable = torch.zeros_like(table).index_put_(
         (rows.expand_as(dwin), cols.expand_as(dwin)), dwin, accumulate=True)
-    ty = win[:, :-1, :] * (1 - fy) + win[:, 1:, :] * fy   # [R, side, side+1]
-    dfx = (dout * (ty[:, :, 1:] - ty[:, :, :-1])).sum(dim=(1, 2))
-    dfy = (m * (win[:, 1:, :] - win[:, :-1, :])).sum(dim=(1, 2))
+    # d/dfx = the x-difference of the y-blend, taken as a y-blend of table
+    # differences: the blended values are O(1) and their difference O(h),
+    # so subtracting them would leave their rounding error relative to O(h)
+    # (3e-5 at divisor 2, 6e-5 at 4, against float64), where neighbouring
+    # entries subtract with no error
+    dx = win[:, :, t1] - win[:, :, t0]                 # [R, n, side]
+    dfx = (dout * (dx[:, t0] * (1 - fy) + dx[:, t1] * fy)).sum(dim=(1, 2))
+    dfy = (m * (win[:, t1] - win[:, t0])).sum(dim=(1, 2))
     return dtable, torch.stack([dfy, dfx], dim=1)
+
+
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def table_interp_backward(table, taps, fracs, dout, side: int):
     """K1-bwd wrapper: the forward's inputs and ``dout [R, side, side]`` f32
-    -> ``(dtable [tn_r, tn_c], dfracs [R, 2])`` f32
+    or bf16 -> ``(dtable [tn_r, tn_c], dfracs [R, 2])`` f32
     (``csrc/cpb_table_bwd.cu``, replaces ``_tbl_d1_bwd_kernel``)."""
     if table.device.type == "cpu":
         return table_interp_backward_reference(table, taps, fracs, dout, side)
-    _on_card("table_interp_backward", (table, taps, fracs, dout),
-             (torch.float32, torch.int32, torch.float32, torch.float32))
-    R = taps.shape[0]
-    _check_table_shapes("table_interp_backward", table, taps, fracs, side)
-    if dout.shape != (R, side, side):
-        raise ValueError(f"table_interp_backward: dout {tuple(dout.shape)}, "
-                         f"want {(R, side, side)}")
+    _check_table_args("table_interp_backward", table, taps, fracs, side, 1,
+                      dout)
     tsize = table.shape[0] * table.shape[1]
     smem = 4 * (tsize + (side + 1) ** 2 + side * side + side * (side + 1) + 16)
     if smem > SMEM_LIMIT:
@@ -157,19 +200,9 @@ def table_interp_backward(table, taps, fracs, dout, side: int):
                          f"block, more than {SMEM_LIMIT}")
     dtable = torch.empty_like(table)
     dfracs = torch.empty_like(fracs)
-    if R == 0:  # nothing to launch, so nothing to count
+    if taps.shape[0] == 0:  # nothing to launch, so nothing to count
         return dtable.zero_(), dfracs
-    from .build import check, kernels
-
-    nparts = min(R, TABLE_BWD_PARTS)
-    partial = torch.empty((nparts, tsize), dtype=torch.float32,
-                          device=table.device)
-    err = kernels().dmlt_cpb_table_interp_bwd(
-        table.data_ptr(), table.shape[0], table.shape[1], taps.data_ptr(),
-        fracs.data_ptr(), dout.data_ptr(), dtable.data_ptr(),
-        dfracs.data_ptr(), partial.data_ptr(), R, side, nparts,
-        _stream(table))
-    check(err, "table_interp_backward")
+    table_scatter_launch(table, taps, fracs, dout, side, dtable, dfracs)
     table_interp_backward.launches += 1
     return dtable, dfracs
 
@@ -177,67 +210,164 @@ def table_interp_backward(table, taps, fracs, dout, side: int):
 table_interp_backward.launches = 0
 
 
+def table_scatter_launch(table, taps, fracs, dout, side, dtable, dfracs):
+    """Launches the K1-bwd kernels on checked CUDA arguments, counting
+    nothing: the K1-bwd wrapper above counts its launches, and the fused
+    table attention's backward (``ops/fused_table.py``) hands its ``ds`` to
+    these kernels as part of K6-bwd."""
+    from .build import check, kernels
+
+    R = taps.shape[0]
+    nparts = min(R, TABLE_BWD_PARTS)
+    partial = torch.empty((nparts, table.numel()), dtype=torch.float32,
+                          device=table.device)
+    err = kernels().dmlt_cpb_table_interp_bwd(
+        table.data_ptr(), table.shape[0], table.shape[1], taps.data_ptr(),
+        fracs.data_ptr(), dout.data_ptr(), int(dout.dtype == torch.bfloat16),
+        dtable.data_ptr(), dfracs.data_ptr(), partial.data_ptr(), R, side,
+        nparts, _stream(table))
+    check(err, "table_interp_backward")
+
+
+def table_interp_strided_backward(table, taps, fracs, dout, side: int,
+                                  divisor: int):
+    """K5-bwd wrapper: the forward's inputs and ``dout [R, side, side]`` f32
+    or bf16 -> ``(dtable [tn_r, tn_c], dfracs [R, 2])`` f32
+    (``csrc/cpb_table_strided_bwd.cu``, replaces ``_tbl_bwd_kernel``)."""
+    if table.device.type == "cpu":
+        return table_interp_backward_reference(table, taps, fracs, dout, side,
+                                               divisor)
+    _check_table_args("table_interp_strided_backward", table, taps, fracs,
+                      side, divisor, dout)
+    dtable = torch.empty_like(table)
+    dfracs = torch.empty_like(fracs)
+    if taps.shape[0] == 0:  # nothing to launch, so nothing to count
+        return dtable.zero_(), dfracs
+    from .build import check, kernels
+
+    R = taps.shape[0]
+    rn_rows, rn_cols = (-(-n // divisor) for n in table.shape)
+    tiles = divisor * divisor * -(-rn_rows // 16) * -(-rn_cols // 32)
+    groups = max(1, min(STRIDED_BWD_GROUPS_MAX, R,
+                        -(-STRIDED_BWD_BLOCKS // tiles)))
+    partial = torch.empty((groups, table.numel()), dtype=torch.float32,
+                          device=table.device)
+    err = kernels().dmlt_cpb_table_strided_bwd(
+        table.data_ptr(), table.shape[0], table.shape[1], taps.data_ptr(),
+        fracs.data_ptr(), dout.data_ptr(), int(dout.dtype == torch.bfloat16),
+        dtable.data_ptr(), dfracs.data_ptr(), partial.data_ptr(), R, side,
+        divisor, groups, _stream(table))
+    check(err, "table_interp_strided_backward")
+    table_interp_strided_backward.launches += 1
+    return dtable, dfracs
+
+
+table_interp_strided_backward.launches = 0
+
+
 class _TableInterp(torch.autograd.Function):
-    """K1-fwd (``csrc/cpb_table.cu``, replaces ``_tbl_d1_fwd_kernel``),
-    counted in ``table_interp.launches``; backward
-    :func:`table_interp_backward`."""
+    """K1-fwd (divisor 1, ``csrc/cpb_table.cu``, replaces
+    ``_tbl_d1_fwd_kernel``), counted in ``table_interp.launches``, backward
+    :func:`table_interp_backward`; K5-fwd (divisor >= 2,
+    ``csrc/cpb_table_strided.cu``, replaces ``_tbl_fwd_kernel``), counted in
+    ``table_interp_strided.launches``, backward
+    :func:`table_interp_strided_backward`."""
 
     @staticmethod
-    def forward(ctx, table, taps, fracs, side):
+    def forward(ctx, table, taps, fracs, side, divisor, out_dtype):
         ctx.save_for_backward(table, taps, fracs)
-        ctx.side = side
+        ctx.side, ctx.divisor = side, divisor
         if table.device.type == "cpu":
-            return table_interp_reference(table, taps, fracs, side)
-        _on_card("table_interp", (table, taps, fracs),
-                 (torch.float32, torch.int32, torch.float32))
-        R = taps.shape[0]
-        _check_table_shapes("table_interp", table, taps, fracs, side)
-        if (side + 1) ** 2 * 4 > 48 * 1024:
+            return table_interp_reference(table, taps, fracs, side, divisor,
+                                          out_dtype)
+        name = "table_interp" if divisor == 1 else "table_interp_strided"
+        _check_table_args(name, table, taps, fracs, side, divisor)
+        if out_dtype not in _OUT_DTYPES:
+            raise ValueError(f"{name}: out_dtype {out_dtype}, want one of "
+                             f"{_OUT_DTYPES}")
+        if divisor == 1 and (side + 1) ** 2 * 4 > 48 * 1024:
             raise ValueError(f"table_interp: side {side} needs more than "
                              "48 KB of shared memory per window")
-        out = torch.empty((R, side, side), dtype=torch.float32,
+        R = taps.shape[0]
+        out = torch.empty((R, side, side), dtype=out_dtype,
                           device=table.device)
         if R == 0:  # nothing to launch, so nothing to count
             return out
         from .build import check, kernels
 
-        err = kernels().dmlt_cpb_table_interp_fwd(
-            table.data_ptr(), table.shape[0], table.shape[1],
-            taps.data_ptr(), fracs.data_ptr(), out.data_ptr(), R, side,
-            _stream(table))
-        check(err, "table_interp")
-        table_interp.launches += 1
+        bf16 = int(out_dtype == torch.bfloat16)
+        if divisor == 1:
+            err = kernels().dmlt_cpb_table_interp_fwd(
+                table.data_ptr(), table.shape[0], table.shape[1],
+                taps.data_ptr(), fracs.data_ptr(), out.data_ptr(), bf16, R,
+                side, _stream(table))
+            check(err, name)
+            table_interp.launches += 1
+        else:
+            err = kernels().dmlt_cpb_table_strided_fwd(
+                table.data_ptr(), table.shape[0], table.shape[1],
+                taps.data_ptr(), fracs.data_ptr(), out.data_ptr(), bf16, R,
+                side, divisor, _stream(table))
+            check(err, name)
+            table_interp_strided.launches += 1
         return out
 
     @staticmethod
     def backward(ctx, dout):
         table, taps, fracs = ctx.saved_tensors
-        dtable, dfracs = table_interp_backward(table, taps, fracs,
-                                               dout.contiguous(), ctx.side)
-        return dtable, None, dfracs, None
+        if ctx.divisor == 1:
+            dtable, dfracs = table_interp_backward(table, taps, fracs,
+                                                   dout.contiguous(), ctx.side)
+        else:
+            dtable, dfracs = table_interp_strided_backward(
+                table, taps, fracs, dout.contiguous(), ctx.side, ctx.divisor)
+        return dtable, None, dfracs, None, None, None
 
 
-def table_interp(table, taps, fracs, side: int):
+def table_interp(table, taps, fracs, side: int, out_dtype=torch.float32):
     """K1: ``table [tn_r, tn_c]`` f32, ``taps [R, 2]`` int32, ``fracs
-    [R, 2]`` f32 -> ``[R, side, side]`` f32, differentiable with respect to
-    ``table`` and ``fracs``."""
-    return _TableInterp.apply(table, taps, fracs, side)
+    [R, 2]`` f32 -> ``[R, side, side]`` of ``out_dtype`` (f32 or bf16),
+    differentiable with respect to ``table`` and ``fracs``."""
+    return _TableInterp.apply(table, taps, fracs, side, 1, out_dtype)
 
 
 table_interp.launches = 0
 
 
+def table_interp_strided(table, taps, fracs, side: int, divisor: int,
+                         out_dtype=torch.float32):
+    """K5: as :func:`table_interp` on a lattice ``divisor`` (>= 2) times
+    finer than the queries: window value ``(y, x)`` blends the taps at
+    lattice rows ``taps[:, 0] + divisor*y`` (+1) and columns ``taps[:, 1] +
+    divisor*x`` (+1)."""
+    if divisor < 2:
+        raise ValueError(f"table_interp_strided: divisor {divisor}; the "
+                         "divisor-1 windows are table_interp's (K1)")
+    return _TableInterp.apply(table, taps, fracs, side, divisor, out_dtype)
+
+
+table_interp_strided.launches = 0
+
+
 def cpb_bias_table(grid_kv, w1, b1, w2, b2, w3, b3, *, side: int,
-                   kv_bound: float):
-    """Divisor-1 table CPB on the normalized ``side x side`` query grid:
-    ``grid_kv [BH, K, 2]`` -> ``[BH, K, side*side]`` (counterpart of
-    ``cpb_bias_table(..., divisor=1)``)."""
+                   kv_bound: float, divisor: int = 1,
+                   out_dtype=torch.float32):
+    """Table CPB on the normalized ``side x side`` query grid: ``grid_kv
+    [BH, K, 2]`` -> ``[BH, K, side*side]`` of ``out_dtype`` (counterpart of
+    ``cpb_bias_table(..., divisor)``, whose ``TBL_BF16_OUT`` is
+    ``out_dtype=torch.bfloat16``); K1 at divisor 1, K5 above."""
     bh, k, _ = grid_kv.shape
-    table = cpb_table(w1, b1, w2, b2, w3, b3, side=side, kv_bound=kv_bound)
+    table = cpb_table(w1, b1, w2, b2, w3, b3, side=side, kv_bound=kv_bound,
+                      divisor=divisor)
     taps, fracs = table_taps(
-        table_shifts(grid_kv, side=side, kv_bound=kv_bound),
-        side=side, tn=table.shape[0])
-    return table_interp(table, taps, fracs, side).reshape(bh, k, side * side)
+        table_shifts(grid_kv, side=side, kv_bound=kv_bound, divisor=divisor),
+        side=side, tn=table.shape[0], divisor=divisor)
+    if divisor == 1:
+        wins = table_interp(table, taps, fracs, side, out_dtype)
+    else:
+        wins = table_interp_strided(table, taps, fracs, side, divisor,
+                                    out_dtype)
+    return wins.reshape(bh, k, side * side)
 
 
 # ---------------------------------------------------------------------------
@@ -384,13 +514,28 @@ def _on_card(name, tensors, dtypes):
             raise ValueError(f"{name}: argument {i} is not contiguous")
 
 
-def _check_table_shapes(name, table, taps, fracs, side):
+def _check_table_args(name, table, taps, fracs, side, divisor, dout=None):
+    """Raise unless the table kernels (K1, K5 and their backwards) take
+    these arguments: contiguous CUDA tensors of their dtypes, a table that
+    holds a window (``divisor * (side - 1) + 2`` lattice points a side), and
+    a window cotangent ``[R, side, side]`` in f32 or bf16."""
+    _on_card(name, (table, taps, fracs),
+             (torch.float32, torch.int32, torch.float32))
     R = taps.shape[0]
     if (table.dim() != 2 or taps.shape != (R, 2) or fracs.shape != (R, 2)
-            or min(table.shape) < side + 1):
+            or min(table.shape) < divisor * (side - 1) + 2):
         raise ValueError(f"{name}: bad shapes table {tuple(table.shape)}"
                          f" taps {tuple(taps.shape)} fracs {tuple(fracs.shape)}"
-                         f" side {side}")
+                         f" side {side} divisor {divisor}")
+    if dout is None:
+        return
+    if dout.dtype not in _OUT_DTYPES:
+        raise ValueError(f"{name}: dout is {dout.dtype}, want one of "
+                         f"{_OUT_DTYPES}")
+    _on_card(name, (table, dout), (torch.float32, dout.dtype))
+    if dout.shape != (R, side, side):
+        raise ValueError(f"{name}: dout {tuple(dout.shape)}, want "
+                         f"{(R, side, side)}")
 
 
 def _check_exact_shapes(name, args):
@@ -425,4 +570,5 @@ __all__ = ["HID", "cpb_bias_table", "cpb_bias_transposed",
            "cpb_bias_transposed_reference", "cpb_table", "kv_bound_2d",
            "table_consts", "table_interp", "table_interp_backward",
            "table_interp_backward_reference", "table_interp_reference",
+           "table_interp_strided", "table_interp_strided_backward",
            "table_shifts", "table_taps"]

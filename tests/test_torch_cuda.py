@@ -29,7 +29,13 @@ C 2^-24 max|x|^2 of the exact dot (to first order), so the two squared
 distances (-2 dot) differ by at most 4 C 2^-24 max|x|^2; the cluster
 indices exactly.  K4 (the 1-D table CPB) against its plain version: 1e-6
 abs (the same two-term lerp, rounded op by op as the plain version rounds
-it); K4-bwd against its plain version in float64: 1e-5 norm-relative.
+it); K4-bwd against its plain version in float64: 1e-5 norm-relative.  K5
+(the table CPB at divisor >= 2) and K1 with the bf16 store: bitwise equal
+to their plain version; K5-bwd 1e-5 norm-relative of float64.  K6 (the
+fused table attention) against its plain version: attn 1e-6, out 1e-5 abs
+(the products and the softmax summed in another order); K6-bwd against
+float64: dq, dk, dv 2e-5 norm-relative, dtable and dfracs 1e-4 or twice
+the f32 plain version's own error.
 deformpathomic on the card against the CPU: as the teacher (logits 1e-4,
 task loss 1e-5, loss 5e-4 with the vgrid loss, gradients 5e-3).
 """
@@ -45,10 +51,11 @@ from disentangled_multimodal_learning_tpu_torch.config import Config
 from disentangled_multimodal_learning_tpu_torch.data.synthetic import (
     SyntheticBagDataset)
 from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
-    normalized_grid)
-from disentangled_multimodal_learning_tpu_torch.models.factory import define_net
-from disentangled_multimodal_learning_tpu_torch.ops import (cluster, cpb, cpb1d,
-                                                          dpc_knn)
+    DeformCrossAttention2D, normalized_grid)
+from disentangled_multimodal_learning_tpu_torch.models.factory import (
+    define_net, init_weights)
+from disentangled_multimodal_learning_tpu_torch.ops import (
+    cluster, cpb, cpb1d, dpc_knn, fused_table)
 from disentangled_multimodal_learning_tpu_torch.train.optim import make_optimizer
 from disentangled_multimodal_learning_tpu_torch.train.steps import (
     batch_to_tensors, make_train_step)
@@ -57,6 +64,8 @@ K1_TOL, K2_TOL, FORWARD_TOL = 1e-5, 1e-4, 1e-4
 K1_BWD_TOL, K2_BWD_TOL, GRAD_TOL = 1e-5, 1e-3, 5e-3
 K3_TOL_ULPS = 4
 K4_TOL, K4_BWD_TOL = 1e-6, 1e-5
+K5_BWD_TOL = 1e-5
+K6_ATTN_TOL, K6_OUT_TOL, K6_BWD_TOL, K6_TABLE_BWD_TOL = 1e-6, 1e-5, 2e-5, 1e-4
 
 
 @pytest.fixture
@@ -184,15 +193,19 @@ def _table_case(rng, side, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("side", [12, 50])
-def test_table_backward_kernel_matches_plain_version(dev, side):
-    """K1-bwd against its plain version in float64, clipped rows included,
-    and bitwise equal over two calls (no atomics)."""
+@pytest.mark.parametrize("side,dtype", [(12, torch.float32),
+                                        (50, torch.float32),
+                                        (50, torch.bfloat16)])
+def test_table_backward_kernel_matches_plain_version(dev, side, dtype):
+    """K1-bwd with an f32 or bf16 (``cpb_table_bf16``) window cotangent
+    against its plain version in float64, bitwise equal over two calls (no
+    atomics), every clipped row's shift cotangent kept."""
     rng = np.random.default_rng(10 + side)
     table, taps, fracs = _table_case(rng, side, dev)
-    assert ((fracs < 0) | (fracs > 1)).any()
+    clipped = ((fracs < 0) | (fracs > 1)).any(dim=1)
+    assert clipped.any()
     dout = torch.from_numpy(rng.normal(size=(taps.shape[0], side, side))
-                            .astype(np.float32)).to(dev)
+                            .astype(np.float32)).to(dev).to(dtype)
     before = _bwd_launches()
     got = [cpb.table_interp_backward(table, taps, fracs, dout, side)
            for _ in range(2)]
@@ -201,7 +214,9 @@ def test_table_backward_kernel_matches_plain_version(dev, side):
         table.double(), taps, fracs.double(), dout.double(), side)
     for a, b, w in zip(*got, want):
         assert torch.equal(a, b)
+        assert a.dtype == torch.float32
         assert a.shape == w.shape and _rel(a, w) <= K1_BWD_TOL
+    assert (got[0][1][clipped].abs().amax(dim=1) > 0).all()
 
 
 @pytest.mark.cuda
@@ -656,3 +671,219 @@ def test_deformpathomic_train_step_on_card_matches_cpu(dev, attn_dim,
             assert got.abs().max().item() <= floor, name
             continue
         assert _rel(got, want.double()) <= GRAD_TOL, name
+
+
+# ---------------------------------------------------------------- K5 and K6
+
+def _strided_case(rng, divisor, dev, side=50, rows=(16, 144)):
+    """A table at ``divisor``, and taps and fractions of kv points up to
+    25% past the bound of a 12 x 12 deformed grid (clipped rows)."""
+    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    table = cpb.cpb_table(*_mlp(rng, 1, dev), side=side, kv_bound=kv_bound,
+                          divisor=divisor)
+    gkv = _uniform(rng, 1.25 * kv_bound, rows + (2,), dev)
+    taps, fracs = cpb.table_taps(
+        cpb.table_shifts(gkv, side=side, kv_bound=kv_bound, divisor=divisor),
+        side=side, tn=table.shape[0], divisor=divisor)
+    return table, taps, fracs
+
+
+def _k56_launches():
+    return (cpb.table_interp.launches, cpb.table_interp_backward.launches,
+            cpb.table_interp_strided.launches,
+            cpb.table_interp_strided_backward.launches,
+            fused_table.fused_table_attention.launches,
+            fused_table.fused_table_attention_backward.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_kernels_match_plain_version_bitwise(dev, divisor, dtype):
+    """K5-fwd at divisor 2 and 4 (tn 274 and 544 at side 50) and K1-fwd, in
+    f32 and with the bf16 store, bitwise equal to their plain version (the
+    same ops rounded the same way, the store rounded to nearest even),
+    clipped rows included; one launch of the right kernel each."""
+    rng = np.random.default_rng(20 + divisor)
+    table, taps, fracs = _strided_case(rng, divisor, dev)
+    assert ((fracs < 0) | (fracs > 1)).any()
+    before = _k56_launches()
+    with torch.inference_mode():
+        got = (cpb.table_interp(table, taps, fracs, 50, dtype) if divisor == 1
+               else cpb.table_interp_strided(table, taps, fracs, 50, divisor,
+                                             dtype))
+    delta = tuple(a - b for a, b in zip(_k56_launches(), before))
+    assert delta == ((1, 0, 0, 0, 0, 0) if divisor == 1
+                     else (0, 0, 1, 0, 0, 0))
+    want = cpb.table_interp_reference(table, taps, fracs, 50, divisor, dtype)
+    assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_backward_kernel_matches_float64(dev, divisor, dtype):
+    """K5-bwd with an f32 or bf16 window cotangent against its plain version
+    in float64 (1e-5 norm-relative), bitwise equal over two calls, and
+    every clipped row's shift cotangent kept."""
+    rng = np.random.default_rng(30 + divisor)
+    table, taps, fracs = _strided_case(rng, divisor, dev)
+    clipped = ((fracs < 0) | (fracs > 1)).any(dim=1)
+    dout = torch.from_numpy(rng.normal(size=(taps.shape[0], 50, 50))
+                            .astype(np.float32)).to(dev).to(dtype)
+    before = _k56_launches()
+    got = [cpb.table_interp_strided_backward(table, taps, fracs, dout, 50,
+                                             divisor) for _ in range(2)]
+    delta = tuple(a - b for a, b in zip(_k56_launches(), before))
+    assert delta == (0, 0, 0, 2, 0, 0)
+    want = cpb.table_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), 50, divisor)
+    for a, b, w in zip(*got, want):
+        assert torch.equal(a, b)
+        assert a.dtype == torch.float32 and _rel(a, w) <= K5_BWD_TOL
+    assert clipped.any()
+    assert (got[0][1][clipped].abs().amax(dim=1) > 0).all()
+
+
+def _fused_case(rng, dev, bh=8, k=144, side=50, d=64):
+    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    table = cpb.cpb_table(*_mlp(rng, 1, dev), side=side, kv_bound=kv_bound)
+    gkv = _uniform(rng, 1.25 * kv_bound, (bh, k, 2), dev)
+    shifts = cpb.table_shifts(gkv, side=side, kv_bound=kv_bound)
+
+    def rnd(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    n = side * side
+    return dict(q=rnd(bh, n, d, scale=d ** -0.5), k=rnd(bh, k, d),
+                v=rnd(bh, k, d), table=table, shifts=shifts,
+                g_out=rnd(bh, n, d), g_attn=rnd(bh, k, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_kernel_matches_plain_version(dev, rate):
+    """K6-fwd at the teacher's per-head shapes (K = 144, N = 2500, D = 64;
+    8 of the 32 batch-heads) against its plain version, with the same
+    dropout mask: attn within 1e-6 abs, out within 1e-5; one launch, no
+    K1."""
+    c = _fused_case(np.random.default_rng(40), dev)
+    before = _k56_launches()
+    with torch.inference_mode():
+        out, attn = fused_table.fused_table_attention(
+            c["q"], c["k"], c["v"], c["table"], c["shifts"], 50, 77, rate)
+    assert tuple(a - b for a, b in zip(_k56_launches(), before)) == (
+        0, 0, 0, 0, 1, 0)
+    want_out, want_attn = fused_table.fused_table_attention_reference(
+        c["q"], c["k"], c["v"], c["table"], c["shifts"], 50, 77, rate)
+    assert (attn - want_attn).abs().max().item() <= K6_ATTN_TOL
+    assert (out - want_out).abs().max().item() <= K6_OUT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_backward_kernel_matches_float64(dev, rate):
+    """K6-bwd (with the map's own cotangent) against the plain version's
+    autograd in float64: dq, dk, dv within 2e-5 norm-relative, dtable and
+    dfracs within 1e-4 or twice the f32 plain version's own error; bitwise
+    equal over two calls; one K6-bwd launch each and no K1-bwd count (its
+    kernels run inside K6-bwd)."""
+    c = _fused_case(np.random.default_rng(41), dev)
+    taps, fracs = cpb.table_taps(c["shifts"], side=50,
+                                 tn=c["table"].shape[0])
+    with torch.inference_mode():
+        _, attn = fused_table.fused_table_attention(
+            c["q"], c["k"], c["v"], c["table"], c["shifts"], 50, 5, rate)
+    before = _k56_launches()
+    got = [fused_table.fused_table_attention_backward(
+        c["q"], c["k"], c["v"], c["table"], taps, fracs, attn, c["g_out"],
+        c["g_attn"], 50, 5, rate) for _ in range(2)]
+    assert tuple(a - b for a, b in zip(_k56_launches(), before)) == (
+        0, 0, 0, 0, 0, 2)
+    ref = {dt: fused_table.fused_table_attention_backward_reference(
+        *(c[n].to(dt) for n in ("q", "k", "v", "table")), taps, fracs.to(dt),
+        c["g_out"].to(dt), c["g_attn"].to(dt), 50, 5, rate)
+        for dt in (torch.float64, torch.float32)}
+    for i, (g1, g2, w64, w32) in enumerate(zip(*got, ref[torch.float64],
+                                               ref[torch.float32])):
+        assert torch.equal(g1, g2)
+        tol = (K6_BWD_TOL if i < 3
+               else max(K6_TABLE_BWD_TOL, 2 * _rel(w32, w64)))
+        assert _rel(g1, w64) <= tol, i
+
+
+# opt-in setting -> its config overrides
+OPT_IN = {"fused": dict(fused_table_attention=True),
+          "divisor4": dict(cpb_table_divisor=4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", list(OPT_IN))
+def test_opt_in_train_step_on_card_matches_cpu(dev, setting):
+    """One ``deterministic_training`` f32 teacher step (fixdim 144, B=2,
+    real widths) with the fused table attention (K6) or at divisor 4 (K5),
+    on the card against the same seeded weights on the CPU: the task loss,
+    the loss and every gradient, as the preset's step is held; 4 launches
+    of the setting's forward and backward kernels, K1 never."""
+    cfg = Config(fixdim=144, batch_size=2, deterministic_training=True,
+                 **{"cpb_table_divisor": 1, **OPT_IN[setting]}).validate()
+    batch = SyntheticBagDataset(size=2, fixdim=144, seed=0).batch([0, 1])
+    out = {}
+    before = _k56_launches()
+    for device in ("cpu", dev):
+        model = define_net(cfg, device)
+        opt = make_optimizer(cfg, model.parameters())
+        m = make_train_step(model, cfg, opt)(batch_to_tensors(batch, device))
+        out[device] = ((m["loss"].item(), m["taskloss"].item()),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+    delta = tuple(a - b for a, b in zip(_k56_launches(), before))
+    assert delta == ((0, 0, 0, 0, 4, 4) if setting == "fused"
+                     else (0, 0, 4, 4, 0, 0))
+    ((loss_card, task_card), g_card), ((loss_cpu, task_cpu), g_cpu) = (
+        out[dev], out["cpu"])
+    assert abs(task_card - task_cpu) <= 1e-5 * abs(task_cpu)
+    assert abs(loss_card - loss_cpu) <= 5e-4 * abs(loss_cpu)
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        if name.endswith("rel_pos_bias.mlp.2.bias"):
+            floor = 1e-5 * g_cpu[name[:-4] + "weight"].abs().max().item()
+            assert got.abs().max().item() <= floor, name
+            continue
+        assert _rel(got, want.double()) <= GRAD_TOL, name
+
+
+@pytest.mark.cuda
+def test_bf16_table_store_on_the_card_only(dev):
+    """``cpb_table_bf16``: the 2-D attention's CPB bias comes out of K1 in
+    bf16 on the card and in f32 on the CPU; the K6 and K5 wrappers refuse
+    what their kernels do not take, launching nothing."""
+    m = DeformCrossAttention2D(128, cpb_table_divisor=1, cpb_table_bf16=True)
+    init_weights(m, 2)
+    seen = []
+    m.rel_pos_bias.register_forward_hook(
+        lambda mod, args, out: seen.append(out.dtype))
+    x = torch.randn(2, 144, 128)
+    with torch.inference_mode():
+        m.eval()(x, x)
+        m.to(dev)(x.to(dev), x.to(dev))
+    assert seen == [torch.float32, torch.bfloat16]
+    c = _fused_case(np.random.default_rng(42), dev, bh=1, k=4, side=8, d=8)
+    before = _k56_launches()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_table.fused_table_attention(
+            c["q"][..., :6].contiguous(), c["k"][..., :6].contiguous(),
+            c["v"][..., :6].contiguous(), c["table"], c["shifts"], 8)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fused_table.fused_table_attention(c["q"], c["k"], c["v"], c["table"],
+                                          c["shifts"], 9)
+    table, taps, fracs = _strided_case(np.random.default_rng(3), 2, dev,
+                                       side=12, rows=(1, 4))
+    with pytest.raises(ValueError, match="bad shapes"):
+        cpb.table_interp_strided(table[:40, :40].contiguous(), taps, fracs,
+                                 12, 4)
+    with pytest.raises(ValueError, match="dout"):
+        cpb.table_interp_strided_backward(table, taps, fracs,
+                                          torch.zeros(4, 11, 11, device=dev),
+                                          12, 2)
+    assert _k56_launches() == before

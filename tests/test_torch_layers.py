@@ -106,12 +106,12 @@ def test_survival_chain_matches_jax(rng):
         _close(got, want, atol=1e-6)
 
 
-@pytest.mark.parametrize("divisor", [1, 0])
+@pytest.mark.parametrize("divisor", [1, 0, 2, 4])
 def test_deform_cross_attention_matches_jax(rng, divisor):
     """The whole 2-D deformable attention in the kn layout [B, H, K, N]:
-    divisor 1 takes the table CPB (JAX: jnp interpolation of
-    ``cpb_bias_table``), divisor 0 the exact CPB (JAX: ``_cpb_mlp``).
-    fixdim 144 gives a 3x3 deformed kv grid (K = 9)."""
+    divisors 1, 2 and 4 take the table CPB (JAX: jnp interpolation of
+    ``cpb_bias_table`` at that divisor), divisor 0 the exact CPB (JAX:
+    ``_cpb_mlp``).  fixdim 144 gives a 3x3 deformed kv grid (K = 9)."""
     B, N, C = 2, 144, 128
     x1 = rng.normal(size=(B, N, C)).astype(np.float32)
     x2 = rng.normal(size=(B, N, C)).astype(np.float32)
@@ -130,11 +130,6 @@ def test_deform_cross_attention_matches_jax(rng, divisor):
     assert attn.shape == want_attn.shape == (B, 8, 9, N)
     _close(out, want_out)
     _close(attn, want_attn)
-
-
-def test_deform_cross_attention_refuses_other_divisors():
-    with pytest.raises(NotImplementedError, match="K5"):
-        DeformCrossAttention2D(128, cpb_table_divisor=2)
 
 
 def test_bf16_streams_stay_f32_on_the_cpu(rng):
