@@ -104,7 +104,33 @@ with ``return_vgrid``) with seeded random weights:
    dropout 0 and 0.1 against their plain versions and beside the port's
    unfused divisor-1 composition (K1 + matmul + softmax + dropout +
    matmul, and its autograd backward), and the teacher's eval forward and
-   train step in (a), (b) and (c) (bags/s and a profiled call each).
+   train step in (a), (b) and (c) (bags/s and a profiled call each);
+2f. holds K2-nk (the exact CPB written in the "nk" layout, closing the TPU's
+   four layout kernels v1, v5, v2 and wide4) at the teacher's shape (32 x
+   2500 x 144, O=1) and at the 1-D attention's (16 x 2501 x 625, O=2):
+   bitwise equal to K2 transposed and within ``K2_TOL`` of its plain
+   version; K2-nk-bwd against float64 within ``K2_BWD_TOL``, bitwise equal
+   over two calls and to K2-bwd on the transposed cotangent; K7 (the fused
+   exact-CPB attention, q [32, 2500, 64], k and v [32, 144, 64]) in both
+   layouts at dropout 0 and 0.1, and at the 1-D attention's K = 625 (q
+   [16, 2501, 16], the kv points in four chunks) at dropout 0.1: out and
+   attn within ``K2_TOL``, the
+   layouts bitwise equal, and K7-bwd against float64 (dq, dk, dv within
+   ``K6_BWD_TOL``, grid_kv and the weights within ``K2_BWD_TOL``),
+   deterministic;
+3f. runs the teacher built with ``define_net(cfg, attn_layout="nk")`` at
+   the preset (which "nk" runs with the exact CPB): 3 eval batches through
+   the ``Evaluator`` (K2-nk-fwd 4 per forward) and 2 train steps through
+   ``train/steps.py`` (K2-nk-fwd and -bwd 4 each per step), every other
+   kernel never; deformpathomic at attn_dim 1 in "nk" (K2-nk at O=2, 2 per
+   forward and step); and K7 through its public entry, one forward and
+   backward in each layout, exact counts;
+5f. compares the f32 "nk" teacher's forward (logits within 1e-4) and one
+   f32 ``deterministic_training`` step on the card with the CPU;
+6f. times K2-nk-fwd and -bwd at both shapes and K7-fwd and -bwd in both
+   layouts at dropout 0.1 against their plain versions, with their bounds,
+   and the "nk" teacher's eval forward and train step (bags/s and a
+   profiled call each).
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
@@ -113,15 +139,17 @@ teacher's also in the opt-in settings (a), (b) and (c), every count set to
 ``launches`` are those of the training runs (K1 and K2: the teacher's at
 divisor 1 and 0; K3: the student's at the preset; K4: deformpathomic's at
 attn_dim 1, divisor 1; K5: the teacher's in (b); K6: the teacher's in
-(a)), and K2's ``max_abs_err`` is the larger of its errors at the 2-D and
-the 1-D shape.  Launches made for comparisons and timings are not counted.
-K5's times are at divisor 4 in f32, K6's at the preset's dropout 0.1.
+(a); K2-nk: the "nk" teacher's train steps; K7: its entry's run), and K2's
+``max_abs_err`` is the larger of its errors at the 2-D and the 1-D shape.
+Launches made for comparisons and timings are not counted.  K5's times are
+at divisor 4 in f32, K6's at the preset's dropout 0.1, K2-nk's at the
+teacher's shape, K7's in "nk" at dropout 0.1.
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its flops over 67
 TFLOP/s (f32 outside the tensor cores), counted from this run's inputs
-(H100 SXM data sheet); ``library_ms`` is null for all twelve: no single
-PyTorch call computes any of their functions (K6 includes the table
-windows and a softmax over the kv axis, which
+(H100 SXM data sheet); ``library_ms`` is null for all sixteen: no single
+PyTorch call computes any of their functions (K6 and K7 include the table
+windows or the CPB MLP, and a softmax over the kv axis, which
 ``scaled_dot_product_attention`` does not take as a bias it builds).
 Any failure raises: there is no fallback and no phase is caught.  Exits
 non-zero without a result line when there is no CUDA device.
@@ -178,7 +206,9 @@ K3_TOL_ULPS = 4
 # attention (K = 625) the CPB output bias sums 25 M cotangents per channel
 # that cancel only in exact arithmetic; their f32 residue reached 3.8e-5
 # of the weight gradient on the H100 and 2.7e-5 on the CPU, through K4 and
-# through K2 alike (this step at full width), hence ZERO_GRAD_FLOOR_1D
+# through K2 alike (this step at full width), hence ZERO_GRAD_FLOOR_1D; so
+# does the 2-D attention's with the exact CPB ("nk": 360 k distinct
+# cotangents per batch-head, 1.9e-5 of the weight gradient on the H100)
 ZERO_GRAD_BIASES = ("rel_pos_bias.mlp.2.bias", "cluster_merge.score.bias")
 ZERO_GRAD_FLOOR, ZERO_GRAD_FLOOR_1D = 1e-5, 1e-4
 # K4: the kernel rounds the two-term lerp op by op as its plain version
@@ -201,6 +231,14 @@ K5_BWD_TOL = 1e-5
 # plain version's own error, whichever is larger
 K6_ATTN_TOL, K6_OUT_TOL = 1e-6, 1e-5
 K6_BWD_TOL, K6_TABLE_BWD_TOL = 2e-5, 1e-4
+# K7-bwd's CPB cotangents: the bias cotangent ds of the softmax sums to 0
+# over each query's kv points, so the weight cotangents (sums over 11.5 M
+# points) cancel far more than K2-bwd's random ones: the f32 plain version
+# itself sits 2.3e-3 off float64 on db2 (H100 run); hence K2_BWD_TOL or
+# twice the f32 plain version's own error.  db3 is a sum of all of ds, 0 in
+# exact arithmetic; its f32 residue reached 1.1e-5 of dw3 (the kernel), so
+# it is held below 1e-4 of dw3, the floor of the 1-D attention's output bias
+K7_DB3_FLOOR = 1e-4
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 F32_FLOPS_PER_MS = 67e9       # 67 TFLOP/s outside the tensor cores
 CSRC = "disentangled_multimodal_learning_tpu_torch/csrc"
@@ -210,6 +248,7 @@ DPC_SRC = f"{CSRC}/dpc_knn.cu"
 TABLE1D_SRC = f"{CSRC}/cpb_table_1d.cu"
 STRIDED_SRC = f"{CSRC}/cpb_table_strided.cu"
 FUSED_SRC = f"{CSRC}/fused_table.cu"
+FUSED_EXACT_SRC = f"{CSRC}/fused_exact.cu"
 # phase 5d's f32 deformpathomic settings (the preset's divisor 1 unless named)
 DEFORMPATHOMIC_F32 = ({"attn_dim": 1}, {"attn_dim": 1, "cpb_table_divisor": 0},
                       {"attn_dim": 2, "return_vgrid": True})
@@ -302,7 +341,7 @@ def mlp_weights(o: int, gen, device):
 
 def _wrappers():
     from disentangled_multimodal_learning_tpu_torch.ops import (
-        cpb, cpb1d, dpc_knn, fused_table)
+        cpb, cpb1d, dpc_knn, fused_exact, fused_table)
 
     return {"k1_fwd": cpb.table_interp,
             "k1_bwd": cpb.table_interp_backward,
@@ -315,7 +354,11 @@ def _wrappers():
             "k5_fwd": cpb.table_interp_strided,
             "k5_bwd": cpb.table_interp_strided_backward,
             "k6_fwd": fused_table.fused_table_attention,
-            "k6_bwd": fused_table.fused_table_attention_backward}
+            "k6_bwd": fused_table.fused_table_attention_backward,
+            "k2nk_fwd": cpb.cpb_bias_nk,
+            "k2nk_bwd": cpb.cpb_bias_nk_backward,
+            "k7_fwd": fused_exact.fused_exact_attention,
+            "k7_bwd": fused_exact.fused_exact_attention_backward}
 
 
 def reset_counts() -> None:
@@ -775,6 +818,35 @@ def main() -> int:
     # ---- phase 6e: K5, K6 and the opt-in settings' timings --------------
     opt_ms = time_opt_in_kernels(cpb, k5, k6, card)
     time_opt_in_settings(preset, train_preset, batch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 2f: K2-nk and K7 against plain versions and float64 ------
+    nk = check_nk_kernels(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 3f: the "nk" layout's paths, and K7's entry --------------
+    train_counts.update(run_nk_paths(preset, train_preset, dev, card))
+    torch.cuda.empty_cache()
+
+    # ---- phase 5f: the "nk" teacher in f32, card vs CPU ------------------
+    with torch.inference_mode():
+        card_out = define_net(f32, dev, attn_layout="nk")(
+            **model_inputs(batch, dev, "teacher"))[2]
+        cpu_out = define_net(f32, "cpu", attn_layout="nk")(
+            **model_inputs(batch, "cpu", "teacher"))[2]
+    errs = {k: (card_out[k].cpu() - cpu_out[k]).abs().max().item()
+            for k in cpu_out}
+    print(f"[f32] nk layout, {setting(f32)}: card vs CPU logits max_abs_err "
+          f"{max(errs.values()):.3e} (tol {LOGITS_TOL}); per output {errs}")
+    if not max(errs.values()) <= LOGITS_TOL:
+        raise RuntimeError("f32 nk logits on the card disagree with the CPU")
+    del card_out, cpu_out
+    compare_train_step(f32.replace(deterministic_training=True), batch, dev,
+                       layout="nk")
+    torch.cuda.empty_cache()
+
+    # ---- phase 6f: K2-nk, K7 and the "nk" teacher's timings -------------
+    nk_ms = time_nk(nk, preset, train_preset, batch, dev, card)
 
     print(json.dumps({"kernels": kernel_line(
         train_counts, dict(k1=k1_err, k2=max(*k2_err.values(), k2_1d["err"]),
@@ -782,14 +854,16 @@ def main() -> int:
                            k2_bwd=max(bwd["k2"]["err"], k2_1d["bwd_err"]),
                            k3=dpc["err"], k4=k4["err"], k4_bwd=k4["bwd_err"],
                            k5=k5["err"], k5_bwd=k5["bwd_err"], k6=k6["err"],
-                           k6_bwd=k6["bwd_err"]),
+                           k6_bwd=k6["bwd_err"], k2nk=nk["err"],
+                           k2nk_bwd=nk["bwd_err"], k7=nk["k7_err"],
+                           k7_bwd=nk["k7_bwd_err"]),
         dict(k1=(k1_ms, k1_plain), k2=(k2_ms, k2_plain),
              k1_bwd=bwd_ms["k1"], k2_bwd=bwd_ms["k2"], **dpc_ms, **k4_ms,
              k5_fwd=opt_ms[("k5_fwd", 4, torch.float32)],
              k5_bwd=opt_ms[("k5_bwd", 4)],
              k6_fwd=opt_ms[("k6", 0.1)][0], k6_bwd=opt_ms[("k6", 0.1)][1]),
         dict(table=table, taps=taps, fracs=fracs, side=side, gkv=gkv2,
-             w=w, n=side * side), bwd, dpc, k4, k5, k6)}))
+             w=w, n=side * side), bwd, dpc, k4, k5, k6, nk_ms)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -797,8 +871,8 @@ def main() -> int:
     return 0
 
 
-def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5,
-                k6) -> list[dict]:
+def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5, k6,
+                nk_ms) -> list[dict]:
     """The kernels JSON line: each kernel's launches in its training run,
     its error against its plain version, its time and its plain version's,
     and its bound from this run's inputs (bytes: inputs read once, outputs
@@ -882,6 +956,23 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5,
         ("fused_table_bwd (K6-bwd)", f"{CSRC}/fused_table_bwd.cu",
          f"{PALLAS}:2949", launches["k6"]["k6_bwd"], errs["k6_bwd"],
          times["k6_bwd"], k6b_bound),
+        # K2-nk closes the four TPU layout kernels of the exact CPB: v1
+        # :640 (the one the TPU's "nk" runs), v5 :1196, v2 :428, wide4 :912
+        # (backwards :668, :1205, :447, :931); K7 closes the nk tiles :96
+        # and v8 :1664 (backwards :125, :1698).  Times: K2-nk at the
+        # teacher's shape, K7 in "nk" at rate 0.1
+        ("cpb_exact_nk_fwd (K2-nk-fwd)", EXACT_SRC, f"{PALLAS}:640",
+         launches["k2nk"]["k2nk_fwd"], errs["k2nk"],
+         nk_ms["2-D"]["fwd"][0], nk_ms["2-D"]["fwd"][1]),
+        ("cpb_exact_nk_bwd (K2-nk-bwd)", f"{CSRC}/cpb_exact_bwd.cu",
+         f"{PALLAS}:668", launches["k2nk"]["k2nk_bwd"], errs["k2nk_bwd"],
+         nk_ms["2-D"]["bwd"][0], nk_ms["2-D"]["bwd"][1]),
+        ("fused_exact_fwd (K7-fwd)", FUSED_EXACT_SRC, f"{PALLAS}:96",
+         launches["k7"]["k7_fwd"], errs["k7"], nk_ms["nk"]["fwd"][0],
+         nk_ms["nk"]["fwd"][1]),
+        ("fused_exact_bwd (K7-bwd)", f"{CSRC}/fused_exact_bwd.cu",
+         f"{PALLAS}:125", launches["k7"]["k7_bwd"], errs["k7_bwd"],
+         nk_ms["nk"]["bwd"][0], nk_ms["nk"]["bwd"][1]),
     ]
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1017,10 +1108,10 @@ def run_training_entry(cfg, dev, steps: int, per_step: dict,
     return n
 
 
-def compare_train_step(cfg, batch, dev) -> None:
-    """Phases 5b and 5c: one ``deterministic_training`` f32 step of
-    ``cfg.mode`` from the same seeded weights on the same batch, on the
-    card and on the CPU."""
+def compare_train_step(cfg, batch, dev, layout: str = "auto") -> None:
+    """Phases 5b, 5c, 5d, 5e and 5f: one ``deterministic_training`` f32
+    step of ``cfg.mode`` (its attentions in ``layout``) from the same seeded
+    weights on the same batch, on the card and on the CPU."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.models.factory import (
@@ -1032,7 +1123,7 @@ def compare_train_step(cfg, batch, dev) -> None:
 
     out = {}
     for device in (dev, "cpu"):
-        model = define_net(cfg, device)
+        model = define_net(cfg, device, attn_layout=layout)
         step = make_train_step(model, cfg, make_optimizer(
             cfg, model.parameters()))
         m = step(batch_to_tensors(batch, device))
@@ -1048,7 +1139,8 @@ def compare_train_step(cfg, batch, dev) -> None:
     for name, want in g_cpu.items():
         got = g_card[name]
         if name.endswith(ZERO_GRAD_BIASES):
-            rel = ZERO_GRAD_FLOOR_1D if ".attn1d." in name else ZERO_GRAD_FLOOR
+            rel = (ZERO_GRAD_FLOOR_1D if ".attn1d." in name or layout == "nk"
+                   else ZERO_GRAD_FLOOR)
             scale = g_cpu[name[:-4] + "weight"].abs().max().item()
             ratio = max(got.abs().max().item(), want.abs().max().item()) / scale
             bias_ok &= ratio <= rel
@@ -1058,7 +1150,7 @@ def compare_train_step(cfg, batch, dev) -> None:
         errs[name] = ((got - want).norm()
                       / max(want.norm().item(), 1e-30)).item()
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
-    print(f"[f32 step] {setting(cfg)}: card task loss "
+    print(f"[f32 step] {setting(cfg)}, layout {layout}: card task loss "
           f"{task_card:.7f} vs CPU {task_cpu:.7f} (rel {task_err:.2e}, tol "
           f"{TASK_LOSS_TOL}); loss {loss_card:.7f} vs {loss_cpu:.7f} (rel "
           f"{loss_err:.2e}, tol {STEP_LOSS_TOL}); {len(errs)} gradients, "
@@ -1878,6 +1970,448 @@ def time_opt_in_settings(preset, train_preset, batch, dev, card: str) -> None:
     for cfg in opt_in_settings(train_preset):
         time_train_steps((cfg,), batch, dev, card)
         torch.cuda.empty_cache()
+
+
+def check_nk_kernels(dev, card: str) -> dict:
+    """Phase 2f: K2-nk at the teacher's shape (32 x 2500 x 144, O = 1) and
+    at the 1-D attention's (16 x 2501 x 625, O = 2, the coordinate padded
+    with a zero second one and a zero row of ``w1``): the forward bitwise
+    equal to K2's transposed and within ``K2_TOL`` of its plain version;
+    K2-nk-bwd against the plain backward in float64 (row chunks) within
+    ``K2_BWD_TOL``, bitwise equal over two calls and to K2-bwd on the
+    transposed cotangent.  Then K7 at q ``[32, 2500, 64]``, k and v ``[32,
+    144, 64]`` in both layouts at rate 0 and 0.1, and at the 1-D
+    attention's q ``[16, 2501, 16]``, k and v ``[16, 625, 16]`` (the kv
+    points in four chunks) at rate 0.1: out and attn within
+    ``K2_TOL`` of the plain version, "nk" equal to "kn" transposed bitwise;
+    K7-bwd against the plain version's autograd in float64 (batch-head
+    chunks, the same dropout mask): dq, dk, dv within ``K6_BWD_TOL``,
+    grid_kv and the weights within ``K2_BWD_TOL`` or twice the f32 plain
+    version's own error, whichever is larger, the CPB output bias below
+    ``K7_DB3_FLOOR`` of its weight's, bitwise equal over two calls.
+    Returns the inputs (for the timings) and the errors."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb, fused_exact
+
+    gen = torch.Generator().manual_seed(8)
+    side, kv_bound = 50, cpb.kv_bound_2d(4.0, 12, 12)
+    grid2 = normalized_grid_flat(side, dev)
+    w2 = list(mlp_weights(2, gen, dev))
+    w2[0][1].zero_()
+    n_q = 2501
+    cases = {
+        "2-D": (grid2, ((torch.rand(32, 144, 2, generator=gen) * 2 - 1)
+                        * kv_bound).to(dev), mlp_weights(1, gen, dev)),
+        "1-D": (torch.stack([torch.linspace(-1, 1, n_q, device=dev),
+                             torch.zeros(n_q, device=dev)], dim=-1),
+                torch.stack([(torch.rand(16, 625, generator=gen) * 2 - 1)
+                             .to(dev), torch.zeros(16, 625, device=dev)],
+                            dim=-1), w2)}
+    out = {"err": 0.0, "bwd_err": 0.0}
+    names = ("dgrid_kv", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    for label, (gq, gkv, w) in cases.items():
+        BG, K, N, O = gkv.shape[0], gkv.shape[1], gq.shape[0], w[4].shape[1]
+        with torch.inference_mode():
+            nk = cpb.cpb_bias_nk(gq, gkv, *w)
+            same = torch.equal(nk, cpb.cpb_bias_transposed(gq, gkv, *w)
+                               .transpose(-1, -2))
+            err = (nk - cpb.cpb_bias_nk_reference(gq, gkv, *w)).abs().max(
+                ).item()
+        print(f"[K2-nk] {label} BG={BG} N={N} K={K} O={O} out "
+              f"{tuple(nk.shape)}: bitwise equal to K2 transposed {same}; "
+              f"max_abs_err vs plain {err:.3e} (tol {K2_TOL}) | {card}")
+        if not same or not err <= K2_TOL:
+            raise RuntimeError("K2-nk disagrees with K2 or its plain version")
+        out["err"] = max(out["err"], err)
+        dbias = torch.randn(nk.shape, generator=gen).to(dev)
+        del nk
+        kb = [cpb.cpb_bias_nk_backward(gq, gkv, *w, dbias) for _ in range(2)]
+        kn = cpb.cpb_bias_transposed_backward(
+            gq, gkv, *w, dbias.transpose(-1, -2).contiguous())
+        torch.cuda.synchronize()
+        det = all(torch.equal(a, b) for a, b in zip(*kb))
+        same = all(torch.equal(a, b) for a, b in zip(kb[0], kn))
+        dbias_kn = dbias.transpose(-1, -2)
+        want = exact_backward_in_chunks(cpb, gq, gkv, w, dbias_kn,
+                                        torch.float64)
+        plain = exact_backward_in_chunks(cpb, gq, gkv, w, dbias_kn,
+                                         torch.float32)
+        errs = {n: (rel_err(g, ww), rel_err(pp, ww))
+                for n, g, pp, ww in zip(names, kb[0], plain, want)}
+        bwd_err = max((g.double() - ww).abs().max().item()
+                      for g, ww in zip(kb[0], want))
+        print(f"[K2-nk-bwd] {label} rel err vs f64, kernel / f32 plain: "
+              + ", ".join(f"{n} {e:.2e} / {pe:.2e}"
+                          for n, (e, pe) in errs.items())
+              + f" (tol {K2_BWD_TOL['dw']}); deterministic {det}; bitwise "
+              f"equal to K2-bwd on the transposed cotangent {same}; "
+              f"max_abs_err {bwd_err:.3e} | {card}")
+        if not det or not same or not all(
+                e <= K2_BWD_TOL["dgrid_kv" if n == "dgrid_kv" else "dw"]
+                for n, (e, _) in errs.items()):
+            raise RuntimeError("K2-nk-bwd disagrees with its plain version "
+                               "or is not deterministic")
+        out["bwd_err"] = max(out["bwd_err"], bwd_err)
+        out[label] = dict(grid_q=gq, gkv=gkv, w=w, dbias=dbias)
+        del kb, kn, want, plain
+        torch.cuda.empty_cache()
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def k7_args(BH, K, D, gq, gkv, padded=False):
+        w = list(mlp_weights(1, gen, dev))
+        if padded:  # the 1-D attention's zero row of w1 for its zero y
+            w[0][1].zero_()
+        return (rnd(BH, gq.shape[0], D, scale=D ** -0.5), rnd(BH, K, D),
+                rnd(BH, K, D), gq, gkv, *w)
+
+    out.update(k7_err=0.0, k7_bwd_err=0.0)
+    # the teacher's shape (one chunk of kv points: everything on the SM), at
+    # dropout 0 and 0.1; then the 1-D attention's (K = 625: four chunks, the
+    # map and dp parked in device memory), at dropout 0.1, with its padded
+    # coordinate: every y difference is exactly 0, where the kernels take
+    # the derivative of sign(p) log1p(|p|) as 1 and autograd as 0, so w1's
+    # y row is 0 as in the attention
+    k7_cases = (
+        ("2-D", k7_args(32, 144, 64, grid2, ((torch.rand(
+            32, 144, 2, generator=gen) * 2 - 1) * kv_bound).to(dev)),
+         (0.0, 0.1), 8),
+        ("1-D", k7_args(16, 625, 16, cases["1-D"][0], cases["1-D"][1],
+                        padded=True), (0.1,), 4))
+    names7 = ("dq", "dk", "dv") + names
+    for label, args, rates, rows in k7_cases:
+        BH, N, D = args[0].shape
+        K = args[1].shape[1]
+        g_out, g_attn = rnd(BH, N, D), rnd(BH, N, K)
+        if label == "2-D":
+            out["k7"] = dict(args=args, g_out=g_out, g_attn=g_attn)
+        for rate in rates:
+            seed = 4321 + int(rate * 10)
+            with torch.inference_mode():
+                got = {lay: fused_exact.fused_exact_attention(*args, seed,
+                                                              rate, lay)
+                       for lay in ("nk", "kn")}
+                want = fused_exact.fused_exact_attention_reference(
+                    *args, seed, rate)
+            torch.cuda.synchronize()
+            same = (torch.equal(got["nk"][0], got["kn"][0]) and torch.equal(
+                got["nk"][1], got["kn"][1].transpose(1, 2)))
+            e_out = (got["nk"][0] - want[0]).abs().max().item()
+            e_attn = (got["nk"][1] - want[1]).abs().max().item()
+            print(f"[K7] {label} BH={BH} N={N} K={K} D={D} rate {rate}: "
+                  f"max_abs_err out {e_out:.3e}, attn {e_attn:.3e} (tol "
+                  f"{K2_TOL}); nk and kn bitwise equal (out, attn transposed)"
+                  f" {same} | {card}")
+            if not same or not max(e_out, e_attn) <= K2_TOL:
+                raise RuntimeError("K7 disagrees with its plain version or "
+                                   "between layouts")
+            out["k7_err"] = max(out["k7_err"], e_out, e_attn)
+            del want
+            for lay in ("nk", "kn"):
+                ga = (g_attn if lay == "nk"
+                      else g_attn.transpose(1, 2).contiguous())
+                kb = [fused_exact.fused_exact_attention_backward(
+                    *args, got[lay][1], g_out, ga, seed, rate, lay)
+                    for _ in range(2)]
+                torch.cuda.synchronize()
+                det = all(torch.equal(a, b) for a, b in zip(*kb))
+                ref = {dt: fused_exact_backward_in_chunks(
+                    args, g_out, ga, seed, rate, lay, dt, rows)
+                    for dt in (torch.float64, torch.float32)}
+                errs = {n: (rel_err(g, ww), rel_err(pp, ww))
+                        for n, g, pp, ww in zip(names7[:9], kb[0],
+                                                ref[torch.float32],
+                                                ref[torch.float64])}
+                b3 = kb[0][9].abs().max().item() / kb[0][8].abs().max().item()
+                abs_err = max((g.double() - ww).abs().max().item()
+                              for g, ww in zip(kb[0][:9], ref[torch.float64]))
+                tol = {n: K6_BWD_TOL if n in ("dq", "dk", "dv") else max(
+                    K2_BWD_TOL["dgrid_kv" if n == "dgrid_kv" else "dw"],
+                    2 * errs[n][1]) for n in names7[:9]}
+                print(f"[K7-bwd] {label} {lay} rate {rate}: rel err vs f64, "
+                      "kernel / f32 plain (tol): " + ", ".join(
+                          f"{n} {e:.2e} / {pe:.2e} ({tol[n]:.1e})"
+                          for n, (e, pe) in errs.items())
+                      + f"; |db3| / |dw3| {b3:.2e} (floor {K7_DB3_FLOOR}); "
+                      f"deterministic {det}; the mask of the forward in the "
+                      f"backward: dv within tol; max_abs_err {abs_err:.3e} "
+                      f"| {card}")
+                if (not det or not b3 <= K7_DB3_FLOOR
+                        or not all(e <= tol[n] for n, (e, _) in errs.items())):
+                    raise RuntimeError("K7-bwd disagrees with its plain "
+                                       "version or is not deterministic")
+                out["k7_bwd_err"] = max(out["k7_bwd_err"], abs_err)
+                del kb, ref
+                torch.cuda.empty_cache()
+            del got
+    return out
+
+
+def fused_exact_backward_in_chunks(args, g_out, g_attn, seed, rate, layout,
+                                   dtype, rows: int = 8) -> tuple:
+    """K7's plain backward in ``dtype``, ``rows`` batch-heads at a time (the
+    weight cotangents summed over the chunks, the dropout mask of the whole
+    call), so that float64 fits the card: a chunk's [8, 2500, 144, 32]
+    float64 hiddens are 740 MB each."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import fused_exact
+
+    q, k, v, gq, gkv, *w = args
+    parts = []
+    for i in range(0, q.shape[0], rows):
+        s = slice(i, i + rows)
+        parts.append(fused_exact.fused_exact_attention_backward_reference(
+            *(t[s].to(dtype) for t in (q, k, v)), gq.to(dtype),
+            gkv[s].to(dtype), *(t.to(dtype) for t in w), g_out[s].to(dtype),
+            g_attn[s].to(dtype), seed, rate, layout, bh0=i))
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(4)) + tuple(
+        sum(p[j] for p in parts) for j in range(4, 10))
+
+
+def run_nk_paths(preset, train_preset, dev, card: str,
+                 k7_shape=(32, 2500, 144, 64)) -> dict:
+    """Phase 3f: the teacher at the preset's widths built with
+    ``define_net(cfg, attn_layout="nk")`` (the divisor 1 and the bf16
+    streams of the preset: "nk" takes the exact CPB whatever the divisor,
+    and bf16 only as the matmuls' operands): 3 eval batches through the
+    ``Evaluator`` (K2-nk-fwd 4 per forward) and 2 train steps through
+    ``train/steps.py`` (K2-nk-fwd and K2-nk-bwd 4 each per step), every
+    other kernel 0; deformpathomic at attn_dim 1 in "nk" (K2-nk at O = 2):
+    one eval forward and one train step, 2 launches each; then K7 through
+    its public entry (the op, as the JAX package exposes it; no module
+    reaches it): one forward and ``backward()`` in each layout at the
+    preset's dropout.  Every count set to 0 just before a run and read just
+    after.  Returns the train run's counts (K2-nk's main path) and the op
+    run's (K7's)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.ops import fused_exact
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        Evaluator)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+
+    result = {}
+    for cfg, eval_batches, per_fwd in (
+            (preset.replace(synthetic_test_size=12), 3, 4),
+            (preset.replace(mode="deformpathomic", attn_dim=1,
+                            synthetic_test_size=4), 1, 2)):
+        model = define_net(cfg, dev, attn_layout="nk")
+        model_type = "fused" if cfg.mode == "deformpathomic" else "teacher"
+        evaluator = Evaluator(model, cfg, dev, model_type)
+        loader = inference.build_fold0_test_loader(cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, labels = evaluator.logits(loader)
+        metrics = evaluator.metrics(logits, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts()
+        print(f"[main] nk layout, serving through the Evaluator, "
+              f"{setting(cfg)}: {eval_batches} batches in {wall:.2f} s; "
+              f"launches {n} | {card}")
+        check_outputs(metrics, logits, 4 * eval_batches,
+                      n_metrics=7 * (3 if model_type == "teacher" else 1))
+        if n != expect(k2nk_fwd=per_fwd * eval_batches):
+            raise RuntimeError(f"nk serving: launches {n}")
+        steps = 2 if cfg.mode == "teacher" else 1
+        tcfg = train_preset.replace(mode=cfg.mode, attn_dim=cfg.attn_dim,
+                                    synthetic_train_size=4 * steps)
+        train_ds, test_ds = train_main.synthetic_fold_datasets(tcfg, 0)
+        train_loader, _ = train_main.make_loaders(tcfg, train_ds, test_ds)
+        opt = make_optimizer(tcfg, model.parameters())
+        step = make_train_step(model, tcfg, opt,
+                               make_scheduler(tcfg, opt, steps))
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [step(batch_to_tensors(b, dev))["loss"]
+                  for b in train_loader]
+        losses = [float(x) for x in losses]
+        wall = time.perf_counter() - t0
+        n = counts()
+        print(f"[train] nk layout, {setting(tcfg)}: {len(losses)} steps in "
+              f"{wall:.2f} s; losses {losses}; launches {n} | {card}")
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"nk train steps: bad losses {losses}")
+        if n != expect(k2nk_fwd=per_fwd * steps, k2nk_bwd=per_fwd * steps):
+            raise RuntimeError(f"nk train steps: launches {n}")
+        if cfg.mode == "teacher":
+            result["k2nk"] = n
+        del model, evaluator, step, opt
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(9)
+    BH, N, K, D = k7_shape
+    kv_bound = 1.0 + 8.0 / 11
+    leaves = [(torch.randn(*sh, generator=gen) * sc).to(dev).requires_grad_()
+              for sh, sc in (((BH, N, D), D ** -0.5), ((BH, K, D), 1.0),
+                             ((BH, K, D), 1.0))]
+    gkv = ((torch.rand(BH, K, 2, generator=gen) * 2 - 1) * kv_bound).to(dev)
+    leaves.append(gkv.requires_grad_())
+    leaves += [t.requires_grad_() for t in mlp_weights(1, gen, dev)]
+    grid_q = normalized_grid_flat(math.isqrt(N), dev)
+    reset_counts()
+    for layout in ("nk", "kn"):
+        out, attn = fused_exact.fused_exact_attention(
+            *leaves[:3], grid_q, *leaves[3:], 77, preset.dropout_rate, layout)
+        ((out ** 2).sum() + torch.sin(attn).sum()).backward()
+    torch.cuda.synchronize()
+    n = counts()
+    finite = all(torch.isfinite(t.grad).all().item() for t in leaves)
+    print(f"[main] K7 through its public entry (autograd, both layouts, rate "
+          f"{preset.dropout_rate}): launches {n}; gradients finite {finite} "
+          f"| {card}")
+    if n != expect(k7_fwd=2, k7_bwd=2) or not finite:
+        raise RuntimeError(f"K7's entry: launches {n}")
+    result["k7"] = n
+    return result
+
+
+def time_nk(nk: dict, preset, train_preset, batch, dev, card: str) -> dict:
+    """Phase 6f: K2-nk-fwd and K2-nk-bwd at both shapes against their plain
+    versions (the backward's: autograd through the plain forward, its graph
+    kept), K7-fwd and K7-bwd in both layouts at rate 0.1 against theirs,
+    with their bounds; the "nk" teacher's eval forward and train step
+    (bags/s, median and p80) and a profiled forward and step (device-busy
+    share).  Returns the times of the kernels line: K2-nk at the teacher's
+    shape, K7 in "nk"."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb, fused_exact
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+
+    times = {}
+    for label in ("2-D", "1-D"):
+        c = nk[label]
+        gq, gkv, w, dbias = c["grid_q"], c["gkv"], c["w"], c["dbias"]
+        with torch.inference_mode():
+            fwd = interleaved_ms(
+                lambda: cpb.cpb_bias_nk_reference(gq, gkv, *w),
+                lambda: cpb.cpb_bias_nk(gq, gkv, *w), 10 if label == "2-D"
+                else 3)
+        leaves = [gkv.detach().requires_grad_()] + [
+            x.detach().requires_grad_() for x in w]
+        out = cpb.cpb_bias_nk_reference(gq, *leaves)
+        bwd = interleaved_ms(
+            lambda: torch.autograd.grad(out, leaves, dbias, retain_graph=True),
+            lambda: cpb.cpb_bias_nk_backward(gq, gkv, *w, dbias), 3)
+        del out, leaves
+        torch.cuda.empty_cache()
+        points, O = dbias.numel() // w[4].shape[1], w[4].shape[1]
+        n_q = gq.shape[0]
+        fb = bound(4 * (dbias.numel() + 2 * n_q + gkv.numel()),
+                   k2_fwd_flops(points, O))
+        bb = bound(4 * (dbias.numel() + 2 * gkv.numel() + 2 * n_q),
+                   k2_bwd_flops(points, O))
+        for name, (ms, plain), (bms, by) in (("K2-nk-fwd", fwd, fb),
+                                             ("K2-nk-bwd", bwd, bb)):
+            print(f"[time] {name} {label} {gkv.shape[0]}x{n_q}x{gkv.shape[1]}"
+                  f" O={O}: kernel {ms:.4f} ms, plain"
+                  f"{' (autograd)' * (name == 'K2-nk-bwd')} {plain:.4f} ms; "
+                  f"bound {bms:.4f} ms by {by} | {card}")
+        times[label] = dict(fwd=(fwd, fb), bwd=(bwd, bb))
+
+    c7 = nk["k7"]
+    args, g_out = c7["args"], c7["g_out"]
+    BH, N, D = args[0].shape
+    K = args[1].shape[1]
+    b7 = k7_bounds(BH, N, K, D)
+    rate, seed = 0.1, 99
+    for lay in ("nk", "kn"):
+        ga = (c7["g_attn"] if lay == "nk"
+              else c7["g_attn"].transpose(1, 2).contiguous())
+        with torch.inference_mode():
+            fwd = interleaved_ms(
+                lambda: fused_exact.fused_exact_attention_reference(
+                    *args, seed, rate, lay),
+                lambda: fused_exact.fused_exact_attention(*args, seed, rate,
+                                                          lay), 5)
+            attn = fused_exact.fused_exact_attention(*args, seed, rate,
+                                                     lay)[1]
+        leaves = [x.detach().requires_grad_() for x in args[:3] + args[4:]]
+        outs = fused_exact.fused_exact_attention_reference(
+            *leaves[:3], args[3], *leaves[3:], seed, rate, lay)
+        bwd = interleaved_ms(
+            lambda: torch.autograd.grad(outs, leaves, (g_out, ga),
+                                        retain_graph=True),
+            lambda: fused_exact.fused_exact_attention_backward(
+                *args, attn, g_out, ga, seed, rate, lay), 3)
+        del outs, leaves, attn
+        torch.cuda.empty_cache()
+        for name, (ms, plain), (bms, by) in (("K7-fwd", fwd, b7[0]),
+                                             ("K7-bwd", bwd, b7[1])):
+            print(f"[time] {name} {lay} BH={BH} N={N} K={K} D={D} rate "
+                  f"{rate}: kernel {ms:.4f} ms, plain"
+                  f"{' (autograd)' * (name == 'K7-bwd')} {plain:.4f} ms; "
+                  f"bound {bms:.4f} ms by {by} | {card}")
+        times[lay] = dict(fwd=(fwd, b7[0]), bwd=(bwd, b7[1]))
+
+    x = model_inputs(batch, dev, "teacher")
+    model = define_net(preset, dev, attn_layout="nk")
+    with torch.inference_mode():
+        ms = ms_samples(lambda: model(**x), 30)
+        med, p80 = median(ms), ms[int(0.8 * len(ms))]
+        print(f"[time] eval forward B=4 fixdim=2500 nk layout, "
+              f"{setting(preset)}: median {med:.3f} ms/batch = "
+              f"{4000.0 / med:.1f} bags/s, p80 {p80:.3f} ms = "
+              f"{4000.0 / p80:.1f} bags/s (30 forwards) | {card}")
+        profile(f"eval forward (nk layout, {setting(preset)})",
+                lambda: model(**x))
+    del model
+    model = define_net(train_preset, dev, attn_layout="nk")
+    opt = make_optimizer(train_preset, model.parameters())
+    step = make_train_step(model, train_preset, opt,
+                           make_scheduler(train_preset, opt, 1000))
+    xt = batch_to_tensors(batch, dev)
+    ms = ms_samples(lambda: step(xt), 20)
+    med, p80 = median(ms), ms[int(0.8 * len(ms))]
+    print(f"[time] train step B=4 fixdim=2500 nk layout, "
+          f"{setting(train_preset)}: median {med:.3f} ms = "
+          f"{4000.0 / med:.1f} train bags/s, p80 {p80:.3f} ms = "
+          f"{4000.0 / p80:.1f} bags/s (20 steps) | {card}")
+    profile(f"train step (nk layout, {setting(train_preset)})",
+            lambda: step(xt), n=3)
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return times
+
+
+def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:
+    """``(forward, backward)`` bounds of K7: the forward reads q, k, v,
+    grid_q, grid_kv and the weights and writes out and attn, and does K2's
+    MLP flops at every (query, kv) point plus the sim and PV products (2
+    flops a multiply-add); the backward also reads attn and both
+    cotangents and writes dq, dk, dv, dgrid_kv and the weight cotangents,
+    and does K2-bwd's flops plus twice the products (dp, dv, dq, dk)."""
+    points = BH * N * K
+    macs = BH * N * K * D
+    qkv = 4 * (BH * N * D + 2 * BH * K * D)
+    small = 4 * (2 * N + 2 * BH * K + 2 * cpb_param_count(1))
+    fwd = bound(qkv + small + 4 * (BH * N * D + points),
+                k2_fwd_flops(points, 1) + 4 * macs)
+    bwd = bound(2 * qkv + small + 4 * (BH * N * D + 2 * points),
+                k2_bwd_flops(points, 1) + 8 * macs)
+    return fwd, bwd
+
+
+def cpb_param_count(o: int, hid: int = 32) -> int:
+    return hid * (2 + 1 + hid + 1) + (hid + 1) * o
 
 
 def profile(label: str, fn, n: int = 5) -> None:

@@ -3,7 +3,16 @@ deformpathomic serving and training paths read, under the names and defaults of 
 ``Config`` (``disentangled_multimodal_learning_tpu/config.py``), so its YAML
 presets load unchanged.  ``yaml`` is imported only when a YAML file is read;
 :meth:`Config.diag2021` holds the flagship preset in code for machines
-without it."""
+without it.
+
+Every other key of the JAX ``Config`` sits in one of two tables:
+:data:`IGNORED` (keys the port ignores on purpose, each with its reason) and
+:data:`LATER` (keys a later part of the port reads, each with its JAX
+default and that part's subject).  :meth:`Config.from_dict` raises
+``NotImplementedError`` for a LATER key set to anything but its JAX default,
+and ``ValueError`` for a key in neither table: JAX keeps such keys in
+``cfg._extra`` and may read them (``define_net`` does, through ``getattr``),
+so dropping one could change what runs."""
 
 from __future__ import annotations
 
@@ -17,6 +26,45 @@ TASK_CLASS_WEIGHTS = {
     "diag2021": (1.0, 4.15, 2.93, 2.43),
     "grade": (1.47, 1.51, 1.0),
     "subtype": (1.0, 1.72, 2.43),
+}
+
+
+_TPU = "a TPU or cluster setting; the port runs on one card"
+_LOG = "logging only (JAX utils/logging.py)"
+_UNREAD = "the JAX package reads it nowhere (a reference CLI key)"
+# JAX Config keys the port ignores on purpose -> why
+IGNORED = {
+    "remat": _TPU, "use_pallas": _TPU, "scan_steps": _TPU,
+    "mesh_data_axis": _TPU, "compute_dtype": _TPU,
+    "checkpoint_backend": "the orbax/pickle choice of the JAX checkpoints",
+    "seq_shard_devices": _TPU, "tp_devices": _TPU, "branch_devices": _TPU,
+    "pipe_devices": _TPU, "seq_shard_dp": _TPU, "pipe_microbatches": _TPU,
+    "nodes": _TPU, "gpus": _TPU, "nr": _TPU, "rank": _TPU,
+    "world_size": _TPU, "workers": _TPU, "dataparallel": _TPU,
+    "visiable_device": _TPU,
+    "debug": _LOG, "log_dir": _LOG, "wandb": _LOG, "printDataSplit": _LOG,
+    "cut_fuse_grad": _UNREAD, "image_size": _UNREAD, "return_grad": _UNREAD,
+    "survival_interval": _UNREAD, "start_epoch": _UNREAD,
+    "label_path": _UNREAD, "dataDir_pyramid": _UNREAD, "pyramid": _UNREAD,
+    "dataset": _UNREAD, "combination_type": _UNREAD, "act_type": _UNREAD,
+}
+_CKPT = "checkpoints, resume and survival evaluation"
+_DISTILL = "distillation"
+_DATA = "real-data loaders"
+_BASELINES = "baselines"
+# JAX Config keys a later part of the port reads -> (JAX default, subject)
+LATER = {
+    "reload": (False, _CKPT), "resume": (False, _CKPT),
+    "save_every_epochs": (0, _CKPT), "save4roc": (False, _CKPT),
+    "save4visualization": (False, _CKPT),
+    "distill_logits": (True, _DISTILL), "distill_feature": (True, _DISTILL),
+    "temperature": (2.0, _DISTILL), "distill_teacher_cache": (True, _DISTILL),
+    "buckets": ("", _DATA), "dataDir": ("./data/", _DATA),
+    "coTraining": (True, _DATA),
+    "init_type": ("max", _BASELINES), "init_gain": (0.02, _BASELINES),
+    "skip": (0, _BASELINES), "use_bilinear": (1, _BASELINES),
+    "path_gate": (1, _BASELINES), "omic_gate": (1, _BASELINES),
+    "path_scale": (1, _BASELINES), "omic_scale": (1, _BASELINES),
 }
 
 
@@ -113,7 +161,22 @@ class Config:
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
+        """The port's fields of ``d``; an :data:`IGNORED` key is dropped, a
+        :data:`LATER` key at its JAX default too, and anything else raises
+        (see the module docstring)."""
         known = {f.name for f in dataclasses.fields(cls)}
+        for k, v in d.items():
+            if k in known or k in IGNORED:
+                continue
+            if k not in LATER:
+                raise ValueError(
+                    f"unknown config key {k!r}: neither a field of the port "
+                    "nor a key of the JAX Config it ignores or ports later")
+            default, subject = LATER[k]
+            if (tuple(v) if isinstance(v, list) else v) != default:
+                raise NotImplementedError(
+                    f"{k}={v!r}: the port runs only {k}={default!r} so far; "
+                    f"{k} comes with the {subject}")
         return cls(**{k: v for k, v in d.items() if k in known})
 
     @classmethod
@@ -161,7 +224,9 @@ class Config:
                             help="torch device (default: cuda; pass cpu to "
                             "run on the CPU)")
         args = parser.parse_args(argv)
-        cfg = cls.from_dict(vars(args)).validate()
+        fields = {f.name for f in dataclasses.fields(cls)}
+        cfg = cls.from_dict({k: v for k, v in vars(args).items()
+                             if k in fields}).validate()
         return cfg, args
 
     def validate(self) -> "Config":
@@ -184,8 +249,7 @@ class Config:
             raise NotImplementedError(
                 f"fusion_type={self.fusion_type!r}: the port fuses the "
                 "deformpathomic branches by concatenation; BilinearFusion "
-                "(models/fusion.py) comes with the baselines slice (ROADMAP "
-                "Queue 1)")
+                "(models/fusion.py) comes with the baselines")
         return self
 
     def replace(self, **kw) -> "Config":

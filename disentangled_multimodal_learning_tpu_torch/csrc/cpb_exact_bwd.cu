@@ -1,13 +1,17 @@
-// K2-bwd: gradient of the exact continuous-position-bias (CPB) MLP.
+// K2-bwd: gradient of the exact continuous-position-bias (CPB) MLP, for a
+// bias cotangent in the "kn" or the "nk" layout.
 //
 // Replaces disentangled_multimodal_learning_tpu/ops/pallas/deform_attn.py
 // _cpbt_bwd_kernel (the TPU kernel behind the custom VJP of
-// cpb_bias_transposed, _cpbt_vjp_bwd).
+// cpb_bias_transposed, _cpbt_vjp_bwd) and, in "nk", the backward kernels
+// of the four layouts of the same function: v1 _cpb_wide_bwd_kernel, v5
+// _cpb5_bwd_kernel, v2 _cpb_flat_bwd_kernel and wide4 _w4_bwd_kernel.
 //
 // What it computes: with the forward of cpb_exact.cu at every kv row
 // r = bh * K + k and query n (p = grid_q[n] - grid_kv[r], f = sign(p) *
 // log1p|p|, z1 = f @ w1 + b1, h1 = relu(z1), z2 = h1 @ w2 + b2,
-// h2 = relu(z2)) and the bias cotangent db[o] = dbias[bh, o, k, n]:
+// h2 = relu(z2)) and the bias cotangent db[o] = dbias[bh, o, k, n] ("kn")
+// or dbias[bh, o, n, k] ("nk"):
 //     dz2 = (w3 @ db) * (z2 > 0)        dz1 = (w2 @ dz2) * (z1 > 0)
 //     dW3 += h2 db^T   db3 += db        dW2 += h1 dz2^T   db2 += dz2
 //     dW1 += f dz1^T   db1 += dz1
@@ -36,19 +40,21 @@
 // gradients to device memory; a second kernel sums the partials in block
 // order.  A row's dgrid_kv is a block sum in a fixed tree order (warp
 // shuffles, then the warps in order).  So two runs on the same inputs give
-// bitwise-equal results.
+// bitwise-equal results.  The layout changes only where a point's
+// cotangent is read, so "nk" gives the same gradients as "kn" on the
+// transposed cotangent, bitwise (its loads are K floats apart across a
+// warp; the kernel is bound by its arithmetic, not by these 46 MB).
 
 #include <cuda_runtime.h>
 
+#include "cpb_exact.cuh"
 #include "fixed_order_sum.cuh"
 
 namespace {
 
-constexpr int kHid = 32;
 constexpr int kThreads = 128;  // = queries per tile
 constexpr int kWarps = kThreads / 32;
 constexpr int kLd = kThreads + 1;  // padded tile row
-constexpr int kMaxOut = 64;        // MAX_OUT_CHANNELS in ops/cpb.py
 // parameter-gradient entries: dW1 2*HID, db1 HID, dW2 HID*HID, db2 HID,
 // dW3 HID*O, db3 O
 constexpr int kFixedParams = 2 * kHid + kHid + kHid * kHid + kHid;
@@ -56,11 +62,6 @@ constexpr int kMaxOwn = (kFixedParams + (kHid + 1) * kMaxOut + kThreads - 1) / k
 
 __host__ __device__ constexpr int num_params(int O) {
   return kFixedParams + (kHid + 1) * O;
-}
-
-__device__ __forceinline__ float signed_log1p(float p) {
-  const float s = (p > 0.0f) ? 1.0f : ((p < 0.0f) ? -1.0f : 0.0f);
-  return s * log1pf(fabsf(p));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -74,14 +75,14 @@ cpb_exact_bwd_partial_kernel(const float* __restrict__ grid_q,
                              const float* __restrict__ dbias,
                              float* __restrict__ dgrid_kv,
                              float* __restrict__ partial, int rows, int K,
-                             int N, int O, int rows_per_block) {
+                             int N, int O, int rows_per_block, int nk) {
   extern __shared__ __align__(16) float smem[];
-  float* s_w2 = smem;                  // [HID, HID] (in, out)
-  float* s_w1 = s_w2 + kHid * kHid;    // [2, HID]
-  float* s_b1 = s_w1 + 2 * kHid;       // [HID]
-  float* s_b2 = s_b1 + kHid;           // [HID]
-  float* s_w3 = s_b2 + kHid;           // [HID, O]
-  float* s_tiles = s_w3 + kHid * O;    // the tiles below, kLd apart
+  // the weights (b3 unused: it does not enter the gradient)
+  const Mlp m = load_mlp(smem, w1, b1, w2, b2, w3, nullptr, O);
+  const float* s_w1 = m.w1;
+  const float* s_w2 = m.w2;
+  const float* s_w3 = m.w3;
+  float* s_tiles = smem + mlp_floats(O);  // the tiles below, kLd apart
   float* s_h1 = s_tiles;               // [HID][kLd]
   float* s_dz2 = s_h1 + kHid * kLd;    // [HID][kLd]
   float* s_h2 = s_dz2 + kHid * kLd;    // [HID][kLd]
@@ -89,13 +90,6 @@ cpb_exact_bwd_partial_kernel(const float* __restrict__ grid_q,
   float* s_f = s_dz1 + kHid * kLd;     // [2][kLd]
   float* s_db = s_f + 2 * kLd;         // [O][kLd]
   float* s_red = s_db + O * kLd;       // [2 * kWarps]
-  for (int i = threadIdx.x; i < kHid * kHid; i += blockDim.x) s_w2[i] = w2[i];
-  for (int i = threadIdx.x; i < 2 * kHid; i += blockDim.x) s_w1[i] = w1[i];
-  for (int i = threadIdx.x; i < kHid; i += blockDim.x) {
-    s_b1[i] = b1[i];
-    s_b2[i] = b2[i];
-  }
-  for (int i = threadIdx.x; i < kHid * O; i += blockDim.x) s_w3[i] = w3[i];
 
   const int P = num_params(O);
   float acc[kMaxOwn];
@@ -121,25 +115,15 @@ cpb_exact_bwd_partial_kernel(const float* __restrict__ grid_q,
         const float fx = signed_log1p(px);
         const float fy = signed_log1p(py);
         float h1[kHid];
-#pragma unroll
-        for (int j = 0; j < kHid; ++j) {
-          h1[j] = fmaxf(fx * s_w1[j] + fy * s_w1[kHid + j] + s_b1[j], 0.0f);
-        }
         float h2[kHid];
-#pragma unroll
-        for (int j = 0; j < kHid; ++j) h2[j] = 0.0f;
-#pragma unroll
-        for (int i = 0; i < kHid; ++i) {
-#pragma unroll
-          for (int j = 0; j < kHid; ++j) h2[j] = fmaf(h1[i], s_w2[i * kHid + j], h2[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < kHid; ++j) h2[j] = fmaxf(h2[j] + s_b2[j], 0.0f);
+        mlp_hidden(m, fx, fy, h1, h2);
         float dz2[kHid];
 #pragma unroll
         for (int j = 0; j < kHid; ++j) dz2[j] = 0.0f;
         for (int o = 0; o < O; ++o) {
-          const float d = dbias[(static_cast<size_t>(bh * O + o) * K + kk) * N + n];
+          const size_t plane = static_cast<size_t>(bh * O + o) * K * N;
+          const float d = dbias[plane + (nk ? static_cast<size_t>(n) * K + kk
+                                            : static_cast<size_t>(kk) * N + n)];
           s_db[o * kLd + t] = d;
 #pragma unroll
           for (int j = 0; j < kHid; ++j) dz2[j] = fmaf(s_w3[j * O + o], d, dz2[j]);
@@ -236,7 +220,8 @@ cpb_exact_bwd_partial_kernel(const float* __restrict__ grid_q,
 }  // namespace
 
 // grid_q [N, 2], grid_kv [rows, 2] with rows = BH * K, w1 [2, 32], b1 [32],
-// w2 [32, 32], b2 [32], w3 [32, O], dbias [BH, O, K, N], all f32 ->
+// w2 [32, 32], b2 [32], w3 [32, O], dbias [BH, O, K, N] (nk = 0) or
+// [BH, O, N, K] (nk = 1), all f32 ->
 // dgrid_kv [rows, 2] and grads, the flat concatenation of dW1 [2, 32],
 // db1 [32], dW2 [32, 32], db2 [32], dW3 [32, O], db3 [O].  partial is
 // scratch of nparts * num_params(O) f32; block b takes rows
@@ -248,12 +233,12 @@ extern "C" int dmlt_cpb_exact_bwd(const void* grid_q, const void* grid_kv,
                                   const void* w3, const void* dbias,
                                   void* dgrid_kv, void* grads, void* partial,
                                   int rows, int K, int N, int O, int nparts,
-                                  void* stream) {
+                                  int nk, void* stream) {
   if (rows == 0 || N == 0 || nparts <= 0) return 0;
   if (O < 1 || O > kMaxOut) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
-      static_cast<size_t>(kHid * kHid + 2 * kHid + 2 * kHid + kHid * O +
-                          (4 * kHid + 2 + O) * kLd + 2 * kWarps) *
+      static_cast<size_t>(mlp_floats(O) + (4 * kHid + 2 + O) * kLd +
+                          2 * kWarps) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       cpb_exact_bwd_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -267,7 +252,7 @@ extern "C" int dmlt_cpb_exact_bwd(const void* grid_q, const void* grid_kv,
       static_cast<const float*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(w3), static_cast<const float*>(dbias),
       static_cast<float*>(dgrid_kv), static_cast<float*>(partial), rows, K, N,
-      O, rows_per_block);
+      O, rows_per_block, nk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return sum_partials(partial, nparts, num_params(O), grads, s);

@@ -39,8 +39,9 @@ def build_fold0_test_loader(cfg: Config) -> BagLoader:
     """The synthetic fold-0 test set of the JAX entry (``seed + 100``)."""
     if not cfg.synthetic_data:
         raise NotImplementedError(
-            "the port has no real-data loaders yet (ROADMAP Queue 1, entry "
-            "points slice); pass --synthetic_data true")
+            "the port has no real-data loaders yet (they come with the "
+            "real-data loaders: datasets, splits, packing); pass "
+            "--synthetic_data true")
     ds = SyntheticBagDataset(
         size=cfg.synthetic_test_size, fixdim=cfg.fixdim,
         path_dim=cfg.input_path_dim, omic_dim=cfg.input_size_omic,

@@ -56,8 +56,9 @@ def main(cfg: Config, device="cuda", logger=None) -> dict:
     """Train every fold; returns ``{fold: final metrics}``."""
     if not cfg.synthetic_data:
         raise NotImplementedError(
-            "the port has no real-data loaders yet (ROADMAP Queue 1, entry "
-            "points slice); pass --synthetic_data true")
+            "the port has no real-data loaders yet (they come with the "
+            "real-data loaders: datasets, splits, packing); pass "
+            "--synthetic_data true")
     device = require_device(device)
     train = _TRAINS.get(cfg.mode, trainTeachersModel)
     np.random.seed(cfg.seed)

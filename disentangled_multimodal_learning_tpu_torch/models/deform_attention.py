@@ -1,11 +1,22 @@
 """2-D and 1-D deformable cross attention with the CPB bias (counterpart
 of ``disentangled_multimodal_learning_tpu/models/deform_attention.py``:
 ``CPB`` :166, ``DeformCrossAttention2D`` :382 and
-``DeformCrossAttention1D`` :566).
+``DeformCrossAttention1D`` :566; ``resolve_attn_layout`` :134 and
+``attn_kv_axis`` :144).
 
-The port runs the kv-major **"kn"** attention layout ``[B, H, K, N]`` that
-the TPU runs: the CPB bias comes out of its kernel in that layout, and
-sim, softmax (over K) and PV consume it with no transpose.
+Both attentions run either attention layout of JAX (``attn_layout``):
+- **"kn"**, kv-major ``[B, H, K, N]``, the TPU's production path: the CPB
+  bias comes out of its kernel in that layout (the table kernels K1, K5 and
+  K4, or the exact K2), and sim, softmax (over K) and PV consume it with no
+  transpose;
+- **"nk"**, query-major ``[B, H, N, K]``, the reference layout that JAX
+  runs off a TPU (JAX :546-556, :681-686): the exact CPB always, from
+  kernel K2-nk (``ops/cpb.py cpb_bias_nk``) in that layout, whatever
+  ``cpb_table_divisor`` says (JAX's table needs the transposed layout,
+  :223-226); sim, softmax (over K) and the returned map in f32 whatever
+  ``attn_bf16_streams`` says; ``fused_table_attention`` and
+  ``cpb_table_bf16`` have no effect (JAX :497).
+"auto" is "kn" in the port on every device (see :func:`resolve_attn_layout`).
 
 Parameter names and shapes follow the reference state_dict that
 ``utils/torch_export.py`` writes (2-D: grouped 1x1 convs ``[out, in/G, 1,
@@ -22,9 +33,10 @@ projections take bf16 operands too (the 1-D module's ungrouped ones stay
 f32, as JAX's ``nn.Dense`` there has no dtype).  With ``cpb_table_bf16`` the
 2-D table CPB (K1, K5) stores its windows in bf16 on the card (the blend
 stays f32; JAX's ``TBL_BF16_OUT``).  Everywhere else (and always on the
-CPU) everything is f32.  The fused table attention
-(``fused_table_attention``, kernel K6) takes q, k and v in f32 and returns
-an f32 map whatever the stream dtypes, as in JAX.
+CPU) everything is f32.  In "nk" only the matmul operands follow
+``attn_bf16_streams``; sim, the softmax and the map are f32.  The fused
+table attention (``fused_table_attention``, kernel K6) takes q, k and v in
+f32 and returns an f32 map whatever the stream dtypes, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +50,36 @@ from torch import nn
 from ..ops import cpb as cpb_ops
 from ..ops import cpb1d as cpb1d_ops
 from ..ops import fused_table as fused_ops
+
+
+ATTN_LAYOUTS = ("nk", "kn", "auto")
+
+
+def resolve_attn_layout(layout: str) -> str:
+    """The attention layout that ``layout`` names: "auto" is "kn" on every
+    device.  JAX picks "kn" only on a TPU and "nk" elsewhere (its
+    ``resolve_attn_layout``); the port differs on purpose: the card runs
+    the TPU's production path, as every configuration of the port does, and
+    ``chip_smoke.py``'s card-against-CPU checks need one path on both
+    devices.  Ask for "nk" by name to run the reference layout."""
+    if layout not in ATTN_LAYOUTS:
+        raise ValueError(f"attn_layout {layout!r}: want one of {ATTN_LAYOUTS}")
+    return "kn" if layout == "auto" else layout
+
+
+def attn_kv_axis(layout: str = "auto") -> int:
+    """Axis of the kv dimension of a 4-D attention map in ``layout`` (for
+    consumers that reduce over kv): -1 in "nk", -2 in "kn"."""
+    return -1 if resolve_attn_layout(layout) == "nk" else -2
+
+
+def _f32_matmul(a, b, operand_dtype):
+    """``a @ b`` of the operands rounded to ``operand_dtype`` (bf16 under
+    ``attn_bf16_streams`` on the card), summed and returned in f32: JAX's
+    ``einsum(a.astype(cdt), b.astype(cdt), preferred_element_type=f32)`` of
+    the "nk" layout."""
+    return torch.matmul(a.to(operand_dtype).float(),
+                        b.to(operand_dtype).float())
 
 
 class PointwiseConv(nn.Module):
@@ -82,7 +124,9 @@ class Scale(nn.Module):
 class CPB(nn.Module):
     """SwinV2 continuous position bias MLP (``coords`` -> dim -> dim ->
     heads/groups, relu; ``coords`` 2 for the 2-D module, 1 for the 1-D).
-    :meth:`forward` returns the kv-major bias ``[B, H, K, N]``: in 2-D
+    :meth:`forward` returns the kv-major bias ``[B, H, K, N]`` (with
+    ``layout="nk"`` the query-major ``[B, H, N, K]``, always exact, from
+    kernel K2-nk, the 1-D coordinate padded as below): in 2-D
     with one output channel (``heads == offset_groups``) through the table
     kernel K1 at ``table_divisor == 1`` and K5 at ``table_divisor >= 2``
     (JAX's ``use_table`` gate, ``:223-226``); in 1-D through the 1-D table
@@ -117,29 +161,34 @@ class CPB(nn.Module):
                 cpb_ops.table_shifts(grid_kv, side=side, kv_bound=kv_bound))
 
     def forward(self, grid_q, grid_kv, *, side: int, table_divisor: int,
-                kv_bound: float, out_dtype=torch.float32):
+                kv_bound: float, out_dtype=torch.float32, layout: str = "kn"):
         """``grid_q [N, P]``, ``grid_kv [B*G, K, P]`` -> ``[B, H, K, N]``
-        (``side`` is the 2-D grid's side; the 1-D table needs none); the
-        2-D table stores ``out_dtype``, every other path f32."""
+        (``[B, H, N, K]`` in "nk"; ``side`` is the 2-D grid's side, the 1-D
+        table needs none); the 2-D table stores ``out_dtype``, every other
+        path f32."""
         bg, k, P = grid_kv.shape
         b = bg // self.offset_groups
+        n = grid_q.shape[0]
         w = self.weights()
-        if P == 1 and table_divisor > 0:
+        table = layout == "kn" and table_divisor > 0  # JAX: "kn" only
+        if table and P == 1:
             bias = cpb1d_ops.cpb_bias_table_1d(
-                grid_kv[..., 0], *w, n_q=grid_q.shape[0], kv_bound=kv_bound)
-        elif P == 1:
-            bias = cpb_ops.cpb_bias_transposed(
-                F.pad(grid_q, (0, 1)), F.pad(grid_kv, (0, 1)),
-                torch.cat([w[0], torch.zeros_like(w[0])]), *w[1:])
-        elif table_divisor > 0 and w[4].shape[1] == 1:
+                grid_kv[..., 0], *w, n_q=n, kv_bound=kv_bound)
+        elif table and w[4].shape[1] == 1:
             bias = cpb_ops.cpb_bias_table(grid_kv, *w, side=side,
                                           kv_bound=kv_bound,
                                           divisor=table_divisor,
                                           out_dtype=out_dtype)
         else:
-            bias = cpb_ops.cpb_bias_transposed(grid_q, grid_kv, *w)
-        # head = g * (heads/groups) + o, as in the JAX module
-        return bias.reshape(b, self.heads, k, grid_q.shape[0])
+            if P == 1:
+                grid_q, grid_kv = F.pad(grid_q, (0, 1)), F.pad(grid_kv, (0, 1))
+                w = (torch.cat([w[0], torch.zeros_like(w[0])]),) + w[1:]
+            exact = (cpb_ops.cpb_bias_nk if layout == "nk"
+                     else cpb_ops.cpb_bias_transposed)
+            bias = exact(grid_q, grid_kv, *w)
+        # head = g * (heads/groups) + o, as in the JAX module (:317-321)
+        plane = (n, k) if layout == "nk" else (k, n)
+        return bias.reshape(b, self.heads, *plane)
 
 
 def normalized_grid(h: int, w: int, device=None):
@@ -165,7 +214,14 @@ class DeformCrossAttention2D(nn.Module):
     where JAX's gate holds: divisor 1, a deformed grid of more than one
     point a side, ``heads == offset_groups``; elsewhere the module runs the
     unfused path.  JAX's further ``v10_supported`` condition is a TPU layout
-    rule that the card's kernel does not have."""
+    rule that the card's kernel does not have.
+
+    ``attn_layout`` ("nk", "kn" or "auto" = "kn", :func:`resolve_attn_layout`;
+    JAX's field of the same name, :411): in "nk" the returned map is
+    ``[B, H, N, K]``, the CPB is the exact one (kernel K2-nk) at every
+    ``cpb_table_divisor``, sim, softmax and the map are f32, and
+    ``fused_table_attention`` and ``cpb_table_bf16`` have no effect
+    (JAX :546-556)."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  dropout: float = 0.0, downsample_factor: int = 4,
@@ -173,13 +229,14 @@ class DeformCrossAttention2D(nn.Module):
                  offset_kernel_size: int = 6, cpb_table_divisor: int = 0,
                  attn_bf16_streams: bool = False,
                  fused_table_attention: bool = False,
-                 cpb_table_bf16: bool = False):
+                 cpb_table_bf16: bool = False, attn_layout: str = "auto"):
         super().__init__()
         inner = dim_head * heads
         od = inner // offset_groups
         self.dim_head, self.heads, self.offset_groups = dim_head, heads, offset_groups
         self.dropout = dropout
         self.offset_scale = offset_scale
+        self.layout = resolve_attn_layout(attn_layout)
         self.cpb_table_divisor = cpb_table_divisor
         self.attn_bf16_streams = attn_bf16_streams
         self.fused_table_attention = fused_table_attention
@@ -240,6 +297,18 @@ class DeformCrossAttention2D(nn.Module):
         kh, vh = split(k), split(v)
         divisor = self.cpb_table_divisor if min(gh, gw) > 1 else 0
         kv_bound = cpb_ops.kv_bound_2d(self.offset_scale, gh, gw)
+        grid_q = normalized_grid(side, side, x1.device).reshape(N, 2)
+        opd = cdt or torch.float32
+        if self.layout == "nk":
+            bias = self.rel_pos_bias(grid_q, pts.reshape(B * G, K, 2),
+                                     side=side, table_divisor=divisor,
+                                     kv_bound=kv_bound, layout="nk")
+            sim = _f32_matmul(qh, kh.transpose(-1, -2), opd)
+            attn = torch.softmax(sim + bias, dim=-1)             # [B,H,N,K]
+            dropped = F.dropout(attn, self.dropout, self.training)
+            out = _f32_matmul(dropped, vh, opd)
+            out = out.transpose(1, 2).reshape(B, N, H * dh)
+            return self.to_out(out), (vgrid if return_vgrid else attn)
         if self.fused_table_attention and divisor == 1 and H == G:
             table, shifts = self.rel_pos_bias.table_parts(
                 pts.reshape(B * G, K, 2), side=side, kv_bound=kv_bound)
@@ -253,13 +322,11 @@ class DeformCrossAttention2D(nn.Module):
             out = out.reshape(B, H, N, dh).transpose(1, 2).reshape(B, N, H * dh)
             return (self.to_out(out),
                     vgrid if return_vgrid else attn.reshape(B, H, K, N))
-        grid_q = normalized_grid(side, side, x1.device).reshape(N, 2)
         bias = self.rel_pos_bias(
             grid_q, pts.reshape(B * G, K, 2), side=side, table_divisor=divisor,
             kv_bound=kv_bound,
             out_dtype=(torch.bfloat16 if self.cpb_table_bf16 and x1.is_cuda
                        else torch.float32))
-        opd = cdt or torch.float32
         sim = torch.matmul(kh.to(opd), qh.to(opd).transpose(-1, -2)).to(sdt)
         sim = sim + bias.to(sdt)                                 # [B,H,K,N]
         attn = torch.softmax(sim.float(), dim=-2).to(sdt)
@@ -283,19 +350,23 @@ class DeformCrossAttention1D(nn.Module):
     sequence bilinearly (zeros padding, align_corners=False), here
     ``F.grid_sample`` on a ``[B*G, C/G, 1, N]`` image at y = 0.  The CPB
     takes the 1-D table (K4) at any ``cpb_table_divisor > 0`` and the exact
-    MLP (K2) at 0."""
+    MLP (K2) at 0.  ``attn_layout`` as in :class:`DeformCrossAttention2D`
+    (JAX :589): in "nk" the attention runs in ``[B, H, N, K]`` with the
+    exact CPB from K2-nk at every divisor (JAX's XLA MLP there, the same
+    function) and sim and softmax in f32."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  dropout: float = 0.0, downsample_factor: int = 4,
                  offset_scale: float = 2.0, offset_groups: int = 4,
                  offset_kernel_size: int = 6,
                  degenerate_sampling: bool = False, cpb_table_divisor: int = 0,
-                 attn_bf16_streams: bool = False):
+                 attn_bf16_streams: bool = False, attn_layout: str = "auto"):
         super().__init__()
         inner = dim_head * heads
         od = inner // offset_groups
         self.dim_head, self.heads, self.offset_groups = dim_head, heads, offset_groups
         self.dropout = dropout
+        self.layout = resolve_attn_layout(attn_layout)
         self.offset_scale = offset_scale
         self.degenerate_sampling = degenerate_sampling
         self.cpb_table_divisor = cpb_table_divisor
@@ -357,6 +428,16 @@ class DeformCrossAttention1D(nn.Module):
         # |pts| <= 1 + 2 * offset_scale / (n_ds - 1): tanh-bounded offsets
         # normalized by the downsampled extent
         kv_bound = 1.0 + 2.0 * self.offset_scale / (n_ds - 1) if n_ds > 1 else 0.0
+        if self.layout == "nk":
+            bias = self.rel_pos_bias(grid_q, pts[..., None], side=N,
+                                     table_divisor=self.cpb_table_divisor,
+                                     kv_bound=kv_bound,
+                                     layout="nk")                # [B,H,N,K]
+            sim = _f32_matmul(qh, kh.transpose(-1, -2), sdt)
+            attn = torch.softmax(sim + bias, dim=-1)
+            attn = F.dropout(attn, self.dropout, self.training)
+            out = _f32_matmul(attn, vh, sdt)
+            return self.to_out(out.transpose(1, 2).reshape(B, N, H * dh))
         bias = self.rel_pos_bias(
             grid_q, pts[..., None], side=N,
             table_divisor=self.cpb_table_divisor if n_ds > 1 else 0,

@@ -34,7 +34,7 @@ class DeformCrossTransLayer(nn.Module):
                  degenerate_1d_sampling: bool = False,
                  cpb_table_divisor: int = 0, attn_bf16_streams: bool = False,
                  fused_table_attention: bool = False,
-                 cpb_table_bf16: bool = False):
+                 cpb_table_bf16: bool = False, attn_layout: str = "auto"):
         super().__init__()
         self.attn_dim = attn_dim
         self.norm = layer_norm(dim)
@@ -44,7 +44,7 @@ class DeformCrossTransLayer(nn.Module):
                 offset_kernel_size=6,
                 degenerate_sampling=degenerate_1d_sampling,
                 cpb_table_divisor=cpb_table_divisor,
-                attn_bf16_streams=attn_bf16_streams)
+                attn_bf16_streams=attn_bf16_streams, attn_layout=attn_layout)
         else:
             self.attn2d = DeformCrossAttention2D(
                 dim=dim, dim_head=64, heads=8, dropout=0.1,
@@ -52,7 +52,7 @@ class DeformCrossTransLayer(nn.Module):
                 offset_kernel_size=6, cpb_table_divisor=cpb_table_divisor,
                 attn_bf16_streams=attn_bf16_streams,
                 fused_table_attention=fused_table_attention,
-                cpb_table_bf16=cpb_table_bf16)
+                cpb_table_bf16=cpb_table_bf16, attn_layout=attn_layout)
 
     def forward(self, x1, x2, return_vgrid: bool = False):
         if self.attn_dim == 1:
@@ -133,7 +133,7 @@ class DeformPathomicNet(nn.Module):
                  degenerate_1d_sampling: bool = False,
                  cpb_table_divisor: int = 0, attn_bf16_streams: bool = False,
                  fused_table_attention: bool = False,
-                 cpb_table_bf16: bool = False):
+                 cpb_table_bf16: bool = False, attn_layout: str = "auto"):
         super().__init__()
         self.return_vgrid = return_vgrid
         self.survival = task_type == "survival"
@@ -148,7 +148,7 @@ class DeformPathomicNet(nn.Module):
                   cpb_table_divisor=cpb_table_divisor,
                   attn_bf16_streams=attn_bf16_streams,
                   fused_table_attention=fused_table_attention,
-                  cpb_table_bf16=cpb_table_bf16)
+                  cpb_table_bf16=cpb_table_bf16, attn_layout=attn_layout)
         self.pathomic_net_tumor = DeformCrossTransMIL(**kw)
         self.pathomic_net_immune = DeformCrossTransMIL(**kw)
         self.classifier = nn.Linear(2 * path_dim, label_dim)

@@ -5,7 +5,11 @@ Unlike the JAX ``define_net``, which sets module globals
 (``CPB_TABLE_DIVISOR``, ``ATTN_BF16_STREAMS``, ``FUSED_TABLE_ATTENTION``,
 ``TBL_BF16_OUT``), the port passes ``cpb_table_divisor``,
 ``attn_bf16_streams``, ``fused_table_attention`` and ``cpb_table_bf16``
-down as constructor arguments.
+down as constructor arguments.  The attention layout is no config field,
+as in JAX (whose backend picks it): :func:`define_net` takes it as the
+keyword ``attn_layout`` ("auto", the port's "kn", or "nk").  JAX's
+``CPB_KERNEL_VERSION`` has no counterpart: its "v1" and "v5" compute the
+same function, and both are kernel K2-nk in the port.
 """
 
 from __future__ import annotations
@@ -18,11 +22,11 @@ from torch import nn
 from .deform_mil import DeformPathomicNet
 from .teacher_student import StudentsNet, TeachersNet
 
-# modes the JAX factory knows, with the ROADMAP (Queue 1) slice that ports each
+# modes the JAX factory knows, with the subject of the port that brings each
 _LATER = {
-    "distillation": "the distillation/multiscale slice",
-    "multiscale": "the distillation/multiscale slice",
-    **{m: "the baselines slice" for m in (
+    "distillation": "distillation",
+    "multiscale": "the multiscale models",
+    **{m: "the baselines" for m in (
         "path", "transmil", "omic", "pathomic", "pathomic_original", "mcat",
         "cmta", "pathomic_fg", "pathomic_ensemble")},
 }
@@ -49,15 +53,17 @@ def require_device(device) -> torch.device:
     return device
 
 
-def define_net(cfg, device="cuda") -> nn.Module:
+def define_net(cfg, device="cuda", attn_layout: str = "auto") -> nn.Module:
     """``cfg`` -> eval-mode model on ``device`` with random weights drawn
-    from ``cfg.seed`` by a ``torch.Generator``; load real weights over them
-    with ``utils.jax_params``.  The train step switches the model to train
-    mode (eval mode under ``deterministic_training``)."""
+    from ``cfg.seed`` by a ``torch.Generator``, every deformable attention
+    in ``attn_layout`` (``models/deform_attention.py``); load real weights
+    over them with ``utils.jax_params`` (the same weights in either
+    layout).  The train step switches the model to train mode (eval mode
+    under ``deterministic_training``)."""
     mode = cfg.mode
     if mode in _LATER:
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: ROADMAP Queue 1, {_LATER[mode]}")
+            f"mode {mode!r} is not ported yet: it comes with {_LATER[mode]}")
     if mode not in ("teacher", "uniteacher", "student", "deformpathomic"):
         raise NotImplementedError(f"model [{mode}] is not implemented")
     device = require_device(device)
@@ -67,7 +73,7 @@ def define_net(cfg, device="cuda") -> nn.Module:
                   cpb_table_divisor=cfg.cpb_table_divisor,
                   attn_bf16_streams=cfg.attn_bf16_streams,
                   fused_table_attention=cfg.fused_table_attention,
-                  cpb_table_bf16=cfg.cpb_table_bf16)
+                  cpb_table_bf16=cfg.cpb_table_bf16, attn_layout=attn_layout)
     if mode == "deformpathomic":
         model = DeformPathomicNet(
             input_size_omic_tumor=cfg.input_size_omic_tumor,

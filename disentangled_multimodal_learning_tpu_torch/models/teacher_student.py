@@ -31,7 +31,7 @@ def _deform2d(dim: int, **attn_kw):
     # instantiation constants of the reference (models/Modules.py:107-126;
     # JAX teacher_student.py:47-50); attn_kw: the attention options of the
     # config (cpb_table_divisor, attn_bf16_streams, fused_table_attention,
-    # cpb_table_bf16)
+    # cpb_table_bf16) and the attention layout (attn_layout)
     return DeformCrossAttention2D(
         dim=dim, dim_head=64, heads=8, dropout=0.1, downsample_factor=4,
         offset_scale=4, offset_groups=8, offset_kernel_size=6, **attn_kw)
@@ -168,7 +168,7 @@ class TeachersNet(nn.Module):
                  unimodal: bool = False, cpb_table_divisor: int = 0,
                  attn_bf16_streams: bool = False,
                  fused_table_attention: bool = False,
-                 cpb_table_bf16: bool = False):
+                 cpb_table_bf16: bool = False, attn_layout: str = "auto"):
         super().__init__()
         self.combination_type = combination_type
         self.omic_net_tumor = MaxNet(input_size_omic_tumor, omic_dim,
@@ -180,7 +180,7 @@ class TeachersNet(nn.Module):
                   cpb_table_divisor=cpb_table_divisor,
                   attn_bf16_streams=attn_bf16_streams,
                   fused_table_attention=fused_table_attention,
-                  cpb_table_bf16=cpb_table_bf16)
+                  cpb_table_bf16=cpb_table_bf16, attn_layout=attn_layout)
         self.teacher10_net = TeacherNet(**kw)
         self.teacher20_net = TeacherNet(**kw)
 
@@ -214,7 +214,7 @@ class StudentsNet(nn.Module):
                  combination_type: str = "max_confidence",
                  cpb_table_divisor: int = 0, attn_bf16_streams: bool = False,
                  fused_table_attention: bool = False,
-                 cpb_table_bf16: bool = False):
+                 cpb_table_bf16: bool = False, attn_layout: str = "auto"):
         super().__init__()
         self.combination_type = combination_type
         kw = dict(label_dim=label_dim, input_dim=input_path_dim,
@@ -222,7 +222,7 @@ class StudentsNet(nn.Module):
                   cpb_table_divisor=cpb_table_divisor,
                   attn_bf16_streams=attn_bf16_streams,
                   fused_table_attention=fused_table_attention,
-                  cpb_table_bf16=cpb_table_bf16)
+                  cpb_table_bf16=cpb_table_bf16, attn_layout=attn_layout)
         self.student10_net = StudentNet(**kw)
         self.student20_net = StudentNet(**kw)
 

@@ -51,9 +51,15 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _F, _P),
     "dmlt_fused_table_bwd_smem": (_I, _I),
     "dmlt_cpb_exact_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P),
+                           _I, _P),
     "dmlt_cpb_exact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _P),
+                           _I, _I, _I, _I, _P),
+    "dmlt_fused_exact_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "dmlt_fused_exact_fwd_smem": (_I, _I),
+    "dmlt_fused_exact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _P),
+    "dmlt_fused_exact_bwd_smem": (_I, _I),
     "dmlt_cpb_table_1d_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
     "dmlt_cpb_table_1d_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _P),

@@ -23,20 +23,36 @@ weights in the JAX layout (``w1 [2, 32]``, ``w2 [32, 32]``, ``w3 [32, O]``):
   the MLP weights, and the fraction cotangent back to ``grid_kv``.
 - **exact** (``cpb_table_divisor = 0``, the ``Config`` default): the MLP at
   every (row, query) pair (:func:`cpb_bias_transposed`, kernel K2 in
-  ``csrc/cpb_exact.cu``, its backward in ``csrc/cpb_exact_bwd.cu``).
+  ``csrc/cpb_exact.cu``, its backward in ``csrc/cpb_exact_bwd.cu``; JAX
+  ``cpb_bias_transposed`` :1534, ``_cpbt_fwd_kernel`` :1422 and
+  ``_cpbt_bwd_kernel`` :1443).
 
-Both are ``torch.autograd.Function``s whose forward and backward go
+The "nk" attention layout takes the exact CPB query-major, ``[BH, N, K]``
+(``[BH, O, N, K]``): :func:`cpb_bias_nk`, kernel K2-nk, the same sources
+with a layout flag (a sibling forward kernel that stores along k; the
+backward reads its cotangent in that layout).  It is the counterpart of
+JAX's four TPU layouts of that function, each at its grid entry: v1
+``cpb_bias_from_grids`` (:810, ``_cpb_wide_*`` :640/:668, what JAX's "nk"
+runs on a TPU), v5 ``cpb_bias_grids_fused`` (:1314, ``_cpb5_*``
+:1196/:1205, under ``CPB_KERNEL_VERSION = "v5"``), v2 ``cpb_bias`` (:601,
+``_cpb_flat_*`` :428/:447) and wide4 ``cpb_bias_from_grids_w4`` (:1121,
+``_w4_*`` :912/:931).  Their other inputs (pre-transformed flat offsets,
+pre-expanded pair rows, ``[R, 4, CH]`` blocks) are TPU layouts and are not
+carried over.  K2-nk gives K2's bias transposed, and its backward K2's
+gradients, bitwise.
+
+All are ``torch.autograd.Function``s whose forward and backward go
 through the wrappers below.  Wrapper rule: a tensor on the CPU goes to the
 plain PyTorch version (``*_reference``, also what the card's kernels are
 checked against); a CUDA tensor launches the kernel or raises.  There is no
 fallback.  Each wrapper counts its launches in ``<wrapper>.launches`` (a
 plain int), and nowhere else: :func:`table_interp`,
-:func:`table_interp_strided` and :func:`cpb_bias_transposed` count forward
-launches, :func:`table_interp_backward`,
-:func:`table_interp_strided_backward` and
-:func:`cpb_bias_transposed_backward` backward launches.  The backward
-kernels are deterministic (two calls on the same inputs give bitwise-equal
-results).
+:func:`table_interp_strided`, :func:`cpb_bias_transposed` and
+:func:`cpb_bias_nk` count forward launches, :func:`table_interp_backward`,
+:func:`table_interp_strided_backward`,
+:func:`cpb_bias_transposed_backward` and :func:`cpb_bias_nk_backward`
+backward launches.  The backward kernels are deterministic (two calls on
+the same inputs give bitwise-equal results).
 """
 
 from __future__ import annotations
@@ -411,26 +427,40 @@ def cpb_bias_transposed_backward_reference(grid_q, grid_kv, w1, b1, w2, b2,
             db.sum(dim=(0, 1, 2)))
 
 
-def cpb_bias_transposed_backward(grid_q, grid_kv, w1, b1, w2, b2, w3, b3,
-                                 dbias):
-    """K2-bwd wrapper: the forward's inputs and ``dbias`` (its output's
-    shape) f32 -> ``(dgrid_kv, dw1, db1, dw2, db2, dw3, db3)`` f32
-    (``csrc/cpb_exact_bwd.cu``, replaces ``_cpbt_bwd_kernel``)."""
-    if grid_q.device.type == "cpu":
-        return cpb_bias_transposed_backward_reference(
-            grid_q, grid_kv, w1, b1, w2, b2, w3, b3, dbias)
-    args = (grid_q, grid_kv, w1, b1, w2, b2, w3, b3)
-    _on_card("cpb_bias_transposed_backward", args + (dbias,),
-             (torch.float32,) * 9)
-    BH, K, N, O = _check_exact_shapes("cpb_bias_transposed_backward", args)
-    want = (BH, K, N) if O == 1 else (BH, O, K, N)
+def cpb_bias_nk_reference(grid_q, grid_kv, w1, b1, w2, b2, w3, b3):
+    """Plain version of K2-nk: ``grid_q [N, 2]``, ``grid_kv [BH, K, 2]`` ->
+    ``[BH, N, K]`` (O = 1) or ``[BH, O, N, K]``, the MLP evaluated point by
+    point in the query-major order (JAX ``_cpb_mlp``, :151-163)."""
+    pos = grid_q[None, :, None, :] - grid_kv[:, None, :, :]  # [BH, N, K, 2]
+    f = torch.sign(pos) * torch.log1p(torch.abs(pos))
+    h = torch.relu(f @ w1 + b1)
+    h = torch.relu(h @ w2 + b2)
+    out = (h @ w3 + b3).permute(0, 3, 1, 2)                  # [BH, O, N, K]
+    return (out[:, 0] if out.shape[1] == 1 else out).contiguous()
+
+
+def cpb_bias_nk_backward_reference(grid_q, grid_kv, w1, b1, w2, b2, w3, b3,
+                                   dbias):
+    """Plain version of K2-nk-bwd: ``dbias`` shaped as K2-nk's output ->
+    the cotangents of :func:`cpb_bias_transposed_backward_reference`, from
+    the same points with the cotangent transposed to kv-major."""
+    return cpb_bias_transposed_backward_reference(
+        grid_q, grid_kv, w1, b1, w2, b2, w3, b3, dbias.transpose(-1, -2))
+
+
+def _exact_backward(name, args, dbias, nk: bool):
+    """K2-bwd (``nk`` False) or K2-nk-bwd (True) on the card, uncounted:
+    ``(dgrid_kv, dw1, db1, dw2, db2, dw3, db3)`` f32."""
+    _on_card(name, args + (dbias,), (torch.float32,) * 9)
+    BH, K, N, O = _check_exact_shapes(name, args)
+    want = _exact_shape(BH, K, N, O, nk)
     if dbias.shape != want:
-        raise ValueError(f"cpb_bias_transposed_backward: dbias "
-                         f"{tuple(dbias.shape)}, want {want}")
+        raise ValueError(f"{name}: dbias {tuple(dbias.shape)}, want {want}")
+    grid_q = args[0]
     n_params = HID * (2 + 1 + HID + 1) + (HID + 1) * O
     grads = torch.empty(n_params, dtype=torch.float32, device=grid_q.device)
-    dgrid_kv = torch.empty_like(grid_kv)
-    if dbias.numel() == 0:  # nothing to launch, so nothing to count
+    dgrid_kv = torch.empty_like(args[1])
+    if dbias.numel() == 0:  # nothing to launch
         grads.zero_()
         dgrid_kv.zero_()
     else:
@@ -442,58 +472,121 @@ def cpb_bias_transposed_backward(grid_q, grid_kv, w1, b1, w2, b2, w3, b3,
         err = kernels().dmlt_cpb_exact_bwd(
             *(t.data_ptr() for t in args[:7]), dbias.data_ptr(),
             dgrid_kv.data_ptr(), grads.data_ptr(), partial.data_ptr(),
-            BH * K, K, N, O, nparts, _stream(grid_q))
-        check(err, "cpb_bias_transposed_backward")
-        cpb_bias_transposed_backward.launches += 1
+            BH * K, K, N, O, nparts, int(nk), _stream(grid_q))
+        check(err, name)
     shapes = [(2, HID), (HID,), (HID, HID), (HID,), (HID, O), (O,)]
     pieces = torch.split(grads, [math.prod(sh) for sh in shapes])
     return (dgrid_kv, *(p.view(sh) for p, sh in zip(pieces, shapes)))
 
 
+def cpb_bias_transposed_backward(grid_q, grid_kv, w1, b1, w2, b2, w3, b3,
+                                 dbias):
+    """K2-bwd wrapper: the forward's inputs and ``dbias`` (its output's
+    shape) f32 -> ``(dgrid_kv, dw1, db1, dw2, db2, dw3, db3)`` f32
+    (``csrc/cpb_exact_bwd.cu``, replaces ``_cpbt_bwd_kernel``)."""
+    args = (grid_q, grid_kv, w1, b1, w2, b2, w3, b3)
+    if grid_q.device.type == "cpu":
+        return cpb_bias_transposed_backward_reference(*args, dbias)
+    grads = _exact_backward("cpb_bias_transposed_backward", args, dbias, False)
+    if dbias.numel():
+        cpb_bias_transposed_backward.launches += 1
+    return grads
+
+
 cpb_bias_transposed_backward.launches = 0
 
 
+def cpb_bias_nk_backward(grid_q, grid_kv, w1, b1, w2, b2, w3, b3, dbias):
+    """K2-nk-bwd wrapper: as :func:`cpb_bias_transposed_backward` for a
+    ``dbias`` in K2-nk's layout (``csrc/cpb_exact_bwd.cu`` with its nk flag;
+    replaces ``_cpb_wide_bwd_kernel``, ``_cpb5_bwd_kernel``,
+    ``_cpb_flat_bwd_kernel`` and ``_w4_bwd_kernel``).  The same gradients
+    as K2-bwd on the transposed cotangent, bitwise."""
+    args = (grid_q, grid_kv, w1, b1, w2, b2, w3, b3)
+    if grid_q.device.type == "cpu":
+        return cpb_bias_nk_backward_reference(*args, dbias)
+    grads = _exact_backward("cpb_bias_nk_backward", args, dbias, True)
+    if dbias.numel():
+        cpb_bias_nk_backward.launches += 1
+    return grads
+
+
+cpb_bias_nk_backward.launches = 0
+
+
+def _exact_shape(BH, K, N, O, nk: bool) -> tuple:
+    plane = (N, K) if nk else (K, N)
+    return (BH, *plane) if O == 1 else (BH, O, *plane)
+
+
 class _CpbExact(torch.autograd.Function):
-    """K2-fwd (``csrc/cpb_exact.cu``, replaces ``_cpbt_fwd_kernel``),
-    counted in ``cpb_bias_transposed.launches``; backward
-    :func:`cpb_bias_transposed_backward`."""
+    """K2-fwd (``csrc/cpb_exact.cu``): "kn" replaces ``_cpbt_fwd_kernel``,
+    counted in ``cpb_bias_transposed.launches``, backward
+    :func:`cpb_bias_transposed_backward`; "nk" (``nk`` True) replaces the
+    four TPU layouts of the same function, counted in
+    ``cpb_bias_nk.launches``, backward :func:`cpb_bias_nk_backward`."""
 
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, nk, *args):
         ctx.save_for_backward(*args)
+        ctx.nk = nk
         grid_q = args[0]
         if grid_q.device.type == "cpu":
-            return cpb_bias_transposed_reference(*args)
-        _on_card("cpb_bias_transposed", args, (torch.float32,) * 8)
-        BH, K, N, O = _check_exact_shapes("cpb_bias_transposed", args)
-        shape = (BH, K, N) if O == 1 else (BH, O, K, N)
-        out = torch.empty(shape, dtype=torch.float32, device=grid_q.device)
+            return (cpb_bias_nk_reference if nk
+                    else cpb_bias_transposed_reference)(*args)
+        name = "cpb_bias_nk" if nk else "cpb_bias_transposed"
+        _on_card(name, args, (torch.float32,) * 8)
+        BH, K, N, O = _check_exact_shapes(name, args)
+        out = torch.empty(_exact_shape(BH, K, N, O, nk), dtype=torch.float32,
+                          device=grid_q.device)
         if out.numel() == 0:  # nothing to launch, so nothing to count
             return out
+        if nk and (N * K >= 2 ** 31 or BH > 65535):
+            raise ValueError(f"{name}: N * K = {N * K} and BH = {BH}; the "
+                             "kernel takes N * K < 2^31 and BH <= 65535")
         from .build import check, kernels
 
         err = kernels().dmlt_cpb_exact_fwd(
             *(t.data_ptr() for t in args), out.data_ptr(), BH * K, K, N, O,
-            _stream(grid_q))
-        check(err, "cpb_bias_transposed")
-        cpb_bias_transposed.launches += 1
+            int(nk), _stream(grid_q))
+        check(err, name)
+        if nk:
+            cpb_bias_nk.launches += 1
+        else:
+            cpb_bias_transposed.launches += 1
         return out
 
     @staticmethod
     def backward(ctx, dbias):
-        grads = cpb_bias_transposed_backward(*ctx.saved_tensors,
-                                             dbias.contiguous())
-        return (None, *grads)
+        bwd = (cpb_bias_nk_backward if ctx.nk
+               else cpb_bias_transposed_backward)
+        grads = bwd(*ctx.saved_tensors, dbias.contiguous())
+        return (None, None, *grads)
 
 
 def cpb_bias_transposed(grid_q, grid_kv, w1, b1, w2, b2, w3, b3):
     """K2: exact CPB in the kv-major layout, ``grid_q [N, 2]``, ``grid_kv
     [BH, K, 2]`` -> ``[BH, K, N]`` (O = 1) or ``[BH, O, K, N]``,
     differentiable with respect to ``grid_kv`` and the MLP weights."""
-    return _CpbExact.apply(grid_q, grid_kv, w1, b1, w2, b2, w3, b3)
+    return _CpbExact.apply(False, grid_q, grid_kv, w1, b1, w2, b2, w3, b3)
 
 
 cpb_bias_transposed.launches = 0
+
+
+def cpb_bias_nk(grid_q, grid_kv, w1, b1, w2, b2, w3, b3):
+    """K2-nk: exact CPB in the query-major layout of the "nk" attention,
+    ``grid_q [N, 2]``, ``grid_kv [BH, K, 2]`` -> ``[BH, N, K]`` (O = 1) or
+    ``[BH, O, N, K]``, differentiable with respect to ``grid_kv`` and the
+    MLP weights (``grid_q`` is a constant grid and gets no gradient).  The
+    counterpart of JAX's grid entries ``cpb_bias_from_grids`` (v1, :810),
+    ``cpb_bias_grids_fused`` (v5, :1314), ``cpb_bias`` (v2, :601) and
+    ``cpb_bias_from_grids_w4`` (wide4, :1121); on the card the "kn" bias
+    transposed, bitwise."""
+    return _CpbExact.apply(True, grid_q, grid_kv, w1, b1, w2, b2, w3, b3)
+
+
+cpb_bias_nk.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -564,7 +657,9 @@ def kv_bound_2d(offset_scale: float, gh: int, gw: int) -> float:
     return 1.0 + 2.0 * offset_scale / (g - 1) if g > 1 else 0.0
 
 
-__all__ = ["HID", "cpb_bias_table", "cpb_bias_transposed",
+__all__ = ["HID", "cpb_bias_nk", "cpb_bias_nk_backward",
+           "cpb_bias_nk_backward_reference", "cpb_bias_nk_reference",
+           "cpb_bias_table", "cpb_bias_transposed",
            "cpb_bias_transposed_backward",
            "cpb_bias_transposed_backward_reference",
            "cpb_bias_transposed_reference", "cpb_table", "kv_bound_2d",

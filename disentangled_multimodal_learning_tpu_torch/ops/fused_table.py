@@ -81,11 +81,14 @@ def dropout_threshold(rate: float) -> int:
     return int(round(rate * (1 << 24)))
 
 
-def dropout_keep_mask(seed: int, shape, rate: float, device=None):
+def dropout_keep_mask(seed: int, shape, rate: float, device=None,
+                      first: int = 0):
     """Bool ``[BH, K, N]``: the elements K6 keeps at ``rate`` for ``seed``
     (``dropout_keep`` of ``csrc/fused_table.cuh``, in int64 tensor ops
-    masked to 32 bits)."""
-    idx = torch.arange(shape[0] * shape[1] * shape[2], dtype=torch.int64,
+    masked to 32 bits); ``first`` is the element index of ``[0, 0, 0]``
+    (``bh0 * K * N`` for the batch-heads from ``bh0`` on)."""
+    n = shape[0] * shape[1] * shape[2]
+    idx = torch.arange(first, first + n, dtype=torch.int64,
                        device=device).reshape(shape)
     h = _mix32((idx & _M32) ^ _mix32((idx >> 32) ^ _mix32_int(seed)))
     return (h >> 8) >= dropout_threshold(rate)

@@ -45,7 +45,7 @@ class Evaluator:
             raise NotImplementedError(
                 f"task_type {cfg.task_type!r}: the port evaluates the "
                 "classification tasks; survival (c-index) comes with the "
-                "distillation/multiscale/eval slice (ROADMAP Queue 1)")
+                "checkpoints and survival evaluation")
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)

@@ -125,8 +125,8 @@ def make_train_step(model, cfg, optimizer, scheduler=None):
     if mode not in MODEL_INPUTS:
         raise NotImplementedError(
             f"mode {mode!r}: the port trains the teacher, the uniteacher, "
-            "the student and deformpathomic (ROADMAP Queue 1 names the slice"
-            " of each other mode)")
+            "the student and deformpathomic; distillation, the multiscale "
+            "models and the baselines come later")
     inputs = MODEL_INPUTS[mode]
     loss_fn = (_deformpathomic_loss if mode == "deformpathomic"
                else _two_scale_loss)

@@ -13,8 +13,8 @@ plateau watcher on the mean train loss.  After the last epoch, the final
 evaluation through :class:`~.evaluation.Evaluator`.
 
 What the JAX driver does besides, and the port does not yet: meshes and
-sharded steps, ``scan_steps``, resume and checkpoints (ROADMAP Queue 1,
-slice 4).  A ``checkpoints`` directory other than ``"#"`` raises instead of
+sharded steps, ``scan_steps``, and checkpoints and resume (they come with
+the checkpoints and survival evaluation).  A ``checkpoints`` directory other than ``"#"`` raises instead of
 training without saving.
 """
 
@@ -40,8 +40,8 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher"):
     if cfg.checkpoints not in ("#", ""):
         raise NotImplementedError(
             f"checkpoints={cfg.checkpoints!r}: the port does not save "
-            "checkpoints yet (ROADMAP Queue 1, slice 4: entry points, "
-            "checkpoints and resume); pass --checkpoints '#'")
+            "checkpoints yet (they come with the checkpoints, resume and "
+            "survival evaluation); pass --checkpoints '#'")
     train_loader, test_loader = loaders
     device = next(model.parameters()).device
     steps_per_epoch = max(1, len(train_loader))

@@ -167,10 +167,11 @@ def test_kernel_build_key_follows_the_sources(tmp_path, monkeypatch):
     assert {p.name for p in build.sources()} == {
         "cpb_exact.cu", "cpb_exact_bwd.cu", "cpb_table.cu", "cpb_table_1d.cu",
         "cpb_table_1d_bwd.cu", "cpb_table_bwd.cu", "cpb_table_strided.cu",
-        "cpb_table_strided_bwd.cu", "dpc_knn.cu", "fused_table.cu",
-        "fused_table_bwd.cu"}
-    assert [p.name for p in build.headers()] == ["fixed_order_sum.cuh",
-                                                 "fused_table.cuh"]
+        "cpb_table_strided_bwd.cu", "dpc_knn.cu", "fused_exact.cu",
+        "fused_exact_bwd.cu", "fused_table.cu", "fused_table_bwd.cu"}
+    assert [p.name for p in build.headers()] == [
+        "cpb_exact.cuh", "fixed_order_sum.cuh", "fused_attention_bwd.cuh",
+        "fused_table.cuh"]
     (tmp_path / "fixed_order_sum.cuh").write_text("// edited\n")
     second = build.library_dir()
     assert second != first

@@ -35,7 +35,14 @@ to their plain version; K5-bwd 1e-5 norm-relative of float64.  K6 (the
 fused table attention) against its plain version: attn 1e-6, out 1e-5 abs
 (the products and the softmax summed in another order); K6-bwd against
 float64: dq, dk, dv 2e-5 norm-relative, dtable and dfracs 1e-4 or twice
-the f32 plain version's own error.
+the f32 plain version's own error.  K2-nk (the exact CPB in the "nk"
+layout) bitwise equal to K2 transposed and within K2's 1e-4 of its plain
+version; K2-nk-bwd as K2-bwd (1e-3 of float64) and bitwise equal to K2-bwd
+on the transposed cotangent.  K7 (the fused exact-CPB attention) within
+1e-4 of its plain version in both layouts, the layouts bitwise equal;
+K7-bwd against float64: dq, dk, dv 2e-5, grid_kv and the weights 1e-3
+(past one chunk of 160 kv points, 1e-3 or twice the f32 plain version's
+own error).
 deformpathomic on the card against the CPU: as the teacher (logits 1e-4,
 task loss 1e-5, loss 5e-4 with the vgrid loss, gradients 5e-3).
 """
@@ -55,7 +62,7 @@ from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
 from disentangled_multimodal_learning_tpu_torch.models.factory import (
     define_net, init_weights)
 from disentangled_multimodal_learning_tpu_torch.ops import (
-    cluster, cpb, cpb1d, dpc_knn, fused_table)
+    cluster, cpb, cpb1d, dpc_knn, fused_exact, fused_table)
 from disentangled_multimodal_learning_tpu_torch.train.optim import make_optimizer
 from disentangled_multimodal_learning_tpu_torch.train.steps import (
     batch_to_tensors, make_train_step)
@@ -887,3 +894,198 @@ def test_bf16_table_store_on_the_card_only(dev):
                                           torch.zeros(4, 11, 11, device=dev),
                                           12, 2)
     assert _k56_launches() == before
+
+
+def _exact_launches():
+    """K2 (kn) and K2-nk forward and backward, K7 forward and backward."""
+    return (cpb.cpb_bias_transposed.launches, cpb.cpb_bias_nk.launches,
+            cpb.cpb_bias_transposed_backward.launches,
+            cpb.cpb_bias_nk_backward.launches,
+            fused_exact.fused_exact_attention.launches,
+            fused_exact.fused_exact_attention_backward.launches)
+
+
+def _delta(before):
+    return tuple(a - b for a, b in zip(_exact_launches(), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,o", [(12, 1), (50, 1), (50, 2)])
+def test_exact_nk_kernel_is_the_kn_kernel_transposed(dev, side, o):
+    """K2-nk (the exact CPB written query-major) is K2 transposed, bitwise
+    (both evaluate a point with the same code), and within 1e-4 of its
+    plain version; one launch each."""
+    rng = np.random.default_rng(300 * side + o)
+    grid_q = normalized_grid(side, side, dev).reshape(side * side, 2)
+    gkv = _uniform(rng, 1.5, (6, 9, 2), dev)
+    w = _mlp(rng, o, dev)
+    before = _exact_launches()
+    with torch.inference_mode():
+        nk = cpb.cpb_bias_nk(grid_q, gkv, *w)
+        kn = cpb.cpb_bias_transposed(grid_q, gkv, *w)
+    assert _delta(before) == (1, 1, 0, 0, 0, 0)
+    assert torch.equal(nk, kn.transpose(-1, -2))
+    want = cpb.cpb_bias_nk_reference(grid_q, gkv, *w)
+    assert nk.shape == want.shape
+    assert (nk - want).abs().max().item() <= K2_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,o", [(12, 1), (50, 2)])
+def test_exact_nk_backward_kernel_matches_float64(dev, side, o):
+    """K2-nk-bwd (the cotangent read query-major) against its plain version
+    in float64 within 1e-3 norm-relative, bitwise equal over two calls and
+    to K2-bwd on the transposed cotangent."""
+    rng = np.random.default_rng(400 * side + o)
+    grid_q = normalized_grid(side, side, dev).reshape(side * side, 2)
+    gkv = _uniform(rng, 1.5, (8, 40, 2), dev)
+    w = _mlp(rng, o, dev)
+    shape = (8, side * side, 40) if o == 1 else (8, o, side * side, 40)
+    dbias = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    before = _exact_launches()
+    got = [cpb.cpb_bias_nk_backward(grid_q, gkv, *w, dbias) for _ in range(2)]
+    kn = cpb.cpb_bias_transposed_backward(
+        grid_q, gkv, *w, dbias.transpose(-1, -2).contiguous())
+    assert _delta(before) == (0, 0, 1, 2, 0, 0)
+    want = cpb.cpb_bias_nk_backward_reference(
+        grid_q.double(), gkv.double(), *(t.double() for t in w),
+        dbias.double())
+    for a, b, c, ww in zip(*got, kn, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert a.shape == ww.shape and _rel(a, ww) <= K2_BWD_TOL
+
+
+def _exact_attention_case(rng, dev, bh=4, k=144, side=50, d=64):
+    """The teacher's per-head shapes (K = 144, N = 2500, D = 64), ``bh`` of
+    its 32 batch-heads, kv points anywhere within the tanh bound."""
+    n = side * side
+
+    def rnd(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    return dict(q=rnd(bh, n, d, scale=d ** -0.5), k=rnd(bh, k, d),
+                v=rnd(bh, k, d),
+                grid_q=normalized_grid(side, side, dev).reshape(n, 2),
+                gkv=_uniform(rng, cpb.kv_bound_2d(4.0, 12, 12), (bh, k, 2),
+                             dev),
+                w=_mlp(rng, 1, dev), g_out=rnd(bh, n, d), g_attn=rnd(bh, n, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_exact_kernel_matches_plain_version(dev, rate):
+    """K7-fwd in both layouts against its plain version with the same
+    dropout mask: out and attn within 1e-4 (K2's bias tolerance); "nk" and
+    "kn" give the same out and the transposed map, bitwise; one launch
+    each, no K2."""
+    c = _exact_attention_case(np.random.default_rng(50), dev)
+    args = (c["q"], c["k"], c["v"], c["grid_q"], c["gkv"], *c["w"])
+    before = _exact_launches()
+    with torch.inference_mode():
+        got = {lay: fused_exact.fused_exact_attention(*args, 11, rate, lay)
+               for lay in ("nk", "kn")}
+    assert _delta(before) == (0, 0, 0, 0, 2, 0)
+    assert torch.equal(got["nk"][0], got["kn"][0])
+    assert torch.equal(got["nk"][1], got["kn"][1].transpose(1, 2))
+    for lay, (out, attn) in got.items():
+        want_out, want_attn = fused_exact.fused_exact_attention_reference(
+            *args, 11, rate, lay)
+        assert (attn - want_attn).abs().max().item() <= K2_TOL, lay
+        assert (out - want_out).abs().max().item() <= K2_TOL, lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nk", "kn"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_exact_backward_kernel_matches_float64(dev, layout, rate):
+    """K7-bwd (with the map's own cotangent) against the plain version's
+    autograd in float64, norm-relative: dq, dk, dv within 2e-5, grid_kv and
+    the CPB weights within 1e-3 (K2-bwd's tolerance), the CPB output bias,
+    whose gradient is 0 in exact arithmetic (the softmax ignores a shift),
+    below 1e-5 of its weight's; bitwise equal over two calls; one K7-bwd
+    launch each, no K2-bwd count (its kernels run inside K7-bwd)."""
+    c = _exact_attention_case(np.random.default_rng(51), dev)
+    args = (c["q"], c["k"], c["v"], c["grid_q"], c["gkv"], *c["w"])
+    g_attn = c["g_attn"] if layout == "nk" else c["g_attn"].transpose(
+        1, 2).contiguous()
+    with torch.inference_mode():
+        _, attn = fused_exact.fused_exact_attention(*args, 5, rate, layout)
+    before = _exact_launches()
+    got = [fused_exact.fused_exact_attention_backward(
+        *args, attn, c["g_out"], g_attn, 5, rate, layout) for _ in range(2)]
+    assert _delta(before) == (0, 0, 0, 0, 0, 2)
+    want = fused_exact.fused_exact_attention_backward_reference(
+        *(a.double() for a in args), c["g_out"].double(), g_attn.double(), 5,
+        rate, layout)
+    errs = [_rel(g1, w64) for g1, w64 in zip(got[0], want)]
+    assert all(torch.equal(g1, g2) for g1, g2 in zip(*got))
+    assert all(e <= (K6_BWD_TOL if i < 3 else K2_BWD_TOL)
+               for i, e in enumerate(errs[:9])), errs
+    assert got[0][9].abs().max() <= 1e-5 * got[0][8].abs().max(), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d", [(161, 64), (300, 32), (625, 16)])
+def test_fused_exact_kernels_take_any_k(dev, k, d):
+    """K7 past one chunk of 160 kv points (a chunk of one row; 300; the 1-D
+    attention's 625 at its head width 16), dropout 0.1, 16 batch-heads so
+    that a backward block walks more than one query tile: forward as
+    ``test_fused_exact_kernel_matches_plain_version``; backward against
+    float64: dq, dk, dv within 2e-5, grid_kv and the weights within 1e-3
+    or twice the f32 plain version's own error (the softmax's ds sums to 0
+    per query, so the weight sums cancel), the CPB output bias below 1e-4
+    of its weight's; bitwise equal over two calls."""
+    c = _exact_attention_case(np.random.default_rng(53 + k), dev, bh=16,
+                              k=k, side=24, d=d)
+    args = (c["q"], c["k"], c["v"], c["grid_q"], c["gkv"], *c["w"])
+    with torch.inference_mode():
+        got = {lay: fused_exact.fused_exact_attention(*args, 9, 0.1, lay)
+               for lay in ("nk", "kn")}
+    assert torch.equal(got["nk"][0], got["kn"][0])
+    assert torch.equal(got["nk"][1], got["kn"][1].transpose(1, 2))
+    want_out, want_attn = fused_exact.fused_exact_attention_reference(
+        *args, 9, 0.1)
+    assert (got["nk"][1] - want_attn).abs().max().item() <= K2_TOL
+    assert (got["nk"][0] - want_out).abs().max().item() <= K2_TOL
+    for lay in ("nk", "kn"):
+        g_attn = c["g_attn"] if lay == "nk" else c["g_attn"].transpose(
+            1, 2).contiguous()
+        bwd = [fused_exact.fused_exact_attention_backward(
+            *args, got[lay][1], c["g_out"], g_attn, 9, 0.1, lay)
+            for _ in range(2)]
+        want = fused_exact.fused_exact_attention_backward_reference(
+            *(a.double() for a in args), c["g_out"].double(),
+            g_attn.double(), 9, 0.1, lay)
+        plain = fused_exact.fused_exact_attention_backward_reference(
+            *args, c["g_out"], g_attn, 9, 0.1, lay)
+        assert all(torch.equal(g1, g2) for g1, g2 in zip(*bwd))
+        for i in range(9):
+            tol = K6_BWD_TOL if i < 3 else max(K2_BWD_TOL,
+                                               2 * _rel(plain[i], want[i]))
+            assert _rel(bwd[0][i], want[i]) <= tol, (lay, i)
+        assert bwd[0][9].abs().max() <= 1e-4 * bwd[0][8].abs().max(), lay
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_raise_where_the_kernels_cannot_build(dev, monkeypatch,
+                                                          tmp_path):
+    """With no kernel library and no ``nvcc`` to build one, K2-nk and K7 on
+    CUDA tensors raise instead of running their plain versions."""
+    from disentangled_multimodal_learning_tpu_torch.ops import build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    c = _exact_attention_case(np.random.default_rng(52), dev, bh=1, k=4,
+                              side=8, d=8)
+    before = _exact_launches()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cpb.cpb_bias_nk(c["grid_q"], c["gkv"], *c["w"])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fused_exact.fused_exact_attention(c["q"], c["k"], c["v"], c["grid_q"],
+                                          c["gkv"], *c["w"])
+    assert _exact_launches() == before

@@ -11,6 +11,7 @@ Tolerances (f32): 1e-4 abs on whole-model logits and features, 1e-5 on
 attention maps.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -182,9 +183,9 @@ def test_inference_refuses_real_data_until_ported():
 
 
 def test_define_net_refuses_unported_modes():
-    for mode, slice_name in [("distillation", "multiscale slice"),
-                             ("multiscale", "multiscale slice"),
-                             ("mcat", "baselines slice")]:
+    for mode, slice_name in [("distillation", "comes with distillation"),
+                             ("multiscale", "the multiscale models"),
+                             ("mcat", "comes with the baselines")]:
         with pytest.raises(NotImplementedError, match=slice_name):
             define_net(Config(mode=mode), "cpu")
 
@@ -237,6 +238,53 @@ def test_yaml_includes_win_as_in_jax(tmp_path):
     assert yaml_config_hook(str(top)) == jconfig.yaml_config_hook(str(top))
     cfg = Config.from_yaml(str(top))
     assert (cfg.fixdim, cfg.seed, cfg.batch_size) == (400, 3, 8)
+
+
+@pytest.mark.parametrize("preset", sorted(
+    p.name for p in (REPO / "config").glob("*.yaml")))
+def test_every_yaml_preset_loads(preset):
+    """Every YAML under ``config/`` loads: each of its keys is a port field,
+    a key the port ignores on purpose, or a key ported later that it leaves
+    at JAX's default (``config_synthetic_smoke.yaml``'s ``debug: true``
+    is logging only)."""
+    cfg = Config.from_yaml(str(REPO / "config" / preset)).validate()
+    want = jconfig.Config.from_yaml(str(REPO / "config" / preset))
+    for f in dataclasses.fields(Config):
+        assert getattr(cfg, f.name) == getattr(want, f.name), f.name
+
+
+def test_config_refuses_later_and_unknown_keys():
+    """A key ported later, set to anything but JAX's default, raises
+    ``NotImplementedError`` naming what brings it; at its default it loads;
+    a key that neither the port nor the JAX ``Config`` knows raises
+    ``ValueError`` (JAX would keep it in ``cfg._extra``, where its
+    ``define_net`` may read it)."""
+    with pytest.raises(NotImplementedError, match="comes with the baselines"):
+        Config.from_dict({"init_type": "xavier"})
+    with pytest.raises(NotImplementedError, match="distillation"):
+        Config.from_dict({"temperature": 4.0})
+    with pytest.raises(NotImplementedError, match="checkpoints, resume"):
+        Config.from_dict({"resume": True})
+    with pytest.raises(ValueError, match="unknown config key 'fixdimm'"):
+        Config.from_dict({"fixdimm": 64})
+    cfg = Config.from_dict({"init_type": "max", "debug": True, "remat": False,
+                            "image_size": [224, 224], "fixdim": 64})
+    assert cfg.fixdim == 64
+
+
+def test_every_jax_config_field_is_ported_or_in_one_table():
+    """Each field of the JAX ``Config`` is a field of the port's, or sits in
+    exactly one of its tables; each LATER entry holds JAX's default."""
+    from disentangled_multimodal_learning_tpu_torch import config as tconfig
+
+    port = {f.name for f in dataclasses.fields(Config)}
+    jax_fields = {f.name: f for f in dataclasses.fields(jconfig.Config)}
+    for name, f in jax_fields.items():
+        where = [name in port, name in tconfig.IGNORED, name in tconfig.LATER]
+        assert sum(where) == 1, (name, where)
+        if name in tconfig.LATER:
+            assert tconfig.LATER[name][0] == f.default, name
+    assert set(tconfig.IGNORED) | set(tconfig.LATER) <= set(jax_fields)
 
 
 def test_synthetic_data_matches_jax():
