@@ -13,7 +13,9 @@ with ``return_vgrid``) with seeded random weights:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, run
-   together) and holds each forward kernel against its plain PyTorch
+   together), prints the ptxas figures of the K2 kernels' instances
+   (registers, spills, barriers) with the dynamic shared memory of a
+   block, and holds each forward kernel against its plain PyTorch
    version on the card at production shapes:
    K1 (table CPB, R=4608, side=50, tn=139, clipped rows included) within
    1e-5 abs, K2 (exact CPB, BH=32, K=144, N=2500, O=1 and O=2) within 1e-4
@@ -22,6 +24,8 @@ with ``return_vgrid``) with seeded random weights:
    versions in float64 on the card, norm-relative (``K1_BWD_TOL``,
    ``K2_BWD_TOL``, with the f32 plain version's own error printed beside
    the kernel's), and checks that two calls give bitwise-equal results;
+   then K2 and K2-bwd at an odd shape (BH 3 x K 7 x N 130, O=3) within
+   ``K2_TOL`` and ``K2_BWD_TOL``, bitwise over two calls;
 3. runs the inference entry at the preset (divisor 1, bf16 streams) over 3
    batches: K1 launches 4x per batch, K2 never, all logits finite;
 4. runs it for 1 batch at ``cpb_table_divisor=0``: K2 launches, K1 never;
@@ -44,7 +48,7 @@ with ``return_vgrid``) with seeded random weights:
 6b. times each backward kernel against the plain backward (autograd
    through the plain forward, its graph kept by ``retain_graph``), the
    train step (bags/s, median and p80 of 30 steps) at divisor 1 and 0, and
-   profiles one train step (device-busy share);
+   profiles its steps at divisor 0 and at the preset (device-busy share);
 2c. holds K3-knn and K3-parent (the streamed DPC-KNN passes) against their
    plain versions at B=4, N=2500, C=128, k=5 on LayerNormed random tokens
    and on bags whose second half repeats one vector of +-1 entries (its
@@ -110,7 +114,8 @@ with ``return_vgrid``) with seeded random weights:
    2500 x 144, O=1) and at the 1-D attention's (16 x 2501 x 625, O=2):
    bitwise equal to K2 transposed and within ``K2_TOL`` of its plain
    version; K2-nk-bwd against float64 within ``K2_BWD_TOL``, bitwise equal
-   over two calls and to K2-bwd on the transposed cotangent; K7 (the fused
+   over two calls and to K2-bwd on the transposed cotangent, and both at
+   phase 2b's odd shape the same way; K7 (the fused
    exact-CPB attention, q [32, 2500, 64], k and v [32, 144, 64]) in both
    layouts at dropout 0 and 0.1, and at the 1-D attention's K = 625 (q
    [16, 2501, 16], the kv points in four chunks) at dropout 0.1: out and
@@ -254,6 +259,10 @@ DEFORMPATHOMIC_F32 = ({"attn_dim": 1}, {"attn_dim": 1, "cpb_table_divisor": 0},
                       {"attn_dim": 2, "return_vgrid": True})
 PALLAS = "disentangled_multimodal_learning_tpu/ops/pallas/deform_attn.py"
 PALLAS_DPC = "disentangled_multimodal_learning_tpu/ops/pallas/dpc_knn.py"
+# kernels redesigned for the card after their port, by the PR that did it
+REDESIGNED = {name: "PR 7" for name in (
+    "cpb_exact_fwd (K2-fwd)", "cpb_exact_bwd (K2-bwd)",
+    "cpb_exact_nk_fwd (K2-nk-fwd)", "cpb_exact_nk_bwd (K2-nk-bwd)")}
 
 
 def card_line() -> str:
@@ -489,6 +498,87 @@ def check_backward_kernels(cpb, dev, card: str, bh: int = 32,
                 k2=dict(k2_inputs, err=k2_abs))
 
 
+def check_exact_odd(cpb, dev, card: str, nk: bool) -> float:
+    """Phases 2b ("kn") and 2f ("nk"): K2 at an odd shape, BH 3 x K 7 x N
+    130 with O = 3 (N not a multiple of the backward's 128-point tile nor
+    of the forward's 512-element block, O on the kernels' general path):
+    the forward within ``K2_TOL`` of its plain version, the backward
+    against float64 within ``K2_BWD_TOL`` and bitwise equal over two
+    calls.  Returns the backward's largest absolute error."""
+    import torch
+
+    gen = torch.Generator().manual_seed(9 + nk)
+    BH, K, N, O = 3, 7, 130, 3
+    grid_q = (torch.rand(N, 2, generator=gen) * 2 - 1).to(dev)
+    gkv = (torch.rand(BH, K, 2, generator=gen) * 3 - 1.5).to(dev)
+    w = mlp_weights(O, gen, dev)
+    fwd, bwd = ((cpb.cpb_bias_nk, cpb.cpb_bias_nk_backward) if nk else
+                (cpb.cpb_bias_transposed, cpb.cpb_bias_transposed_backward))
+    ref, bref = ((cpb.cpb_bias_nk_reference,
+                  cpb.cpb_bias_nk_backward_reference) if nk else
+                 (cpb.cpb_bias_transposed_reference,
+                  cpb.cpb_bias_transposed_backward_reference))
+    with torch.inference_mode():
+        got = fwd(grid_q, gkv, *w)
+        err = (got - ref(grid_q, gkv, *w)).abs().max().item()
+    dbias = torch.randn(got.shape, generator=gen).to(dev)
+    g = [bwd(grid_q, gkv, *w, dbias) for _ in range(2)]
+    torch.cuda.synchronize()
+    det = all(torch.equal(a, b) for a, b in zip(*g))
+    want = bref(grid_q.double(), gkv.double(), *(t.double() for t in w),
+                dbias.double())
+    names = ("dgrid_kv", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, g[0], want)}
+    abs_err = max((a.double() - b).abs().max().item()
+                  for a, b in zip(g[0], want))
+    label = "K2-nk" if nk else "K2"
+    print(f"[{label}] odd shape BH={BH} K={K} N={N} O={O}: fwd max_abs_err "
+          f"{err:.3e} (tol {K2_TOL}); bwd rel err vs f64 " + ", ".join(
+              f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (tol {K2_BWD_TOL['dw']}); deterministic {det} | {card}")
+    if not err <= K2_TOL or not det or not all(
+            e <= K2_BWD_TOL["dgrid_kv" if n == "dgrid_kv" else "dw"]
+            for n, e in errs.items()):
+        raise RuntimeError(f"{label} disagrees with its plain version at "
+                           "the odd shape, or is not deterministic")
+    return abs_err
+
+
+def k2_ptxas(log: str, lib) -> list[str]:
+    """The ptxas figures of the K2 kernels' instances in the build log
+    (registers, spill stores and loads, barriers) and the dynamic shared
+    memory a block of each takes (the forward's at K = 144)."""
+    import re
+
+    lines, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            fwd = re.search(r"cpb_exact_fwd_kernelILb(\d)E", m.group(1))
+            bwd = re.search(r"cpb_exact_bwd_partial_kernelILi(\d+)E",
+                            m.group(1))
+            if fwd:
+                layout = "nk" if fwd.group(1) == "1" else "kn"
+                name = f"cpb_exact_fwd_kernel<{layout}>"
+                smem = {x: lib.dmlt_cpb_exact_fwd_smem(144, x) for x in (1, 2)}
+            elif bwd:
+                o = int(bwd.group(1))
+                name = f"cpb_exact_bwd_partial_kernel<O={o or 'any'}>"
+                smem = {x: lib.dmlt_cpb_exact_bwd_smem(x)
+                        for x in ((o,) if o else (3, 64))}
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            regs = line.split("ptxas info    :")[-1].strip()
+            lines.append(f"{name}: {regs}; {spills}; dynamic shared memory "
+                         + ", ".join(f"{b} B at O={o}"
+                                     for o, b in smem.items()))
+            name = None
+    return lines
+
+
 def normalized_grid_flat(side: int, dev):
     from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
         normalized_grid)
@@ -526,6 +616,8 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "ptxas info" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    for line in k2_ptxas(build.build_log(), build.kernels()):
+        print(f"[K2 ptxas] {line}")
 
     gen = torch.Generator().manual_seed(0)
     side, B, H, K = 50, 4, 8, 144
@@ -570,6 +662,8 @@ def main() -> int:
 
     # ---- phase 2b: the backward kernels against float64 ------------------
     bwd = check_backward_kernels(cpb, dev, card)
+    bwd["k2"]["err"] = max(bwd["k2"]["err"], check_exact_odd(cpb, dev, card,
+                                                             nk=False))
     torch.cuda.empty_cache()
 
     # ---- phase 2c: K3 against its plain versions, the assignment exactly -
@@ -822,6 +916,8 @@ def main() -> int:
 
     # ---- phase 2f: K2-nk and K7 against plain versions and float64 ------
     nk = check_nk_kernels(dev, card)
+    nk["bwd_err"] = max(nk["bwd_err"], check_exact_odd(cpb, dev, card,
+                                                       nk=True))
     torch.cuda.empty_cache()
 
     # ---- phase 3f: the "nk" layout's paths, and K7's entry --------------
@@ -974,10 +1070,14 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5, k6,
          f"{PALLAS}:125", launches["k7"]["k7_bwd"], errs["k7_bwd"],
          nk_ms["nk"]["bwd"][0], nk_ms["nk"]["bwd"][1]),
     ]
-    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+    line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": plain,
              "bound_ms": bms, "bound_by": by, "library_ms": None}
             for name, src, rep, nl, err, (ms, plain), (bms, by) in rows]
+    for entry in line:
+        if entry["name"] in REDESIGNED:
+            entry["redesigned"] = REDESIGNED[entry["name"]]
+    return line
 
 
 def check_dpc_kernels(dev, card: str) -> dict:
@@ -1213,7 +1313,8 @@ def time_train_steps(configs, batch, dev, card: str, n: int = 30) -> None:
     """Phases 6b and 6c: train bags/s of each config (the teacher at the
     preset, at divisor 0 and at the preset again; the student at the
     preset): CUDA events around each of ``n`` steps on a resident batch,
-    after 3 warm-up steps; then the profiler over one step of the last."""
+    after 3 warm-up steps; the profiler over the steps of each config at
+    the exact CPB (divisor 0), and then over those of the last."""
     from disentangled_multimodal_learning_tpu_torch.models.factory import (
         define_net)
     from disentangled_multimodal_learning_tpu_torch.train.optim import (
@@ -1231,6 +1332,8 @@ def time_train_steps(configs, batch, dev, card: str, n: int = 30) -> None:
         print(f"[time] train step B=4 fixdim=2500 {setting(c)}: median {med:.3f} ms = {4000.0 / med:.1f} train bags/s, p80 "
               f"{p80:.3f} ms = {4000.0 / p80:.1f} bags/s ({n} steps) "
               f"| {card}")
+        if c.cpb_table_divisor == 0 and c is not configs[-1]:
+            profile(f"train step ({setting(c)})", lambda: step(x), n=3)
     profile(f"train step ({setting(configs[-1])})", lambda: step(x), n=3)
 
 

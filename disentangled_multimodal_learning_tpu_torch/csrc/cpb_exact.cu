@@ -14,25 +14,32 @@
 // cpb_exact.cuh at p = grid_q[n] - grid_kv[r], written to
 //     "kn": bias[bh, o, k, n]  ([BH, K, N] when O == 1)
 //     "nk": bias[bh, o, n, k]  ([BH, N, K] when O == 1)
-// the layout each attention consumes with no transpose.  Both kernels
-// evaluate a point with the same code (mlp_hidden, mlp_out), so the "nk"
-// bias is the "kn" bias transposed, bitwise.
+// the layout each attention consumes with no transpose.  Both layouts
+// evaluate a point with the same code (mlp_hidden_rows, mlp_out_rows), so
+// the "nk" bias is the "kn" bias transposed, bitwise.
 //
 // What bounds it on the card: f32 arithmetic.  At production shapes
 // (BH = 32, K = 144, N = 2500) a call evaluates the MLP at 11.5 M
-// positions, ~2.3 k flops each (26 GFLOP counted from the shapes), and
-// writes only 11.5 M f32 values.
+// positions, ~2.3 k flops each (26 GFLOP counted from the shapes, 0.39 ms
+// at 67 TFLOP/s), and writes only 11.5 M f32 values.  With one point per
+// thread, each fmaf of the HID x HID product takes a w2 element from
+// shared memory: even as float4 broadcasts one load per 4 fmafs, and on
+// Hopper the shared-memory pipe issues about a quarter of the fmaf rate,
+// so the loads co-limit the kernel near half the f32 peak.
 //
-// What the design does about that: the MLP weights (1,217 f32 at O = 1) sit
-// in shared memory, read as warp broadcasts; each thread evaluates whole
-// positions with h1 and h2 (HID = 32 each) in registers, so no hidden
-// activation ever leaves the SM (the plain version writes [.., HID] twice).
-// "kn": one block per kv row loads the row's coordinate once and writes n
-// contiguously.  "nk": one block per (bh, chunk of the [N, K] plane) keeps
-// the bh's K kv coordinates in shared memory; a thread takes plane elements
-// e = n * K + k, so that k is the fast index within a warp and the stores
-// are contiguous (a flag on the row-per-block kernel would write with
-// stride K).
+// What the design does about that: the MLP weights (1,185 f32 at O = 1)
+// sit in shared memory, read as warp broadcasts; each thread evaluates
+// kPoints = 4 positions together (mlp_hidden_rows, mlp_out_rows), so that
+// each float4 of w2 feeds 16 fmafs, with h2 of its four points (128 f32)
+// in registers and h1 formed one entry at a time; no hidden activation
+// ever leaves the SM (the plain version writes [.., HID] twice).  Each
+// point keeps the fmaf chain of the single-point functions, so K7's bias
+// (which uses those) and both layouts here round the same.  One kernel,
+// templated on the layout: a block takes a chunk of kThreads * kPoints
+// elements e of one bh's plane, [K, N] ("kn", e = k * N + n) or [N, K]
+// ("nk", e = n * K + k), with the bh's K kv coordinates in shared memory;
+// a thread takes e = e0 + t + s * kThreads, so the fast index of a warp
+// (n in "kn", k in "nk") is the one the stores are contiguous along.
 
 #include <cuda_runtime.h>
 
@@ -40,9 +47,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kNkPerThread = 4;  // "nk": plane elements per thread
+constexpr int kThreads = 128;
+constexpr int kPoints = 4;  // positions per thread
+constexpr int kPerBlock = kThreads * kPoints;
 
+template <bool kNk>
 __global__ void __launch_bounds__(kThreads)
 cpb_exact_fwd_kernel(const float* __restrict__ grid_q,
                      const float* __restrict__ grid_kv,
@@ -52,67 +61,62 @@ cpb_exact_fwd_kernel(const float* __restrict__ grid_q,
                      float* __restrict__ out, int K, int N, int O) {
   extern __shared__ __align__(16) float smem[];
   const Mlp m = load_mlp(smem, w1, b1, w2, b2, w3, b3, O);
-  __syncthreads();
-
-  const int r = blockIdx.x;
-  const int bh = r / K;
-  const int k = r - bh * K;
-  const float kx = grid_kv[2 * r];
-  const float ky = grid_kv[2 * r + 1];
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float fx = signed_log1p(grid_q[2 * n] - kx);
-    const float fy = signed_log1p(grid_q[2 * n + 1] - ky);
-    float h1[kHid];
-    float h2[kHid];
-    mlp_hidden(m, fx, fy, h1, h2);
-    for (int o = 0; o < O; ++o) {
-      out[(static_cast<size_t>(bh * O + o) * K + k) * N + n] = mlp_out(m, h2, o, O);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-cpb_exact_nk_fwd_kernel(const float* __restrict__ grid_q,
-                        const float* __restrict__ grid_kv,
-                        const float* __restrict__ w1,
-                        const float* __restrict__ b1,
-                        const float* __restrict__ w2,
-                        const float* __restrict__ b2,
-                        const float* __restrict__ w3,
-                        const float* __restrict__ b3, float* __restrict__ out,
-                        int K, int N, int O) {
-  extern __shared__ __align__(16) float smem[];
-  const Mlp m = load_mlp(smem, w1, b1, w2, b2, w3, b3, O);
   float* s_kv = smem + mlp_floats(O);  // [K, 2] of this bh
   const int bh = blockIdx.y;
-  for (int i = threadIdx.x; i < 2 * K; i += blockDim.x) {
+  for (int i = threadIdx.x; i < 2 * K; i += kThreads) {
     s_kv[i] = grid_kv[static_cast<size_t>(bh) * 2 * K + i];
   }
   __syncthreads();
 
   const int plane = N * K;
-  const int e0 = blockIdx.x * (kThreads * kNkPerThread);
-  const int e1 = min(plane, e0 + kThreads * kNkPerThread);
-  for (int e = e0 + threadIdx.x; e < e1; e += kThreads) {
-    const int n = e / K;
-    const int k = e - n * K;
-    const float fx = signed_log1p(grid_q[2 * n] - s_kv[2 * k]);
-    const float fy = signed_log1p(grid_q[2 * n + 1] - s_kv[2 * k + 1]);
-    float h1[kHid];
-    float h2[kHid];
-    mlp_hidden(m, fx, fy, h1, h2);
-    for (int o = 0; o < O; ++o) {
-      out[static_cast<size_t>(bh * O + o) * plane + e] = mlp_out(m, h2, o, O);
+  const int e0 = blockIdx.x * kPerBlock + threadIdx.x;
+  float fx[kPoints];
+  float fy[kPoints];
+#pragma unroll
+  for (int s = 0; s < kPoints; ++s) {
+    // past the plane's end: evaluate its last point, store nothing
+    const int e = min(e0 + s * kThreads, plane - 1);
+    const int a = e / (kNk ? K : N);
+    const int n = kNk ? a : e - a * N;
+    const int k = kNk ? e - a * K : a;
+    fx[s] = signed_log1p(grid_q[2 * n] - s_kv[2 * k]);
+    fy[s] = signed_log1p(grid_q[2 * n + 1] - s_kv[2 * k + 1]);
+  }
+  float h2[kPoints][kHid];
+  mlp_hidden_rows<kPoints>(m, fx, fy, h2);
+  for (int o = 0; o < O; ++o) {
+    float v[kPoints];
+    mlp_out_rows<kPoints>(m, h2, o, O, v);
+    float* dst = out + static_cast<size_t>(bh * O + o) * plane;
+#pragma unroll
+    for (int s = 0; s < kPoints; ++s) {
+      const int e = e0 + s * kThreads;
+      if (e < plane) dst[e] = v[s];
     }
   }
+}
+
+template <bool kNk>
+int launch(const float* const* a, float* out, int rows, int K, int N, int O,
+           cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(mlp_floats(O) + 2 * K) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      cpb_exact_fwd_kernel<kNk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N * K + kPerBlock - 1) / kPerBlock, rows / K);
+  cpb_exact_fwd_kernel<kNk><<<grid, kThreads, smem, s>>>(
+      a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], out, K, N, O);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // grid_q [N, 2], grid_kv [rows, 2] with rows = BH * K, w1 [2, 32], b1 [32],
 // w2 [32, 32], b2 [32], w3 [32, O], b3 [O], all f32 -> out [BH, O, K, N]
-// (nk = 0) or [BH, O, N, K] (nk = 1).  Needs N * K < 2^31.  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// (nk = 0) or [BH, O, N, K] (nk = 1).  Needs N * K + 512 < 2^31, BH <=
+// 65535 and 2 K + 1,152 + 33 O floats of shared memory (K up to ~27 k).
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int dmlt_cpb_exact_fwd(const void* grid_q, const void* grid_kv,
                                   const void* w1, const void* b1,
                                   const void* w2, const void* b2,
@@ -127,19 +131,13 @@ extern "C" int dmlt_cpb_exact_fwd(const void* grid_q, const void* grid_kv,
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(w3), static_cast<const float*>(b3)};
-  if (!nk) {
-    const size_t smem = static_cast<size_t>(mlp_floats(O)) * sizeof(float);
-    cpb_exact_fwd_kernel<<<rows, kThreads, smem, s>>>(
-        args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7],
-        static_cast<float*>(out), K, N, O);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = static_cast<size_t>(mlp_floats(O) + 2 * K) * sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = kThreads * kNkPerThread;
-  const dim3 grid((N * K + per_block - 1) / per_block, rows / K);
-  cpb_exact_nk_fwd_kernel<<<grid, kThreads, smem, s>>>(
-      args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7],
-      static_cast<float*>(out), K, N, O);
-  return static_cast<int>(cudaGetLastError());
+  float* o = static_cast<float*>(out);
+  return nk ? launch<true>(args, o, rows, K, N, O, s)
+            : launch<false>(args, o, rows, K, N, O, s);
+}
+
+// Bytes of dynamic shared memory a K2-fwd block takes at K kv points and O
+// output channels (what chip_smoke.py prints beside the ptxas figures).
+extern "C" int dmlt_cpb_exact_fwd_smem(int K, int O) {
+  return static_cast<int>((mlp_floats(O) + 2 * K) * sizeof(float));
 }

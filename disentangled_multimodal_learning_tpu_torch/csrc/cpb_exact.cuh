@@ -14,7 +14,10 @@
 // cores).
 //
 // The weights live in shared memory in one block (load_mlp below), read by
-// every thread of a warp at the same time (broadcasts).
+// every thread of a warp at the same time (broadcasts).  mlp_hidden_rows
+// and mlp_out_rows evaluate R points at once, so that each weight read from
+// shared memory feeds R fmafs; each point's chain of fmafs is that of
+// mlp_hidden / mlp_out, so the two give bitwise-equal results.
 //
 // Everything here has internal linkage: each source that includes it
 // compiles to its own object, and the objects link into one library.
@@ -104,6 +107,67 @@ __device__ __forceinline__ float mlp_out(const Mlp& m, const float (&h2)[kHid],
 #pragma unroll
   for (int j = 0; j < kHid; ++j) acc = fmaf(h2[j], m.w3[j * O + o], acc);
   return acc + m.b3[o];
+}
+
+// h2 of R points whose transformed offsets are (fx[r], fy[r]).  Point r
+// rounds exactly as mlp_hidden: h1[i] is formed by the same expression just
+// before its row of w2 is used, and h2[r][j] takes the fmafs over i in
+// order.  w2 is read as float4 broadcasts (m.w2 must be 16-byte aligned),
+// each feeding 4 R fmafs, and h1 never needs more than R registers.
+template <int R>
+__device__ __forceinline__ void mlp_hidden_rows(const Mlp& m,
+                                                const float (&fx)[R],
+                                                const float (&fy)[R],
+                                                float (&h2)[R][kHid]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < kHid; ++j) h2[r][j] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kHid; ++i) {
+    float h1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      h1[r] = fmaxf(fmaf(fx[r], m.w1[i], fy[r] * m.w1[kHid + i]) + m.b1[i],
+                    0.0f);
+    }
+#pragma unroll
+    for (int j = 0; j < kHid; j += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(m.w2 + i * kHid + j);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        h2[r][j] = fmaf(h1[r], w.x, h2[r][j]);
+        h2[r][j + 1] = fmaf(h1[r], w.y, h2[r][j + 1]);
+        h2[r][j + 2] = fmaf(h1[r], w.z, h2[r][j + 2]);
+        h2[r][j + 3] = fmaf(h1[r], w.w, h2[r][j + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kHid; ++j) {
+    const float b = m.b2[j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) h2[r][j] = fmaxf(h2[r][j] + b, 0.0f);
+  }
+}
+
+// output channel o of O for R points, each rounded as mlp_out
+template <int R>
+__device__ __forceinline__ void mlp_out_rows(const Mlp& m,
+                                             const float (&h2)[R][kHid],
+                                             int o, int O, float (&out)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kHid; ++j) {
+    const float w = m.w3[j * O + o];
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] = fmaf(h2[r][j], w, out[r]);
+  }
+  const float b = m.b3[o];
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = out[r] + b;
 }
 
 }  // namespace

@@ -54,6 +54,8 @@ SIGNATURES = {
                            _I, _P),
     "dmlt_cpb_exact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _P),
+    "dmlt_cpb_exact_fwd_smem": (_I, _I),
+    "dmlt_cpb_exact_bwd_smem": (_I,),
     "dmlt_fused_exact_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dmlt_fused_exact_fwd_smem": (_I, _I),

@@ -29,7 +29,7 @@ weights in the JAX layout (``w1 [2, 32]``, ``w2 [32, 32]``, ``w3 [32, O]``):
 
 The "nk" attention layout takes the exact CPB query-major, ``[BH, N, K]``
 (``[BH, O, N, K]``): :func:`cpb_bias_nk`, kernel K2-nk, the same sources
-with a layout flag (a sibling forward kernel that stores along k; the
+with a layout flag (the forward kernel's "nk" instance stores along k; the
 backward reads its cotangent in that layout).  It is the counterpart of
 JAX's four TPU layouts of that function, each at its grid entry: v1
 ``cpb_bias_from_grids`` (:810, ``_cpb_wide_*`` :640/:668, what JAX's "nk"
@@ -67,10 +67,13 @@ MAX_OUT_CHANNELS = 64  # K2 keeps w3 [HID, O] in shared memory
 # order by csrc/fixed_order_sum.cuh; fixed counts, so the sum order and the
 # result are fixed).  The table kernels, K1-bwd and K4-bwd (ops/cpb1d.py):
 # two 108 KB (K4: 80 KB) blocks per SM on the H100's 132 SMs (K1-bwd 0.196
-# ms at production shapes, against 0.345 ms with 128 blocks); K2-bwd: its
-# 255-register, 128-thread blocks also fit two per SM
+# ms at production shapes, against 0.345 ms with 128 blocks)
 TABLE_BWD_PARTS = 264
-EXACT_BWD_PARTS = 256
+# K2-bwd: 128-thread blocks of 72-73 KB at O <= 2, three per SM (396 on the
+# H100's 132 SMs); each takes ceil(rows / 396) whole kv rows
+# (exact_bwd_parts), a function of the shapes alone, so that the partials
+# and the order of their sum are fixed
+EXACT_BWD_BLOCKS = 396
 # K5-bwd: one block per 16 x 32 tile of a phase of the table and group of
 # rows; the rows split into enough groups (at most 8) for about 8 blocks per
 # SM (1056 on the H100's 132 SMs), a function of the shapes alone, so that
@@ -466,7 +469,7 @@ def _exact_backward(name, args, dbias, nk: bool):
     else:
         from .build import check, kernels
 
-        nparts = min(BH * K, EXACT_BWD_PARTS)
+        nparts = exact_bwd_parts(BH * K)
         partial = torch.empty((nparts, n_params), dtype=torch.float32,
                               device=grid_q.device)
         err = kernels().dmlt_cpb_exact_bwd(
@@ -477,6 +480,14 @@ def _exact_backward(name, args, dbias, nk: bool):
     shapes = [(2, HID), (HID,), (HID, HID), (HID,), (HID, O), (O,)]
     pieces = torch.split(grads, [math.prod(sh) for sh in shapes])
     return (dgrid_kv, *(p.view(sh) for p, sh in zip(pieces, shapes)))
+
+
+def exact_bwd_parts(rows: int) -> int:
+    """K2-bwd's blocks (partial results) for ``rows`` kv rows: at most
+    ``EXACT_BWD_BLOCKS``, each with ``ceil(rows / EXACT_BWD_BLOCKS)`` rows
+    (the last one fewer)."""
+    per_block = -(-rows // EXACT_BWD_BLOCKS)
+    return -(-rows // per_block)
 
 
 def cpb_bias_transposed_backward(grid_q, grid_kv, w1, b1, w2, b2, w3, b3,
@@ -541,9 +552,10 @@ class _CpbExact(torch.autograd.Function):
                           device=grid_q.device)
         if out.numel() == 0:  # nothing to launch, so nothing to count
             return out
-        if nk and (N * K >= 2 ** 31 or BH > 65535):
+        if N * K >= 2 ** 31 - 512 or BH > 65535:
             raise ValueError(f"{name}: N * K = {N * K} and BH = {BH}; the "
-                             "kernel takes N * K < 2^31 and BH <= 65535")
+                             "kernel takes N * K < 2^31 - 512 and "
+                             "BH <= 65535")
         from .build import check, kernels
 
         err = kernels().dmlt_cpb_exact_fwd(

@@ -177,3 +177,25 @@ def test_kernel_build_key_follows_the_sources(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "cpb_table.cu").write_text("// edited\n")
     assert build.library_dir() not in (first, second)
+
+
+def test_every_bound_entry_point_is_defined_in_the_sources():
+    """Each C entry point that ``ops/build.py`` binds with ``ctypes`` is
+    defined with C linkage in ``csrc/*.cu`` (a missing one would fail only
+    when the library loads on the card)."""
+    text = "".join(src.read_text() for src in build.sources())
+    for name in build.SIGNATURES:
+        assert f'extern "C" int {name}(' in text, name
+
+
+@pytest.mark.parametrize("rows", [1, 21, 395, 396, 397, 4608, 10000])
+def test_exact_backward_partition_follows_the_row_count(rows):
+    """K2-bwd's blocks: at most ``EXACT_BWD_BLOCKS``, each taking
+    ``ceil(rows / parts)`` whole kv rows as the kernel does, none left
+    empty; a function of the row count alone, so the partial results and
+    the order of their sum are fixed (4608 and 10000 are the teacher's and
+    the 1-D attention's rows)."""
+    parts = cpb.exact_bwd_parts(rows)
+    per_block = -(-rows // parts)
+    assert 1 <= parts <= cpb.EXACT_BWD_BLOCKS
+    assert per_block * (parts - 1) < rows <= per_block * parts

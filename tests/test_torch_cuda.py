@@ -955,6 +955,66 @@ def test_exact_nk_backward_kernel_matches_float64(dev, side, o):
         assert a.shape == ww.shape and _rel(a, ww) <= K2_BWD_TOL
 
 
+# (BH, K, N, O) at the edges of the K2 kernels' tiling: N against the
+# backward's 128-point tile and the forward's 4 points a thread (N 1, 130,
+# 2501), one kv point (K 1), kv rows (1 x 397) that do not split evenly
+# over the backward's blocks, and O on every instance (1, 2, and the
+# general path at 3 and MAX_OUT_CHANNELS 64)
+_EXACT_EDGES = [(2, 3, 1, 1), (3, 7, 130, 3), (2, 5, 2501, 2),
+                (4, 1, 130, 1), (1, 397, 130, 2), (2, 3, 129, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,k,n,o", _EXACT_EDGES)
+def test_exact_kernels_at_the_tiling_edges(dev, bh, k, n, o):
+    """K2 and K2-nk at shapes that leave partial tiles: the forwards within
+    1e-4 of their plain versions, "nk" the "kn" bias transposed bitwise;
+    K2-bwd against float64 within 1e-3, K2-nk-bwd bitwise equal to it on
+    the transposed cotangent; one launch each."""
+    rng = np.random.default_rng(500 + 7 * bh + 11 * k + n + o)
+    grid_q = _uniform(rng, 1.0, (n, 2), dev)
+    gkv = _uniform(rng, 1.5, (bh, k, 2), dev)
+    w = _mlp(rng, o, dev)
+    before = _exact_launches()
+    with torch.inference_mode():
+        kn = cpb.cpb_bias_transposed(grid_q, gkv, *w)
+        nk = cpb.cpb_bias_nk(grid_q, gkv, *w)
+    want = cpb.cpb_bias_transposed_reference(grid_q, gkv, *w)
+    assert kn.shape == want.shape
+    assert (kn - want).abs().max().item() <= K2_TOL
+    assert torch.equal(nk, kn.transpose(-1, -2))
+    dbias = torch.from_numpy(
+        rng.normal(size=tuple(kn.shape)).astype(np.float32)).to(dev)
+    got = cpb.cpb_bias_transposed_backward(grid_q, gkv, *w, dbias)
+    got_nk = cpb.cpb_bias_nk_backward(grid_q, gkv, *w,
+                                      dbias.transpose(-1, -2).contiguous())
+    assert _delta(before) == (1, 1, 1, 1, 0, 0)
+    want = cpb.cpb_bias_transposed_backward_reference(
+        grid_q.double(), gkv.double(), *(t.double() for t in w),
+        dbias.double())
+    for a, b, ww in zip(got, got_nk, want):
+        assert torch.equal(a, b)
+        assert a.shape == ww.shape and _rel(a, ww) <= K2_BWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [False, True])
+def test_exact_backward_is_deterministic_at_an_odd_shape(dev, nk):
+    """K2-bwd and K2-nk-bwd at BH 3 x K 7 x N 130, O = 3: two calls on the
+    same inputs give bitwise-equal gradients (fixed-order sums, no
+    atomics)."""
+    rng = np.random.default_rng(600 + nk)
+    grid_q = _uniform(rng, 1.0, (130, 2), dev)
+    gkv = _uniform(rng, 1.5, (3, 7, 2), dev)
+    w = _mlp(rng, 3, dev)
+    shape = (3, 3, 130, 7) if nk else (3, 3, 7, 130)
+    dbias = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    bwd = (cpb.cpb_bias_nk_backward if nk
+           else cpb.cpb_bias_transposed_backward)
+    first, second = (bwd(grid_q, gkv, *w, dbias) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def _exact_attention_case(rng, dev, bh=4, k=144, side=50, d=64):
     """The teacher's per-head shapes (K = 144, N = 2500, D = 64), ``bh`` of
     its 32 batch-heads, kv points anywhere within the tanh bound."""
