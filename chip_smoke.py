@@ -15,8 +15,10 @@ with ``return_vgrid``) with seeded random weights:
 2. builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, run
    together), prints the ptxas figures of the K2 kernels' instances
    (registers, spills, barriers) with the dynamic shared memory of a
-   block, and holds each forward kernel against its plain PyTorch
-   version on the card at production shapes:
+   block, and those of the K6 kernels with their tensor-core (HMMA) and
+   f32 FMA (FFMA) instruction counts in the SASS, and holds each forward
+   kernel against its plain PyTorch version on the card at production
+   shapes:
    K1 (table CPB, R=4608, side=50, tn=139, clipped rows included) within
    1e-5 abs, K2 (exact CPB, BH=32, K=144, N=2500, O=1 and O=2) within 1e-4
    abs on a bias of O(1) (FMA contraction and another sum order);
@@ -93,7 +95,8 @@ with ``return_vgrid``) with seeded random weights:
    cotangent kept; K6-fwd (the fused table attention, BH=32, K=144,
    N=2500, D=64) against its plain version at dropout 0 and 0.1 with the
    same mask, and K6-bwd against the plain version's autograd in float64,
-   deterministic;
+   both also at an odd shape (BH 3, K 17, side 11, D 12) and bitwise
+   equal over two calls;
 3e. runs the teacher's serving entry (1 batch) and training entry (2
    steps and 1 eval batch) in the three opt-in settings of the preset:
    (a) ``fused_table_attention`` (K6-fwd 4 per forward, K6-bwd 4 per step,
@@ -152,7 +155,10 @@ teacher's shape, K7's in "nk" at dropout 0.1.
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its flops over 67
 TFLOP/s (f32 outside the tensor cores), counted from this run's inputs
-(H100 SXM data sheet); ``library_ms`` is null for all sixteen: no single
+(H100 SXM data sheet); for K6-fwd, K6-bwd and K7-bwd's attention part,
+whose products run on the tensor cores as 3xTF32, those products count
+three TF32 passes over 494.7 TFLOP/s (dense TF32) instead; ``library_ms``
+is null for all sixteen: no single
 PyTorch call computes any of their functions (K6 and K7 include the table
 windows or the CPB MLP, and a softmax over the kv axis, which
 ``scaled_dot_product_attention`` does not take as a bias it builds).
@@ -246,6 +252,7 @@ K6_BWD_TOL, K6_TABLE_BWD_TOL = 2e-5, 1e-4
 K7_DB3_FLOOR = 1e-4
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 F32_FLOPS_PER_MS = 67e9       # 67 TFLOP/s outside the tensor cores
+TF32_FLOPS_PER_MS = 494.7e9   # 494.7 TFLOP/s dense TF32 on the tensor cores
 CSRC = "disentangled_multimodal_learning_tpu_torch/csrc"
 TABLE_SRC = f"{CSRC}/cpb_table.cu"
 EXACT_SRC = f"{CSRC}/cpb_exact.cu"
@@ -259,10 +266,18 @@ DEFORMPATHOMIC_F32 = ({"attn_dim": 1}, {"attn_dim": 1, "cpb_table_divisor": 0},
                       {"attn_dim": 2, "return_vgrid": True})
 PALLAS = "disentangled_multimodal_learning_tpu/ops/pallas/deform_attn.py"
 PALLAS_DPC = "disentangled_multimodal_learning_tpu/ops/pallas/dpc_knn.py"
-# kernels redesigned for the card after their port, by the PR that did it
+# kernels redesigned for the card after their port: when, or into what
 REDESIGNED = {name: "PR 7" for name in (
     "cpb_exact_fwd (K2-fwd)", "cpb_exact_bwd (K2-bwd)",
     "cpb_exact_nk_fwd (K2-nk-fwd)", "cpb_exact_nk_bwd (K2-nk-bwd)")}
+REDESIGNED.update({name: "3xTF32 tensor-core products" for name in (
+    "fused_table_fwd (K6-fwd)", "fused_table_bwd (K6-bwd)",
+    "fused_exact_bwd (K7-bwd)")})
+# the K6 kernels (the resident attention backward serves K7-bwd too; the
+# earlier design's instances are fused_attention_bwd_kernel<...>), whose
+# ptxas and SASS figures phase 2 prints
+K6_KERNELS = ("fused_table_fwd_kernel", "fused_attention_bwd_resident_kernel",
+              "fused_attention_bwd_kernel")
 
 
 def card_line() -> str:
@@ -384,9 +399,13 @@ def expect(**per_key) -> dict:
     return {k: per_key.get(k, 0) for k in _wrappers()}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time of the card for the work: ``(ms, bound_by)``."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOPS_PER_MS
+def bound(nbytes: float, flops: float,
+          tc_flops: float = 0.0) -> tuple[float, str]:
+    """The least time of the card for the work: ``(ms, bound_by)``;
+    ``flops`` run on the CUDA cores in f32, ``tc_flops`` on the tensor
+    cores in TF32."""
+    t_bytes = nbytes / HBM_BYTES_PER_MS
+    t_ops = flops / F32_FLOPS_PER_MS + tc_flops / TF32_FLOPS_PER_MS
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -579,6 +598,56 @@ def k2_ptxas(log: str, lib) -> list[str]:
     return lines
 
 
+def kernel_ptxas(log: str, keys) -> list[str]:
+    """The ptxas figures (registers, barriers, spills) of each instance of
+    the kernels whose names hold one of ``keys``, in the build log."""
+    import re
+
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((key + ("<resident>" if "ILb1E" in m.group(1) else
+                                "<chunked>" if "ILb0E" in m.group(1) else "")
+                         for key in keys if key in m.group(1)), None)
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            lines.append(f"{name}: "
+                         f"{line.split('ptxas info    :')[-1].strip()}; "
+                         f"{spills}")
+            name = None
+    return lines
+
+
+def sass_counts(lib, keys) -> list[str]:
+    """Per instance of the kernels whose names hold one of ``keys`` in the
+    library ``lib``: its tensor-core (HMMA), f32 FMA (FFMA), spill store
+    (STL) and spill load (LDL) instructions, from ``cuobjdump -sass``."""
+    import re
+    from pathlib import Path
+
+    from disentangled_multimodal_learning_tpu_torch.ops import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    found = []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = next((k for k in keys if k in m.group(1)), None)
+            found.append([key, dict.fromkeys(("HMMA", "FFMA", "STL", "LDL"),
+                                             0)])
+        elif found and found[-1][0]:
+            op = re.search(r"\b(HMMA|FFMA|STL|LDL)\b", line)
+            if op:
+                found[-1][1][op.group(1)] += 1
+    return [f"{key}: " + ", ".join(f"{n} {op}" for op, n in ops.items())
+            for key, ops in found if key]
+
+
 def normalized_grid_flat(side: int, dev):
     from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
         normalized_grid)
@@ -618,6 +687,11 @@ def main() -> int:
             print(f"[build] {line.strip()}")
     for line in k2_ptxas(build.build_log(), build.kernels()):
         print(f"[K2 ptxas] {line}")
+    for line in kernel_ptxas(build.build_log(), K6_KERNELS):
+        print(f"[K6 ptxas] {line}")
+    for line in sass_counts(build.library_dir() / build.LIB_NAME,
+                            K6_KERNELS):
+        print(f"[K6 SASS] {line}")
 
     gen = torch.Generator().manual_seed(0)
     side, B, H, K = 50, 4, 8, 144
@@ -1008,19 +1082,21 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5, k6,
     k5_bound, k5b_bound = table_bounds(k5[4]["table"], k5[4]["taps"], side)
     # K6: q, k, v, the table, taps and fractions read, out and attn written
     # (forward); the backward also reads attn and both cotangents and
-    # writes dq, dk, dv, dtable and dfracs; 2 flops per multiply-add of the
-    # two (forward) or four (backward) BH x K x N x D products
+    # writes dq, dk, dv, dtable and dfracs; the two (forward) or four
+    # (backward) BH x K x N x D products on the tensor cores, 3 TF32 passes
+    # of 2 flops a multiply-add each
     bh, n6, d6 = k6["q"].shape
     kv6 = k6["k"].shape[1]
     small6 = 4 * (k6["table"].numel() + 4 * bh * kv6)
     qkv = 4 * (bh * n6 * d6 + 2 * bh * kv6 * d6)
     macs = bh * kv6 * n6 * d6
-    k6_bound = bound(qkv + small6 + 4 * (bh * n6 * d6 + bh * kv6 * n6),
-                     4 * macs)
+    k6_bound = bound(qkv + small6 + 4 * (bh * n6 * d6 + bh * kv6 * n6), 0,
+                     3 * 4 * macs)
     k6b_bound = bound(2 * qkv + small6 + 4 * (bh * n6 * d6
                                               + 2 * bh * kv6 * n6
                                               + k6["table"].numel()
-                                              + 2 * bh * kv6), 8 * macs)
+                                              + 2 * bh * kv6), 0,
+                      3 * 8 * macs)
     rows = [
         ("cpb_table_interp_fwd (K1-fwd)", TABLE_SRC, f"{PALLAS}:2158",
          launches["k1"]["k1_fwd"], errs["k1"], times["k1"], k1_bound),
@@ -1819,67 +1895,82 @@ def check_fused_kernels(dev, card: str) -> dict:
     ``K6_OUT_TOL`` abs; K6-bwd (with the map's own cotangent) against the
     plain version's autograd in float64, norm-relative: dq, dk, dv within
     ``K6_BWD_TOL``, dtable and dfracs within ``K6_TABLE_BWD_TOL`` or twice
-    the f32 plain version's own error, whichever is larger; bitwise equal
-    over two calls.  Returns the inputs (for the timings) and the errors."""
+    the f32 plain version's own error, whichever is larger; both bitwise
+    equal over two calls.  At the teacher's shape, then at an odd one (BH
+    3, K 17, side 11, D 12: K, D and the query tail off every tile edge).
+    Returns the inputs at the teacher's shape (for the timings) and the
+    errors."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.ops import cpb, fused_table
 
     gen = torch.Generator().manual_seed(7)
-    c = fused_case(dev, gen)
-    q, k, v, table, shifts, side = (c[n] for n in ("q", "k", "v", "table",
-                                                   "shifts", "side"))
-    taps, fracs = cpb.table_taps(shifts, side=side, tn=table.shape[0])
+    cases = (fused_case(dev, gen), fused_case(dev, gen, bh=3, k=17, side=11,
+                                              d=12))
     out = {"err": 0.0, "bwd_err": 0.0}
     names = ("dq", "dk", "dv", "dtable", "dfracs")
-    for rate in (0.0, 0.1):
-        seed = 1234 + int(rate * 10)
-        with torch.inference_mode():
-            got = fused_table.fused_table_attention(q, k, v, table, shifts,
-                                                    side, seed, rate)
-            want = fused_table.fused_table_attention_reference(
-                q, k, v, table, shifts, side, seed, rate)
-        torch.cuda.synchronize()
-        e_out, e_attn = ((a - b).abs().max().item() for a, b in zip(got, want))
-        kept = (fused_table.dropout_keep_mask(seed, want[1].shape, rate, dev)
-                .float().mean().item())
-        print(f"[K6] BH={q.shape[0]} K={k.shape[1]} N={q.shape[1]} "
-              f"D={q.shape[2]} rate {rate}: kept {kept:.4f}; max_abs_err out "
-              f"{e_out:.3e} (tol {K6_OUT_TOL}), attn {e_attn:.3e} (tol "
-              f"{K6_ATTN_TOL}) | {card}")
-        if not e_out <= K6_OUT_TOL or not e_attn <= K6_ATTN_TOL:
-            raise RuntimeError("K6 disagrees with its plain version")
-        out["err"] = max(out["err"], e_out, e_attn)
-        attn = got[1]
-        kb = [fused_table.fused_table_attention_backward(
-            q, k, v, table, taps, fracs, attn, c["g_out"], c["g_attn"], side,
-            seed, rate) for _ in range(2)]
-        torch.cuda.synchronize()
-        det = all(torch.equal(a, b) for a, b in zip(*kb))
-        del got, want
-        ref = {}
-        for dt in (torch.float64, torch.float32):
-            ref[dt] = fused_table.fused_table_attention_backward_reference(
-                *(c[n].to(dt) for n in ("q", "k", "v", "table")), taps,
-                fracs.to(dt), c["g_out"].to(dt), c["g_attn"].to(dt), side,
-                seed, rate)
+    for c in cases:
+        q, k, v, table, shifts, side = (c[n] for n in (
+            "q", "k", "v", "table", "shifts", "side"))
+        taps, fracs = cpb.table_taps(shifts, side=side, tn=table.shape[0])
+        shape = f"BH={q.shape[0]} K={k.shape[1]} N={q.shape[1]} D={q.shape[2]}"
+        for rate in (0.0, 0.1):
+            seed = 1234 + int(rate * 10)
+            with torch.inference_mode():
+                got, again = (fused_table.fused_table_attention(
+                    q, k, v, table, shifts, side, seed, rate)
+                    for _ in range(2))
+                want = fused_table.fused_table_attention_reference(
+                    q, k, v, table, shifts, side, seed, rate)
+            torch.cuda.synchronize()
+            e_out, e_attn = ((a - b).abs().max().item()
+                             for a, b in zip(got, want))
+            det = all(torch.equal(a, b) for a, b in zip(got, again))
+            kept = (fused_table.dropout_keep_mask(seed, want[1].shape, rate,
+                                                  dev).float().mean().item())
+            print(f"[K6] {shape} rate {rate}: kept {kept:.4f}; max_abs_err "
+                  f"out {e_out:.3e} (tol {K6_OUT_TOL}), attn {e_attn:.3e} "
+                  f"(tol {K6_ATTN_TOL}); deterministic {det} | {card}")
+            if not det or not e_out <= K6_OUT_TOL or not e_attn <= K6_ATTN_TOL:
+                raise RuntimeError("K6 disagrees with its plain version or is "
+                                   "not deterministic")
+            out["err"] = max(out["err"], e_out, e_attn)
+            attn = got[1]
+            kb = [fused_table.fused_table_attention_backward(
+                q, k, v, table, taps, fracs, attn, c["g_out"], c["g_attn"],
+                side, seed, rate) for _ in range(2)]
+            torch.cuda.synchronize()
+            det = all(torch.equal(a, b) for a, b in zip(*kb))
+            del got, again, want
+            ref = {}
+            for dt in (torch.float64, torch.float32):
+                ref[dt] = fused_table.fused_table_attention_backward_reference(
+                    *(c[n].to(dt) for n in ("q", "k", "v", "table")), taps,
+                    fracs.to(dt), c["g_out"].to(dt), c["g_attn"].to(dt), side,
+                    seed, rate)
+                torch.cuda.empty_cache()
+            errs = {n: (rel_err(g, w64), rel_err(p, w64)) for n, g, p, w64 in
+                    zip(names, kb[0], ref[torch.float32], ref[torch.float64])}
+            tol = {n: (K6_BWD_TOL if n in ("dq", "dk", "dv")
+                       else max(K6_TABLE_BWD_TOL, 2 * errs[n][1]))
+                   for n in names}
+            abs_err = max((g.double() - w64).abs().max().item()
+                          for g, w64 in zip(kb[0], ref[torch.float64]))
+            print(f"[K6-bwd] {shape} rate {rate}: rel err vs f64, kernel / "
+                  "f32 plain: "
+                  + ", ".join(f"{n} {e:.3e} / {pe:.3e} (tol {tol[n]:.1e})"
+                              for n, (e, pe) in errs.items())
+                  + f"; deterministic {det}; max_abs_err {abs_err:.3e} | "
+                  f"{card}")
+            if not det or not all(e <= tol[n] for n, (e, _) in errs.items()):
+                raise RuntimeError("K6-bwd disagrees with its plain version "
+                                   "or is not deterministic")
+            out["bwd_err"] = max(out["bwd_err"], abs_err)
+            del kb, ref
             torch.cuda.empty_cache()
-        errs = {n: (rel_err(g, w64), rel_err(p, w64)) for n, g, p, w64 in
-                zip(names, kb[0], ref[torch.float32], ref[torch.float64])}
-        tol = {n: (K6_BWD_TOL if n in ("dq", "dk", "dv")
-                   else max(K6_TABLE_BWD_TOL, 2 * errs[n][1])) for n in names}
-        abs_err = max((g.double() - w64).abs().max().item()
-                      for g, w64 in zip(kb[0], ref[torch.float64]))
-        print(f"[K6-bwd] rate {rate}: rel err vs f64, kernel / f32 plain: "
-              + ", ".join(f"{n} {e:.3e} / {pe:.3e} (tol {tol[n]:.1e})"
-                          for n, (e, pe) in errs.items())
-              + f"; deterministic {det}; max_abs_err {abs_err:.3e} | {card}")
-        if not det or not all(e <= tol[n] for n, (e, _) in errs.items()):
-            raise RuntimeError("K6-bwd disagrees with its plain version or is "
-                               "not deterministic")
-        out["bwd_err"] = max(out["bwd_err"], abs_err)
-        del kb, ref
-        torch.cuda.empty_cache()
+    c = cases[0]
+    taps, fracs = cpb.table_taps(c["shifts"], side=c["side"],
+                                 tn=c["table"].shape[0])
     out.update(c, taps=taps, fracs=fracs)
     return out
 
@@ -2501,7 +2592,8 @@ def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:
     MLP flops at every (query, kv) point plus the sim and PV products (2
     flops a multiply-add); the backward also reads attn and both
     cotangents and writes dq, dk, dv, dgrid_kv and the weight cotangents,
-    and does K2-bwd's flops plus twice the products (dp, dv, dq, dk)."""
+    and does K2-bwd's flops on the CUDA cores and the four products (dp,
+    dv, dq, dk) on the tensor cores, 3 TF32 passes each."""
     points = BH * N * K
     macs = BH * N * K * D
     qkv = 4 * (BH * N * D + 2 * BH * K * D)
@@ -2509,7 +2601,7 @@ def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:
     fwd = bound(qkv + small + 4 * (BH * N * D + points),
                 k2_fwd_flops(points, 1) + 4 * macs)
     bwd = bound(2 * qkv + small + 4 * (BH * N * D + 2 * points),
-                k2_bwd_flops(points, 1) + 8 * macs)
+                k2_bwd_flops(points, 1), 3 * 8 * macs)
     return fwd, bwd
 
 

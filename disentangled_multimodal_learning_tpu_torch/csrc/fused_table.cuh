@@ -1,6 +1,8 @@
-// What K6-fwd (fused_table.cu) and K6-bwd (fused_table_bwd.cu) share: the
-// block shape, the shared-memory row stride of k and v, and the dropout
-// mask.
+// What the fused attentions K6 (fused_table.cu, fused_table_bwd.cu) and K7
+// (fused_exact.cu, fused_exact_bwd.cu) share: the limits on K and D and the
+// dropout mask; and the CUDA-core block shape and shared-memory row stride
+// of K7-fwd and of the chunked attention backward (fused_attention_bwd.cuh;
+// K6's tensor-core kernels have their own).
 //
 // The dropout mask is a counter-based hash of (seed, element index), the
 // element index of attn [BH, K, N] being (bh * K + k) * N + n: the forward

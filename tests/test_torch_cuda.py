@@ -820,6 +820,47 @@ def test_fused_backward_kernel_matches_float64(dev, rate):
         assert _rel(g1, w64) <= tol, i
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [3, 11])
+@pytest.mark.parametrize("d", [4, 12, 64])
+@pytest.mark.parametrize("k", [1, 7, 17, 160])
+def test_fused_kernels_at_the_tile_edges(dev, k, side, d):
+    """K6-fwd and K6-bwd at shapes off every tile edge of their tensor-core
+    design (K padded to 16 rows, D to 8 columns, the query tail of 32-query
+    tiles; BH 3), at rate 0 and 0.1: the forward against its plain version
+    within ``K6_ATTN_TOL`` and ``K6_OUT_TOL``, the backward against the
+    plain version's autograd in float64 (dq, dk, dv within ``K6_BWD_TOL``,
+    dtable and dfracs within ``K6_TABLE_BWD_TOL`` or twice the f32 plain
+    version's own error); both bitwise equal over two calls."""
+    c = _fused_case(np.random.default_rng(60 + k + side + d), dev, bh=3, k=k,
+                    side=side, d=d)
+    taps, fracs = cpb.table_taps(c["shifts"], side=side,
+                                 tn=c["table"].shape[0])
+    args = (c["q"], c["k"], c["v"], c["table"])
+    for rate in (0.0, 0.1):
+        with torch.inference_mode():
+            got, again = (fused_table.fused_table_attention(
+                *args, c["shifts"], side, 3, rate) for _ in range(2))
+        want = fused_table.fused_table_attention_reference(
+            *args, c["shifts"], side, 3, rate)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert (got[1] - want[1]).abs().max().item() <= K6_ATTN_TOL
+        assert (got[0] - want[0]).abs().max().item() <= K6_OUT_TOL
+        bwd = [fused_table.fused_table_attention_backward(
+            *args, taps, fracs, got[1], c["g_out"], c["g_attn"], side, 3,
+            rate) for _ in range(2)]
+        ref = {dt: fused_table.fused_table_attention_backward_reference(
+            *(a.to(dt) for a in args), taps, fracs.to(dt),
+            c["g_out"].to(dt), c["g_attn"].to(dt), side, 3, rate)
+            for dt in (torch.float64, torch.float32)}
+        for i, (g1, g2, w64, w32) in enumerate(zip(*bwd, ref[torch.float64],
+                                                   ref[torch.float32])):
+            assert torch.equal(g1, g2), (rate, i)
+            tol = (K6_BWD_TOL if i < 3
+                   else max(K6_TABLE_BWD_TOL, 2 * _rel(w32, w64)))
+            assert _rel(g1, w64) <= tol, (rate, i)
+
+
 # opt-in setting -> its config overrides
 OPT_IN = {"fused": dict(fused_table_attention=True),
           "divisor4": dict(cpb_table_divisor=4)}
