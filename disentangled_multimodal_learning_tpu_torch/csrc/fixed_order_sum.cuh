@@ -1,5 +1,6 @@
-// Fixed-order sums shared by the backward kernels (K1-bwd cpb_table_bwd.cu,
-// K2-bwd cpb_exact_bwd.cu, K4-bwd cpb_table_1d_bwd.cu).
+// Fixed-order sums shared by the backward kernels (K2-bwd cpb_exact_bwd.cu,
+// K4-bwd cpb_table_1d_bwd.cu, the attention backward of K6-bwd and K7-bwd
+// fused_attention_bwd.cuh).
 //
 // Blocks run in no order, so f32 atomics would make every training step
 // non-reproducible.  Each backward kernel instead sums a row's values over

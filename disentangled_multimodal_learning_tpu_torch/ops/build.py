@@ -38,12 +38,12 @@ _F = ctypes.c_float
 # ctypes would pass them as 32-bit ints and cut them); each returns an int
 SIGNATURES = {
     "dmlt_cpb_table_interp_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
-    "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
-                                  _I, _I, _P),
+    "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _P),
     "dmlt_cpb_table_strided_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                                    _P),
-    "dmlt_cpb_table_strided_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
-                                   _I, _I, _I, _P),
+    "dmlt_cpb_table_strided_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dmlt_fused_table_fwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _F, _P),
     "dmlt_fused_table_fwd_smem": (_I, _I, _I, _I),

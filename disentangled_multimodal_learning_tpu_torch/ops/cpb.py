@@ -58,6 +58,7 @@ the same inputs give bitwise-equal results).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -65,21 +66,23 @@ HID = 32  # CPB hidden width (dim // 4 at dim 128); the K2 kernels' constant
 MAX_OUT_CHANNELS = 64  # K2 keeps w3 [HID, O] in shared memory
 # partial results of the backward kernels (one per block, summed in block
 # order by csrc/fixed_order_sum.cuh; fixed counts, so the sum order and the
-# result are fixed).  The table kernels, K1-bwd and K4-bwd (ops/cpb1d.py):
-# two 108 KB (K4: 80 KB) blocks per SM on the H100's 132 SMs (K1-bwd 0.196
-# ms at production shapes, against 0.345 ms with 128 blocks)
+# result are fixed).  K4-bwd (ops/cpb1d.py): two 80 KB blocks per SM on the
+# H100's 132 SMs
 TABLE_BWD_PARTS = 264
+# K1-bwd and K5-bwd (csrc/table_bwd_tiles.cuh): one block per tile of the
+# table and group of rows; the rows split into enough groups for about this
+# many warps in all (64 on each of the H100's 132 SMs), a function of the
+# shapes alone, so that the groups' partial tables are summed in one fixed
+# order
+TABLE_BWD_WARPS = 8448
+# and at most this many rows a group: a block lists its group's rows that
+# meet its tile in shared memory (kMaxRows in csrc/table_bwd_tiles.cuh)
+TABLE_BWD_ROWS_MAX = 512
 # K2-bwd: 128-thread blocks of 72-73 KB at O <= 2, three per SM (396 on the
 # H100's 132 SMs); each takes ceil(rows / 396) whole kv rows
 # (exact_bwd_parts), a function of the shapes alone, so that the partials
 # and the order of their sum are fixed
 EXACT_BWD_BLOCKS = 396
-# K5-bwd: one block per 16 x 32 tile of a phase of the table and group of
-# rows; the rows split into enough groups (at most 8) for about 8 blocks per
-# SM (1056 on the H100's 132 SMs), a function of the shapes alone, so that
-# the groups' partial tables are summed in one fixed order
-STRIDED_BWD_BLOCKS = 1056
-STRIDED_BWD_GROUPS_MAX = 8
 SMEM_LIMIT = 227 * 1024  # shared memory one block may opt in to (H100)
 
 
@@ -211,12 +214,6 @@ def table_interp_backward(table, taps, fracs, dout, side: int):
         return table_interp_backward_reference(table, taps, fracs, dout, side)
     _check_table_args("table_interp_backward", table, taps, fracs, side, 1,
                       dout)
-    tsize = table.shape[0] * table.shape[1]
-    smem = 4 * (tsize + (side + 1) ** 2 + side * side + side * (side + 1) + 16)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"table_interp_backward: table {tuple(table.shape)} "
-                         f"at side {side} needs {smem} B of shared memory per "
-                         f"block, more than {SMEM_LIMIT}")
     dtable = torch.empty_like(table)
     dfracs = torch.empty_like(fracs)
     if taps.shape[0] == 0:  # nothing to launch, so nothing to count
@@ -234,18 +231,97 @@ def table_scatter_launch(table, taps, fracs, dout, side, dtable, dfracs):
     nothing: the K1-bwd wrapper above counts its launches, and the fused
     table attention's backward (``ops/fused_table.py``) hands its ``ds`` to
     these kernels as part of K6-bwd."""
+    table_bwd_launch("table_interp_backward", table, taps, fracs, dout, side,
+                     1, dtable, dfracs)
+
+
+class TableBwdPlan(NamedTuple):
+    """The launch of K1-bwd and K5-bwd (``csrc/table_bwd_tiles.cuh``): a
+    block owns a ``tile_h x tile_w`` tile of the table, ``phases`` of its
+    ``divisor**2`` phases (entries ``T[py + d*oy, px + d*ox]``; the phases
+    split over ``nz`` blocks) and one of ``groups`` runs of
+    ``rows_per_group`` rows; a warp owns ``strip`` rows of one phase, 32
+    columns wide (``warps_per_phase`` strips a phase; at divisor 1 lane 0
+    reads the column left of the tile and owns none, so 31).  A window spans
+    ``reach`` table lines a side.  The kernels take the first five numbers
+    and restate the rest from them."""
+
+    strip: int
+    warps_per_phase: int
+    phases: int
+    groups: int
+    divisor: int
+    rows_per_group: int
+    tile_h: int
+    tile_w: int
+    tiles_y: int
+    tiles_x: int
+    nz: int
+    reach: int
+
+    @property
+    def tiles(self) -> int:
+        """The blocks of one row group: one per tile and phase subset."""
+        return self.nz * self.tiles_y * self.tiles_x
+
+
+def table_bwd_plan(tn_rows: int, tn_cols: int, rows: int, side: int,
+                   divisor: int) -> TableBwdPlan:
+    """K1-bwd's (divisor 1) or K5-bwd's launch for a ``[tn_rows, tn_cols]``
+    table and ``rows`` windows of ``side``: at divisor 1, 8 warps of 4-row
+    strips (a tile 32 rows high and 31 columns wide); at d >= 2, all d^2 phases in one block (at most
+    16, else split over blocks) with 8-row strips, 16 warps at d = 2; then
+    row groups for about ``TABLE_BWD_WARPS`` warps in all, of at most
+    ``TABLE_BWD_ROWS_MAX`` rows."""
+    d = divisor
+    if d == 1:
+        strip, wpp, phases = 4, 8, 1
+    else:
+        nz = -(-d * d // 16)
+        strip, phases = 8, -(-d * d // nz)
+        wpp = max(1, 16 // phases)
+    # at divisor 1 lane 0 reads the column left of the tile: 31 columns
+    tile_h, tile_w = d * strip * wpp, 31 if d == 1 else 32 * d
+    tiles_y, tiles_x = -(-tn_rows // tile_h), -(-tn_cols // tile_w)
+    nz = -(-d * d // phases)
+    blocks = -(-TABLE_BWD_WARPS // (phases * wpp))
+    groups = max(1, min(rows, -(-blocks // (nz * tiles_y * tiles_x))),
+                 -(-rows // TABLE_BWD_ROWS_MAX))
+    per_group = -(-rows // groups)
+    groups = -(-rows // per_group)  # none empty; ceil(rows / groups) stays
+    return TableBwdPlan(strip, wpp, phases, groups, d, per_group,
+                        tile_h, tile_w, tiles_y, tiles_x, nz,
+                        side + 1 if d == 1 else d * (side - 1) + 2)
+
+
+def table_bwd_scratch(plan: TableBwdPlan, rows: int, table):
+    """The kernels' scratch: the groups' partial table cotangents ``[groups,
+    tn_rows * tn_cols]`` and the (row, tile) shift sums ``[rows, tiles, 2]``,
+    f32."""
+    return (torch.empty((plan.groups, table.numel()), dtype=torch.float32,
+                        device=table.device),
+            torch.empty((rows, plan.tiles, 2), dtype=torch.float32,
+                        device=table.device))
+
+
+def table_bwd_launch(name, table, taps, fracs, dout, side, divisor, dtable,
+                     dfracs):
+    """Launches K1-bwd (divisor 1) or K5-bwd on checked CUDA arguments, with
+    :func:`table_bwd_plan`'s launch, counting nothing."""
     from .build import check, kernels
 
     R = taps.shape[0]
-    nparts = min(R, TABLE_BWD_PARTS)
-    partial = torch.empty((nparts, table.numel()), dtype=torch.float32,
-                          device=table.device)
-    err = kernels().dmlt_cpb_table_interp_bwd(
-        table.data_ptr(), table.shape[0], table.shape[1], taps.data_ptr(),
-        fracs.data_ptr(), dout.data_ptr(), int(dout.dtype == torch.bfloat16),
-        dtable.data_ptr(), dfracs.data_ptr(), partial.data_ptr(), R, side,
-        nparts, _stream(table))
-    check(err, "table_interp_backward")
+    plan = table_bwd_plan(table.shape[0], table.shape[1], R, side, divisor)
+    partial, dpart = table_bwd_scratch(plan, R, table)
+    entry = (kernels().dmlt_cpb_table_interp_bwd if divisor == 1
+             else kernels().dmlt_cpb_table_strided_bwd)
+    err = entry(table.data_ptr(), table.shape[0], table.shape[1],
+                taps.data_ptr(), fracs.data_ptr(), dout.data_ptr(),
+                int(dout.dtype == torch.bfloat16), dtable.data_ptr(),
+                dfracs.data_ptr(), partial.data_ptr(), dpart.data_ptr(), R,
+                side, divisor, plan.strip, plan.warps_per_phase, plan.phases,
+                plan.groups, _stream(table))
+    check(err, name)
 
 
 def table_interp_strided_backward(table, taps, fracs, dout, side: int,
@@ -262,21 +338,8 @@ def table_interp_strided_backward(table, taps, fracs, dout, side: int,
     dfracs = torch.empty_like(fracs)
     if taps.shape[0] == 0:  # nothing to launch, so nothing to count
         return dtable.zero_(), dfracs
-    from .build import check, kernels
-
-    R = taps.shape[0]
-    rn_rows, rn_cols = (-(-n // divisor) for n in table.shape)
-    tiles = divisor * divisor * -(-rn_rows // 16) * -(-rn_cols // 32)
-    groups = max(1, min(STRIDED_BWD_GROUPS_MAX, R,
-                        -(-STRIDED_BWD_BLOCKS // tiles)))
-    partial = torch.empty((groups, table.numel()), dtype=torch.float32,
-                          device=table.device)
-    err = kernels().dmlt_cpb_table_strided_bwd(
-        table.data_ptr(), table.shape[0], table.shape[1], taps.data_ptr(),
-        fracs.data_ptr(), dout.data_ptr(), int(dout.dtype == torch.bfloat16),
-        dtable.data_ptr(), dfracs.data_ptr(), partial.data_ptr(), R, side,
-        divisor, groups, _stream(table))
-    check(err, "table_interp_strided_backward")
+    table_bwd_launch("table_interp_strided_backward", table, taps, fracs,
+                     dout, side, divisor, dtable, dfracs)
     table_interp_strided_backward.launches += 1
     return dtable, dfracs
 

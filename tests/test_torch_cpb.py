@@ -171,7 +171,7 @@ def test_kernel_build_key_follows_the_sources(tmp_path, monkeypatch):
         "fused_exact_bwd.cu", "fused_table.cu", "fused_table_bwd.cu"}
     assert [p.name for p in build.headers()] == [
         "cpb_exact.cuh", "fixed_order_sum.cuh", "fused_attention_bwd.cuh",
-        "fused_table.cuh", "tf32_mma.cuh"]
+        "fused_table.cuh", "table_bwd_tiles.cuh", "tf32_mma.cuh"]
     (tmp_path / "fixed_order_sum.cuh").write_text("// edited\n")
     second = build.library_dir()
     assert second != first

@@ -299,9 +299,8 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cpb.table_interp_backward(table, taps, fracs,
                                   torch.zeros(4, 10, 10, device=dev,
                                               dtype=torch.float64), 10)
-    with pytest.raises(ValueError, match="shared memory"):
-        cpb.table_interp_backward(torch.zeros(300, 300, device=dev), taps,
-                                  fracs, torch.zeros(4, 10, 10, device=dev),
+    with pytest.raises(ValueError, match="on cpu"):
+        cpb.table_interp_backward(table, taps, fracs, torch.zeros(4, 10, 10),
                                   10)
     rng = np.random.default_rng(3)
     w = _mlp(rng, 2, dev)
@@ -750,6 +749,73 @@ def test_strided_backward_kernel_matches_float64(dev, divisor, dtype):
         assert a.dtype == torch.float32 and _rel(a, w) <= K5_BWD_TOL
     assert clipped.any()
     assert (got[0][1][clipped].abs().amax(dim=1) > 0).all()
+
+
+def _tile_edge_case(rng, side, divisor, rows, dev, extra=37,
+                    overshoot=3.5):
+    """A random f32 table ``extra`` lines (rounded up to the divisor) past
+    a window's reach, so its sides are no multiple of the backward's tiles;
+    the taps and fractions of ``rows`` shifts up to ``overshoot`` cells past
+    either end (the first row clipped at both: clipped rows within four
+    cells); a window cotangent."""
+    reach = side + 1 if divisor == 1 else divisor * (side - 1) + 2
+    tn = -(-(reach + extra) // divisor) * divisor
+    table = torch.from_numpy(rng.normal(size=(tn, tn)).astype(np.float32))
+    hi = tn - reach
+    shifts = rng.uniform(-overshoot, hi + overshoot, size=(rows, 2))
+    shifts[0] = (-0.9 * overshoot, hi + 0.9 * overshoot)
+    taps, fracs = cpb.table_taps(torch.from_numpy(shifts.astype(np.float32)),
+                                 side=side, tn=tn, divisor=divisor)
+    dout = torch.from_numpy(rng.normal(size=(rows, side, side))
+                            .astype(np.float32))
+    return table.to(dev), taps.to(dev), fracs.to(dev), dout.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [1, 2, 3, 4])
+@pytest.mark.parametrize("side,rows", [(1, 1), (2, 3), (7, 1), (13, 200),
+                                       (50, 7), (50, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_backward_tiles_at_the_edges(dev, divisor, side, rows, dtype):
+    """K1-bwd (divisor 1) and K5-bwd at the edges of their tile design:
+    table sides no multiple of a tile, fewer rows than row groups (R = 1
+    included), side 1 and 2, divisors 1 to 4, clipped rows within four
+    cells, f32 and bf16 cotangents: against the plain backward in float64
+    (``K1_BWD_TOL`` / ``K5_BWD_TOL`` norm-relative), bitwise over two
+    calls, every clipped row's shift cotangent kept, one launch each."""
+    rng = np.random.default_rng(1000 * divisor + 10 * side + rows)
+    table, taps, fracs, dout = _tile_edge_case(rng, side, divisor, rows, dev)
+    dout = dout.to(dtype)
+    clipped = ((fracs < 0) | (fracs > 1)).any(dim=1)
+    assert clipped[0] and (fracs.abs() < 4.5).all()
+    bwd = (cpb.table_interp_backward if divisor == 1 else
+           lambda *a: cpb.table_interp_strided_backward(*a, divisor))
+    before = _k56_launches()
+    got = [bwd(table, taps, fracs, dout, side) for _ in range(2)]
+    delta = tuple(a - b for a, b in zip(_k56_launches(), before))
+    assert delta == ((0, 2, 0, 0, 0, 0) if divisor == 1
+                     else (0, 0, 0, 2, 0, 0))
+    want = cpb.table_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), side, divisor)
+    tol = K1_BWD_TOL if divisor == 1 else K5_BWD_TOL
+    for a, b, w in zip(*got, want):
+        assert torch.equal(a, b)
+        assert a.dtype == torch.float32 and _rel(a, w) <= tol
+    assert (got[0][1][clipped].abs().amax(dim=1) > 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_backward_scatters_through_the_table_backward(dev):
+    """K6-bwd hands its ds to K1-bwd's kernels: the scatter on a given ds
+    is K1-bwd's result on it bitwise, and it counts nothing."""
+    rng = np.random.default_rng(44)
+    table, taps, fracs, ds = _tile_edge_case(rng, 11, 1, 300, dev)
+    dtable, dfracs = torch.empty_like(table), torch.empty_like(fracs)
+    before = _k56_launches()
+    cpb.table_scatter_launch(table, taps, fracs, ds, 11, dtable, dfracs)
+    assert _k56_launches() == before
+    want = cpb.table_interp_backward(table, taps, fracs, ds, 11)
+    assert torch.equal(dtable, want[0]) and torch.equal(dfracs, want[1])
 
 
 def _fused_case(rng, dev, bh=8, k=144, side=50, d=64):

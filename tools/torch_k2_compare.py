@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Kernels of the PyTorch port against an earlier version of their
 sources, on one NVIDIA GPU: the exact-CPB kernels K2 (``--kernel k2``, the
-default) or the fused table attention K6 with K7-bwd (``--kernel k6``).
+default), the fused table attention K6 with K7-bwd (``--kernel k6``), or
+the table CPB's backward K1-bwd and K5-bwd (``--kernel table``).
 
     mkdir -p build/k2_parent && git archive <commit> \\
         disentangled_multimodal_learning_tpu_torch/csrc | tar -x -C build/k2_parent
-    python3 tools/torch_k2_compare.py --parent build/k2_parent [--kernel k6]
+    python3 tools/torch_k2_compare.py --parent build/k2_parent \\
+        [--kernel k6 | --kernel table [--groups 32 64]]
 
 ``--parent`` is a directory holding an earlier
 ``disentangled_multimodal_learning_tpu_torch/csrc`` (``build/`` is ignored
@@ -30,6 +32,20 @@ builds for its phases 2 and 2f:
 
 and, per K2 kernel of the current library, its FFMA count beside its
 spill stores (and the stack slots they write) and spill loads in the SASS.
+
+``table``: the earlier and the current ``cpb_table_bwd.cu`` and
+``cpb_table_strided_bwd.cu`` (with their headers), each design (the
+partial tables per block, or the table tiles of ``table_bwd_tiles.cuh``)
+with its compile-time phase splits (``PARTIALS_SPLIT``, ``TILES_SPLIT``:
+each skips one phase, or changes the rows a warp has in flight).  Then, by
+raw C calls on the inputs of ``chip_smoke.py`` (phase 2b's K1-bwd case,
+phase 2e's at divisors 1 with a bf16 cotangent, 2 and 4, and phase 2e's
+K6 taps with a stand-in ``ds``): each version's errors against float64
+(dtable, dfracs, and dfy and dfx apart) and whether it is bitwise equal
+over two calls, the earlier K1-bwd with d/dfx as a blend of table
+differences, both versions timed with CUDA events (earlier, current,
+current, earlier), each split twice, and the current design at the row
+group counts of ``--groups``; and each build's ptxas lines.
 
 ``k6``: the earlier ``fused_table.cu``, ``fused_table_bwd.cu`` and
 ``fused_exact_bwd.cu`` (with the earlier headers), and a copy of the
@@ -217,7 +233,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--kernel", choices=("k2", "k6"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k6", "table"), default="k2")
+    ap.add_argument("--groups", type=int, nargs="*", default=(),
+                    help="table: also time the current design at these "
+                    "row-group counts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k2_compare: no CUDA device", file=sys.stderr)
@@ -225,6 +244,8 @@ def main() -> int:
     parent = args.parent.resolve() / SUB
     print(cs.card_line())
     build.kernels()
+    if args.kernel == "table":
+        return compare_table(parent, args.groups)
     return (compare_k6 if args.kernel == "k6" else compare_k2)(parent)
 
 
@@ -500,6 +521,282 @@ def compare_k6(parent: Path) -> int:
                     print(f"[K6 rate {rate}] split 5, {what}: attention part "
                           "ms " + " / ".join(f"{t:.4f}" for t in split))
         del bufs
+        torch.cuda.empty_cache()
+    return 0
+
+
+TABLE_SOURCES = ("cpb_table_bwd.cu", "cpb_table_strided_bwd.cu")
+TABLE_KERNELS = ("cpb_table_bwd_partial_kernel", "strided_dshift_kernel",
+                 "strided_dtable_kernel", "sum_partials_kernel")
+# compile-time patches (SPLIT k) of the partial-table design of K1-bwd and
+# K5-bwd: each skips one phase, for the time it takes, and the last one
+# takes K1-bwd's d/dfx as a y-blend of table differences, for its error
+# against float64
+PARTIALS_SPLIT = {
+    1: ("K1-bwd without its row loop (zeroing, writing and summing the "
+        "partial tables)", [("  for (int r = r0; r < r1; ++r) {",
+                             "  for (int r = r0; SPLIT != 1 && r < r1; ++r) {")]),
+    2: ("K1-bwd without sum_partials", [
+        ("  return sum_partials(partial, nparts, tn_rows * tn_cols, dtable, s);",
+         "  return SPLIT == 2 ? 0 : sum_partials(partial, nparts, "
+         "tn_rows * tn_cols, dtable, s);")]),
+    3: ("K5-bwd without the dshift kernel", [
+        ("  strided_dshift_kernel<<<rows", "  if (SPLIT != 3) "
+         "strided_dshift_kernel<<<rows")]),
+    4: ("K5-bwd without the dtable kernel", [
+        ("  strided_dtable_kernel<<<grid", "  if (SPLIT != 4) "
+         "strided_dtable_kernel<<<grid")]),
+    5: ("K5-bwd's dtable kernel without its row loop (tap staging and "
+        "compaction only), no dshift kernel", [
+            ("    for (int h = 0; h < n; ++h) {",
+             "    for (int h = 0; SPLIT != 5 && h < n; ++h) {"),
+            ("  strided_dshift_kernel<<<rows", "  if (SPLIT != 5) "
+             "strided_dshift_kernel<<<rows")]),
+    6: ("K5-bwd without the group sum", [
+        ("      sum_partials(partial, groups, tn_rows * tn_cols, dtable, s));",
+         "      SPLIT == 6 ? 0 : sum_partials(partial, groups, "
+         "tn_rows * tn_cols, dtable, s));")]),
+    7: ("K1-bwd with d/dfx as a y-blend of table differences", [
+        ("        const float a0 = t[0] * gy + t[w] * fy;\n"
+         "        const float a1 = t[1] * gy + t[w + 1] * fy;\n"
+         "        sx += d0 * (a1 - a0);",
+         "        sx += d0 * ((t[1] - t[0]) * gy + (t[w + 1] - t[w]) * fy);")]),
+}
+# the same for the tile design (table_bwd_tiles.cuh), and variants of its
+# rows in flight and blocks an SM (each timed in the case it concerns)
+TILES_SPLIT = {
+    1: ("without the shift sums", [
+        ("      const float sum = warp_pair_sum(sy, sx);\n      if (holds",
+         "      const float sum = SPLIT == 1 ? 0.0f : "
+         "warp_pair_sum(sy, sx);\n      if (holds")]),
+    2: ("without the finishing kernel", [
+        ("  return finish(", "  if (SPLIT == 2) return 0;\n  return finish(")]),
+    3: ("without reading the window cotangent", [
+        ("  return load(dw + i);", "  return SPLIT == 3 ? 0.0f : load(dw + i);")]),
+    4: ("without the rows (listing them, the table's differences, the "
+        "partial tables and the finishing kernel)", [
+            ("    unsigned todo = __ballot_sync(0xffffffffu, active);",
+             "    unsigned todo = SPLIT == 4 ? 0u : "
+             "__ballot_sync(0xffffffffu, active);")]),
+    5: ("variant: 6 rows in flight at divisor 1", [
+        ("constexpr int kRowsD1 = 4;", "constexpr int kRowsD1 = 6;")]),
+    6: ("variant: 8 rows in flight at divisor 1, 3 blocks an SM", [
+        ("constexpr int kRowsD1 = 4;", "constexpr int kRowsD1 = 8;"),
+        ("kD1 ? 4 : 2)", "kD1 ? 3 : 2)")]),
+    7: ("variant: 1 row in flight at d >= 2", [
+        ("constexpr int kRowsStrided = 2;", "constexpr int kRowsStrided = 1;")]),
+    8: ("variant: 4 rows in flight at d >= 2 (it spills)", [
+        ("constexpr int kRowsStrided = 2;", "constexpr int kRowsStrided = 4;")]),
+    9: ("variant: reads at d >= 2 only in the tap w00's phase (for the "
+        "time of unreplicated reads; wrong results)", [
+            ("    const bool jin = valid && static_cast<unsigned>(j) <",
+             "    const bool jin = valid && (kD1 || q.code == 3) && "
+             "static_cast<unsigned>(j) <")]),
+}
+# the partial-table design's C signatures and row-group constants
+PARTIALS_ARGS = {
+    "dmlt_cpb_table_interp_bwd": [P, I, I, P, P, P, I, P, P, P, I, I, I, P],
+    "dmlt_cpb_table_strided_bwd": [P, I, I, P, P, P, I, P, P, P, I, I, I, I,
+                                   P]}
+
+
+def table_design(csrc: Path) -> str:
+    """``"tiles"`` for the tile design of the table backward (its shared
+    header present), else ``"partials"``."""
+    return "tiles" if (csrc / "table_bwd_tiles.cuh").exists() else "partials"
+
+
+class TableBwd:
+    """Raw C calls of one build of K1-bwd and K5-bwd, with its own scratch,
+    on the arguments of one case."""
+
+    def __init__(self, lib_name: str, design: str):
+        from disentangled_multimodal_learning_tpu_torch.ops import build
+
+        self.lib = ctypes.CDLL(str(OUT / lib_name / "lib.so"))
+        for entry in PARTIALS_ARGS:
+            getattr(self.lib, entry).argtypes = (
+                PARTIALS_ARGS[entry] if design == "partials"
+                else list(build.SIGNATURES[entry]))
+        self.design = design
+
+    def call(self, c: dict, divisor: int, groups: int | None = None):
+        """A function that runs the backward once on case ``c`` (table,
+        taps, fracs, dout) into ``c``'s dtable and dfracs."""
+        import torch
+
+        from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+        table, taps, fracs, dout = (c[n] for n in ("table", "taps", "fracs",
+                                                   "dout"))
+        R, side = taps.shape[0], dout.shape[-1]
+        stream = torch.cuda.current_stream().cuda_stream
+        head = (table.data_ptr(), *table.shape, taps.data_ptr(),
+                fracs.data_ptr(), dout.data_ptr(),
+                int(dout.dtype == torch.bfloat16), c["dtable"].data_ptr(),
+                c["dfracs"].data_ptr())
+        if self.design == "tiles":
+            plan = cpb.table_bwd_plan(*table.shape, R, side, divisor)
+            if groups:
+                plan = plan._replace(groups=groups,
+                                     rows_per_group=-(-R // groups))
+            partial, dpart = cpb.table_bwd_scratch(plan, R, table)
+            entry = (self.lib.dmlt_cpb_table_interp_bwd if divisor == 1
+                     else self.lib.dmlt_cpb_table_strided_bwd)
+            args = (*head, partial.data_ptr(), dpart.data_ptr(), R, side,
+                    divisor, plan.strip, plan.warps_per_phase, plan.phases,
+                    plan.groups, stream)
+            c.setdefault("scratch", []).append((partial, dpart))
+            return lambda: entry(*args)
+        if divisor == 1:
+            nparts = min(R, 264)  # TABLE_BWD_PARTS of the partial design
+            partial = torch.empty(nparts, table.numel(), device=table.device)
+            args = (*head, partial.data_ptr(), R, side, nparts, stream)
+            entry = self.lib.dmlt_cpb_table_interp_bwd
+        else:
+            rn_rows, rn_cols = (-(-n // divisor) for n in table.shape)
+            tiles = divisor * divisor * -(-rn_rows // 16) * -(-rn_cols // 32)
+            groups = max(1, min(8, R, -(-1056 // tiles)))
+            partial = torch.empty(groups, table.numel(), device=table.device)
+            args = (*head, partial.data_ptr(), R, side, divisor, groups,
+                    stream)
+            entry = self.lib.dmlt_cpb_table_strided_bwd
+        c.setdefault("scratch", []).append(partial)
+        return lambda: entry(*args)
+
+
+def table_cases(dev) -> dict:
+    """The inputs of ``chip_smoke.py``: phase 2b's K1-bwd case (f32
+    cotangent), phase 2e's at divisors 1 (bf16 cotangent), 2 and 4, and
+    the table, taps and fractions of phase 2e's K6 case with its map
+    cotangent standing for K6-bwd's ds (the same shape; the scatter's work
+    does not depend on the values)."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+    gen = torch.Generator().manual_seed(1)
+    k1 = cs.table_backward_case(cpb, dev, gen, cs.mlp_weights(1, gen, dev))
+    opt = cs.opt_in_table_cases(cpb, dev)
+    c6 = cs.fused_case(dev, torch.Generator().manual_seed(7))
+    taps6, fracs6 = cpb.table_taps(c6["shifts"], side=c6["side"],
+                                   tn=c6["table"].shape[0])
+    cases = {
+        "K1-bwd f32": (1, dict(k1)),
+        "K1-bwd bf16": (1, dict(opt[1], dout=opt[1]["dout"].to(
+            torch.bfloat16))),
+        "K6-bwd scatter of ds": (1, dict(
+            table=c6["table"], taps=taps6, fracs=fracs6,
+            dout=c6["g_attn"].reshape(-1, c6["side"], c6["side"]))),
+        "K5-bwd divisor 2": (2, dict(opt[2])),
+        "K5-bwd divisor 4": (4, dict(opt[4])),
+    }
+    for _, c in cases.values():
+        c["dtable"] = torch.empty_like(c["table"])
+        c["dfracs"] = torch.empty_like(c["fracs"])
+    return cases
+
+
+def compare_table(parent: Path, group_counts=()) -> int:
+    """K1-bwd (f32 and bf16 cotangents), K6-bwd's scatter of ds and K5-bwd
+    (divisors 2 and 4): earlier against current sources, raw C calls timed
+    with CUDA events (earlier, current, current, earlier), each version's
+    compile-time splits, its ptxas lines, and the errors of its shift
+    cotangents against float64 (dfy and dfx apart)."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+    current = ROOT / SUB
+    designs = {"earlier": table_design(parent), "current": table_design(current)}
+    print(f"designs: {designs}")
+    splits = {"partials": PARTIALS_SPLIT, "tiles": TILES_SPLIT}
+    jobs = []
+    for ver, csrc in (("earlier", parent), ("current", current)):
+        jobs.append((f"table_{ver}", csrc, TABLE_SOURCES, (), ()))
+        jobs += [(f"table_{ver}_split{k}", csrc, TABLE_SOURCES, patches,
+                  (f"-DSPLIT={k}",))
+                 for k, (_, patches) in splits[designs[ver]].items()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda j: nvcc_build(*j), jobs))
+    for name, log in built:
+        if "split" in name:
+            continue
+        lines = (cs.kernel_ptxas(log, TABLE_KERNELS)
+                 if designs[name.split("_")[1]] == "partials"
+                 else [f"{k}: {ln}" for k, ln in cs.table_bwd_ptxas(log)])
+        print(f"{name} ptxas:\n  " + "\n  ".join(lines))
+    libs = {name: TableBwd(name, designs[name.split("_")[1]])
+            for name, _ in built}
+
+    dev = torch.device("cuda")
+    cases = table_cases(dev)
+    for label, (d, c) in cases.items():
+        R, side = c["taps"].shape[0], c["dout"].shape[-1]
+        print(f"[{label}] R={R} side={side} tn={c['table'].shape[0]} "
+              f"{str(c['dout'].dtype)[6:]} cotangent")
+        want = cpb.table_interp_backward_reference(
+            c["table"].double(), c["taps"], c["fracs"].double(),
+            c["dout"].double(), side, d)
+        plain = cpb.table_interp_backward_reference(
+            c["table"], c["taps"], c["fracs"], c["dout"], side, d)
+        outs = {}
+        for ver in ("earlier", "current"):
+            run = libs[f"table_{ver}"].call(c, d)
+            assert run() == 0
+            again = (c["dtable"].clone(), c["dfracs"].clone())
+            assert run() == 0
+            torch.cuda.synchronize()
+            det = all(torch.equal(a, b) for a, b in
+                      zip(again, (c["dtable"], c["dfracs"])))
+            outs[ver] = again
+            errs = cs.table_backward_errors(again, plain, want)
+            print(f"[{label}] {ver}: deterministic {det}; rel err vs f64, "
+                  "kernel / f32 plain: " + ", ".join(
+                      f"{n} {e:.3e} / {pe:.3e}" for n, (e, pe) in errs.items()))
+        print(f"[{label}] current against earlier, max abs: dtable "
+              f"{(outs['current'][0] - outs['earlier'][0]).abs().max():.3e}, "
+              f"dfracs "
+              f"{(outs['current'][1] - outs['earlier'][1]).abs().max():.3e}")
+        if d == 1 and designs["earlier"] == "partials":
+            run = libs["table_earlier_split7"].call(c, d)
+            assert run() == 0
+            torch.cuda.synchronize()
+            errs = cs.table_backward_errors((c["dtable"], c["dfracs"]),
+                                            plain, want)
+            print(f"[{label}] earlier, {PARTIALS_SPLIT[7][0]}: rel err vs "
+                  "f64: " + ", ".join(f"{n} {e:.3e}"
+                                      for n, (e, _) in errs.items()))
+        del want, plain
+        ms = {}
+        for ver in ("earlier", "current", "current", "earlier"):
+            ms.setdefault(ver, []).append(
+                cs.cuda_ms(libs[f"table_{ver}"].call(c, d), 20))
+        print(f"[{label}] ms: " + ", ".join(
+            f"{ver} " + " / ".join(f"{t:.4f}" for t in ts)
+            for ver, ts in ms.items()) + f" | {cs.card_line()}")
+        for ver in ("earlier", "current"):
+            for k, (what, _) in splits[designs[ver]].items():
+                if designs[ver] == "partials" and (
+                        (d == 1) != what.startswith("K1") or k == 7):
+                    continue
+                if what.startswith("variant") and (
+                        ("divisor 1" in what and d != 1)
+                        or ("d >= 2" in what and d == 1)):
+                    continue
+                t = [cs.cuda_ms(libs[f"table_{ver}_split{k}"].call(c, d), 20)
+                     for _ in range(2)]
+                print(f"[{label}] {ver} split {k}, {what}: ms "
+                      + " / ".join(f"{x:.4f}" for x in t))
+        if designs["current"] == "tiles":
+            for g in group_counts:
+                t = [cs.cuda_ms(libs["table_current"].call(c, d, g), 20)
+                     for _ in range(2)]
+                print(f"[{label}] current at {g} row groups: ms "
+                      + " / ".join(f"{x:.4f}" for x in t))
+        c.pop("scratch", None)
         torch.cuda.empty_cache()
     return 0
 
