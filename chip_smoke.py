@@ -58,17 +58,21 @@ with ``return_vgrid``) with seeded random weights:
    and on bags whose second half repeats one vector of +-1 entries (its
    distances are exactly 0 in any summation order, so the ties are exact),
    within ``K3_TOL_ULPS * C * 2^-24 * max|x|^2`` (the f32 plain version's
-   own error against float64 printed beside), and the whole assignment
-   (centres and clusters) against the plain version on the CPU, exactly;
+   own error against float64 printed beside), bitwise equal over two
+   calls, and the whole assignment (centres and clusters) against the
+   plain version on the CPU, exactly; then the kernels the same way at the
+   split and tile edges (B=1, N=2501, C=12, k=8); phase 2 prints
+   ``[K3 ptxas]`` and ``[K3 SASS]`` lines for their instances;
 3c. runs the student serving entry at the preset (3 batches: per batch
    K3-knn 2, K3-parent 2, K1-fwd 2, K2 0) and at divisor 0 (1 batch: K2-fwd
    2, K1 0), and the student training entry (3 steps and 1 eval batch: per
    step K3 2 + 2, K1-fwd 2, K1-bwd 2);
 5c. compares one f32 student forward (logits within 1e-4) and one f32
    ``deterministic_training`` student step on the card with the CPU;
-6c. times K3 against its plain versions and the student's eval forward and
-   train step (bags/s, median and p80), and profiles one student train
-   step (device-busy share);
+6c. times K3 against its plain versions, with its bound (the dots as f32
+   FMAs over 67 TFLOP/s: the committed design runs no tensor cores), and
+   the student's eval forward and train step (bags/s, median and p80), and
+   profiles one student train step (device-busy share);
 2d. holds K4-fwd (the 1-D table CPB, R = 10,000 rows of B=4 x G=4 x K=625,
    O=2, n_q=2501, clipped rows included) against its plain version within
    ``K4_TOL`` abs, and K4-bwd against its plain version in float64 within
@@ -157,7 +161,8 @@ teacher's shape, K7's in "nk" at dropout 0.1.
 Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its flops over 67
 TFLOP/s (f32 outside the tensor cores), counted from this run's inputs
-(H100 SXM data sheet); for K6-fwd, K6-bwd and K7-bwd's attention part,
+(H100 SXM data sheet; K3's dots are f32 FMAs); for K6-fwd, K6-bwd and
+K7-bwd's attention part,
 whose products run on the tensor cores as 3xTF32, those products count
 three TF32 passes over 494.7 TFLOP/s (dense TF32) instead; ``library_ms``
 is null for all sixteen: no single
@@ -202,7 +207,9 @@ K2_BWD_TOL = {"dgrid_kv": 1e-3, "dw": 1e-3}
 TASK_LOSS_TOL = 1e-5
 STEP_LOSS_TOL = 5e-4
 GRAD_TOL = 5e-3
-# K3: the kernel sums each C-term dot in another order than cuBLAS.  Each
+# K3: the kernel sums each C-term dot as one f32 FMA chain in ascending
+# channel order (the zero-padded channels of its last 32-channel slice add
+# exact zeros; no tensor cores), cuBLAS in an order of its own.  Each such
 # f32 sum is within C 2^-24 max|x|^2 of the exact dot (to first order, by
 # Cauchy-Schwarz), so two of them differ by at most twice that, and d2 =
 # ... - 2 dot by four times: 3.9e-3 for LayerNormed 128-d tokens, whose
@@ -277,11 +284,16 @@ REDESIGNED.update({name: "3xTF32 tensor-core products" for name in (
     "fused_exact_bwd (K7-bwd)")})
 REDESIGNED.update({name: "table tiles" for name in (
     "cpb_table_interp_bwd (K1-bwd)", "cpb_table_strided_bwd (K5-bwd)")})
+REDESIGNED.update({
+    name: "one wave over tile pairs, register-tiled f32 FMA" for name in (
+        "dpc_knn (K3-knn)", "dpc_parent (K3-parent)")})
 # the K6 kernels (the resident attention backward serves K7-bwd too; the
 # earlier design's instances are fused_attention_bwd_kernel<...>), whose
 # ptxas and SASS figures phase 2 prints
 K6_KERNELS = ("fused_table_fwd_kernel", "fused_attention_bwd_resident_kernel",
               "fused_attention_bwd_kernel")
+# the K3 kernels (an instance per k of K3-knn's, one of K3-parent's)
+K3_KERNELS = ("dpc_split_kernel", "dpc_finish_kernel")
 
 
 def card_line() -> str:
@@ -630,7 +642,31 @@ def k2_ptxas(log: str, lib) -> list[str]:
     return lines
 
 
-def kernel_ptxas(log: str, keys) -> list[str]:
+# the instances of K6's attention backward (resident or in kv chunks) by
+# their mangled names
+RESIDENT = {"ILb1E": "<resident>", "ILb0E": "<chunked>"}
+
+
+def k3_instance(name: str) -> str:
+    """The instance of a K3 kernel by its mangled name: K3-parent, or
+    K3-knn and its k (the earlier design had no k)."""
+    import re
+
+    if "ILb1E" in name:
+        return "<parent>"
+    k = re.search(r"ILb0ELi(\d+)E", name)
+    return f"<knn k={k.group(1)}>" if k else "<knn>"
+
+
+def instance(name: str, key: str, instances) -> str:
+    """``key`` with the instance of the mangled ``name``: ``instances`` maps
+    a piece of the name to a label, or is a function of the name."""
+    if callable(instances):
+        return key + instances(name)
+    return key + next((v for k, v in instances.items() if k in name), "")
+
+
+def kernel_ptxas(log: str, keys, instances=RESIDENT) -> list[str]:
     """The ptxas figures (registers, barriers, spills) of each instance of
     the kernels whose names hold one of ``keys``, in the build log."""
     import re
@@ -639,8 +675,7 @@ def kernel_ptxas(log: str, keys) -> list[str]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next((key + ("<resident>" if "ILb1E" in m.group(1) else
-                                "<chunked>" if "ILb0E" in m.group(1) else "")
+            name = next((instance(m.group(1), key, instances)
                          for key in keys if key in m.group(1)), None)
             spills = ""
         elif name and "spill" in line:
@@ -688,10 +723,11 @@ def table_bwd_ptxas(log: str) -> list[tuple[str, str]]:
     return out
 
 
-def sass_counts(lib, keys) -> list[str]:
+def sass_counts(lib, keys, instances=None) -> list[str]:
     """Per instance of the kernels whose names hold one of ``keys`` in the
-    library ``lib``: its tensor-core (HMMA), f32 FMA (FFMA), spill store
-    (STL) and spill load (LDL) instructions, from ``cuobjdump -sass``."""
+    library ``lib`` (named by ``instances`` where given): its tensor-core
+    (HMMA), f32 FMA (FFMA), spill store (STL) and spill load (LDL)
+    instructions, from ``cuobjdump -sass``."""
     import re
     from pathlib import Path
 
@@ -705,6 +741,8 @@ def sass_counts(lib, keys) -> list[str]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             key = next((k for k in keys if k in m.group(1)), None)
+            if key and instances:
+                key = instance(m.group(1), key, instances)
             found.append([key, dict.fromkeys(("HMMA", "FFMA", "STL", "LDL"),
                                              0)])
         elif found and found[-1][0]:
@@ -761,6 +799,11 @@ def main() -> int:
         print(f"[K6 SASS] {line}")
     for label, line in table_bwd_ptxas(build.build_log()):
         print(f"[{label} ptxas] {line}")
+    for line in kernel_ptxas(build.build_log(), K3_KERNELS, k3_instance):
+        print(f"[K3 ptxas] {line}")
+    for line in sass_counts(build.library_dir() / build.LIB_NAME,
+                            K3_KERNELS, k3_instance):
+        print(f"[K3 SASS] {line}")
 
     gen = torch.Generator().manual_seed(0)
     side, B, H, K = 50, 4, 8, 144
@@ -1132,6 +1175,7 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5, k6,
     bpoints = k2b["dbias"].numel()
     k2b_bound = bound(4 * (bpoints + 2 * k2b["gkv"].numel() + 2 * n),
                       k2_bwd_flops(bpoints, 1))
+    # K3: every dot an f32 FMA chain on the CUDA cores (no tensor cores)
     B, N, C = dpc["x"].shape
     dots = 2 * B * N * N * C
     x_bytes = 4 * (B * N * C + B * N)  # x and x2
@@ -1229,66 +1273,85 @@ def check_dpc_kernels(dev, card: str) -> dict:
     """Phase 2c: K3-knn and K3-parent at B=4, N=2500, C=128, k=5 against
     their plain versions on the card (f32) and in float64, on LayerNormed
     random tokens and on the same bags with their second half one repeated
-    vector; then the assignment (2 clusters) on the card against the
-    plain version on the CPU, exactly."""
+    vector, bitwise equal over two calls; then the assignment (2 clusters)
+    on the card against the plain version on the CPU, exactly; then the
+    kernels the same way at B=1, N=2501, C=12, k=8 (the last 64-token tile
+    5 tokens wide, the last 128-neighbour tile 69 wide, 800 pairs over 264
+    blocks, so that blocks hold two runs, the 32-channel slice mostly zero
+    padding)."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.ops import cluster, dpc_knn
 
-    B, N, C, k = 4, 2500, 128, 5
-    gen = torch.Generator().manual_seed(2)
-    x = torch.nn.functional.layer_norm(torch.randn(B, N, C, generator=gen),
-                                       (C,))
-    repeated = x.clone()
-    repeated[:, N // 2:] = (torch.randint(0, 2, (C,), generator=gen) * 2
-                            - 1).float()
-    noise = torch.rand(B, N, generator=gen)
     err, timed = 0.0, None
-    for case, xh in (("random", x), ("repeated half", repeated)):
-        xd = xh.to(dev)
-        x2 = (xd * xd).sum(-1)
-        knn2, rmax2 = dpc_knn.knn_stream(xd, x2, k)
-        density = (torch.exp(-knn2.clamp_min(1e-12).mean(-1) / C)
-                   + noise.to(dev) * 1e-6)
-        parent2 = dpc_knn.parent_stream(xd, x2, density)
-        torch.cuda.synchronize()
-        plain = dpc_knn.knn_stream_reference(xd, x2, k) + (
-            dpc_knn.parent_stream_reference(xd, x2, density),)
-        x64 = xd.double()
-        x2_64 = (x64 * x64).sum(-1)
-        f64 = dpc_knn.knn_stream_reference(x64, x2_64, k) + (
-            dpc_knn.parent_stream_reference(x64, x2_64, density.double()),)
-        tol = K3_TOL_ULPS * C * 2.0 ** -24 * x2.max().item()
-        for name, got, p, want in zip(("knn2", "rowmax2", "parent2"),
-                                      (knn2, rmax2, parent2), plain, f64):
-            real = want < 1e37  # the no-parent sentinel compared apart
-            e = (got - p).abs().max().item()
-            e64 = (got.double() - want)[real].abs().max().item()
-            p64 = (p.double() - want)[real].abs().max().item()
-            same_sentinels = torch.equal(got >= 1e37, p >= 1e37)
-            print(f"[K3] {case} B={B} N={N} C={C} k={k} {name}: kernel vs "
-                  f"plain max_abs_err {e:.3e} (tol {tol:.3e}); vs float64: "
-                  f"kernel {e64:.3e}, f32 plain {p64:.3e}; no-parent "
-                  f"tokens {int((~real).sum())}, the same: {same_sentinels}"
-                  f" | {card}")
-            if not e <= tol or not same_sentinels:
-                raise RuntimeError(f"K3 {name} disagrees with its plain "
-                                   "version")
-            err = max(err, e)
-        card_idx, card_centers = cluster.dpc_knn_cluster(
-            xd, 2, k, density_noise=noise.to(dev))
-        host_idx, host_centers = cluster.dpc_knn_cluster(
-            xh, 2, k, density_noise=noise)
-        same = (torch.equal(card_centers.cpu(), host_centers)
-                and torch.equal(card_idx.cpu(), host_idx))
-        print(f"[K3] {case}: centres on the card {card_centers.tolist()}, "
-              f"plain on the CPU {host_centers.tolist()}; index_down and "
-              f"idx_cluster identical: {same}")
-        if not same:
-            raise RuntimeError("the assignment on the card differs from the "
-                               "plain version's")
-        if timed is None:
-            timed = dict(x=xd, x2=x2, density=density, k=k)
+    for B, N, C, k in ((4, 2500, 128, 5), (1, 2501, 12, 8)):
+        gen = torch.Generator().manual_seed(2)
+        x = torch.nn.functional.layer_norm(
+            torch.randn(B, N, C, generator=gen), (C,))
+        repeated = x.clone()
+        repeated[:, N // 2:] = (torch.randint(0, 2, (C,), generator=gen) * 2
+                                - 1).float()
+        noise = torch.rand(B, N, generator=gen)
+        plan = dpc_knn.dpc_plan(B, N)
+        for case, xh in (("random", x), ("repeated half", repeated)):
+            xd = xh.to(dev)
+            x2 = (xd * xd).sum(-1)
+            knn2, rmax2 = dpc_knn.knn_stream(xd, x2, k)
+            density = (torch.exp(-knn2.clamp_min(1e-12).mean(-1) / C)
+                       + noise.to(dev) * 1e-6)
+            parent2 = dpc_knn.parent_stream(xd, x2, density)
+            again = dpc_knn.knn_stream(xd, x2, k) + (
+                dpc_knn.parent_stream(xd, x2, density),)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in
+                          zip((knn2, rmax2, parent2), again))
+            plain = dpc_knn.knn_stream_reference(xd, x2, k) + (
+                dpc_knn.parent_stream_reference(xd, x2, density),)
+            x64 = xd.double()
+            x2_64 = (x64 * x64).sum(-1)
+            f64 = dpc_knn.knn_stream_reference(x64, x2_64, k) + (
+                dpc_knn.parent_stream_reference(x64, x2_64,
+                                                density.double()),)
+            tol = K3_TOL_ULPS * C * 2.0 ** -24 * x2.max().item()
+            print(f"[K3] {case} B={B} N={N} C={C} k={k}: {plan.items} "
+                  f"pairs of a token and a neighbour tile over "
+                  f"{plan.blocks} blocks; bitwise equal over two calls: "
+                  f"{bitwise}")
+            if not bitwise:
+                raise RuntimeError("K3 is not deterministic")
+            for name, got, p, want in zip(("knn2", "rowmax2", "parent2"),
+                                          (knn2, rmax2, parent2), plain, f64):
+                real = want < 1e37  # the no-parent sentinel compared apart
+                e = (got - p).abs().max().item()
+                e64 = (got.double() - want)[real].abs().max().item()
+                p64 = (p.double() - want)[real].abs().max().item()
+                same_sentinels = torch.equal(got >= 1e37, p >= 1e37)
+                print(f"[K3] {case} B={B} N={N} C={C} k={k} {name}: kernel "
+                      f"vs plain max_abs_err {e:.3e} (tol {tol:.3e}); vs "
+                      f"float64: kernel {e64:.3e}, f32 plain {p64:.3e}; "
+                      f"no-parent tokens {int((~real).sum())}, the same: "
+                      f"{same_sentinels} | {card}")
+                if not e <= tol or not same_sentinels:
+                    raise RuntimeError(f"K3 {name} disagrees with its plain "
+                                       "version")
+                err = max(err, e)
+            if C != 128:
+                continue
+            card_idx, card_centers = cluster.dpc_knn_cluster(
+                xd, 2, k, density_noise=noise.to(dev))
+            host_idx, host_centers = cluster.dpc_knn_cluster(
+                xh, 2, k, density_noise=noise)
+            same = (torch.equal(card_centers.cpu(), host_centers)
+                    and torch.equal(card_idx.cpu(), host_idx))
+            print(f"[K3] {case}: centres on the card "
+                  f"{card_centers.tolist()}, plain on the CPU "
+                  f"{host_centers.tolist()}; index_down and idx_cluster "
+                  f"identical: {same}")
+            if not same:
+                raise RuntimeError("the assignment on the card differs from "
+                                   "the plain version's")
+            if timed is None:
+                timed = dict(x=xd, x2=x2, density=density, k=k)
     return dict(timed, err=err)
 
 
@@ -1310,10 +1373,17 @@ def time_dpc_kernels(dpc: dict, card: str) -> dict:
         out["k3_parent"] = interleaved_ms(
             lambda: dpc_knn.parent_stream_reference(x, x2, density),
             lambda: dpc_knn.parent_stream(x, x2, density), 20)
+    outputs = {"k3_knn": k + 1, "k3_parent": 2}  # words written a token
     for name, (ms, plain) in out.items():
-        print(f"[time] {name} B={B} N={N} C={C}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms; {flops / ms / 1e9:.2f} TFLOP/s = "
-              f"{flops / ms / 1e9 / 67:.1%} of 67 TFLOP/s f32 | {card}")
+        # the committed arithmetic: every dot an f32 FMA chain on the CUDA
+        # cores, so the bound is the flops over 67 TFLOP/s
+        bms, by = bound(4 * (B * N * C + B * N) + 4 * B * N * outputs[name],
+                        flops)
+        print(f"[time] {name} B={B} N={N} C={C} k={k}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms; {flops / ms / 1e9:.2f} TFLOP/s = "
+              f"{flops / ms / 1e9 / 67:.1%} of 67 TFLOP/s f32; bound "
+              f"{bms:.4f} ms ({by}: the dots as f32 FMAs over 67 TFLOP/s), "
+              f"{bms / ms:.1%} of it | {card}")
     torch.cuda.empty_cache()
     return out
 

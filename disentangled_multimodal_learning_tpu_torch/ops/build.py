@@ -65,8 +65,8 @@ SIGNATURES = {
     "dmlt_cpb_table_1d_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
     "dmlt_cpb_table_1d_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _P),
-    "dmlt_dpc_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "dmlt_dpc_parent": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "dmlt_dpc_knn": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "dmlt_dpc_parent": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "dmlt_dpc_smem_bytes": (_I,),
 }
 

@@ -15,10 +15,22 @@ matrix never exists on the card:
   the same ``d2`` and ``density [B, N]`` -> the min of ``d2`` over the
   tokens of strictly higher density, ``3e38`` where there is none.
 
+On the card each pass is two kernels.  The first runs one wave of blocks
+(:func:`dpc_plan`), each over an equal share of the (token tile,
+neighbour tile) pairs, so the neighbour axis of a token is split across
+the blocks whose shares cover its tile; each block writes each token's
+partial result (the k-smallest multiset and the row max, or the min) into
+a scratch buffer the wrapper allocates (:func:`dpc_scratch`).  A
+finishing kernel, one thread per token, merges the partials in block
+order.  The merge is exact (the k smallest of a union are the k smallest
+of the parts' k smallest), so the result does not depend on the plan, and
+is bitwise the same from call to call.  One wrapper call counts one
+launch.
+
 Wrapper rule, as in ``ops/cpb.py``: a tensor on the CPU goes to the plain
 PyTorch version (``*_reference``: the full ``d2`` by ``torch.bmm``, then
 ``topk``, ``amax`` and a masked ``amin``; also what the card's kernels are
-checked against); a CUDA tensor launches the kernel or raises.  Each
+checked against); a CUDA tensor launches the kernels or raises.  Each
 wrapper counts its launches in ``<wrapper>.launches``.  No gradient flows:
 the cluster assignment runs under ``torch.no_grad`` (``ops/cluster.py``).
 
@@ -28,6 +40,8 @@ the cluster assignment runs under ``torch.no_grad`` (``ops/cluster.py``).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .cpb import SMEM_LIMIT, _on_card, _stream
@@ -35,6 +49,46 @@ from .cpb import SMEM_LIMIT, _on_card, _stream
 KMAX = 8       # the kernels' k-smallest multiset (k <= 8)
 BIG = 3.0e38   # "no higher-density token" (the TPU kernel's _BIG)
 EPS = 1e-12
+TOKENS = 64    # tokens per token tile (csrc/dpc_knn.cu kTM)
+TILE = 128     # neighbours per neighbour tile (kTN)
+BLOCKS = 132 * 2  # one wave of the split kernel: 2 blocks an SM, 132 SMs
+
+
+class DpcPlan(NamedTuple):
+    """The launch of K3-knn and K3-parent.  The work is ``items`` pairs of
+    a token tile (``token_tiles`` of ``TOKENS`` a bag) and a neighbour tile
+    (``tiles`` of ``TILE``), token tile major; block ``p`` of ``blocks``
+    takes items ``[ceil(p * items / blocks), ceil((p + 1) * items /
+    blocks))``: at most ``tiles`` items when ``blocks`` is at least the
+    token tiles, so at most two runs of one token tile each.  The kernels
+    take ``blocks`` (between the token tiles and the items) and restate
+    the rest."""
+
+    token_tiles: int
+    tiles: int
+    items: int
+    blocks: int
+
+
+def dpc_plan(B: int, N: int) -> DpcPlan:
+    """K3's launch for ``B`` bags of ``N`` tokens: ``BLOCKS`` blocks, no
+    fewer than the token tiles and no more than the items.  At B=4,
+    N=2500: 40 token tiles a bag, 20 neighbour tiles, 3,200 items, 264
+    blocks of 12 or 13 items."""
+    token_tiles, tiles = -(-N // TOKENS), -(-N // TILE)
+    items = B * token_tiles * tiles
+    return DpcPlan(token_tiles, tiles, items,
+                   max(min(BLOCKS, items), B * token_tiles))
+
+
+def dpc_scratch(plan: DpcPlan, x, k: int | None):
+    """The blocks' partials, f32: ``[blocks, 2, k + 1, TOKENS]`` for K3-knn
+    (per run the ascending k-smallest multiset, then the row max, of each
+    token of its tile), ``[blocks, 2, TOKENS]`` for K3-parent (``k``
+    None)."""
+    words = () if k is None else (k + 1,)
+    return torch.empty((plan.blocks, 2, *words, TOKENS), dtype=torch.float32,
+                       device=x.device)
 
 
 def squared_distances(x, x2):
@@ -96,7 +150,10 @@ def knn_stream(x, x2, k: int):
         return knn2, rmax2
     from .build import check, kernels
 
+    plan = dpc_plan(B, N)
+    part = dpc_scratch(plan, x, k)
     err = kernels().dmlt_dpc_knn(x.data_ptr(), x2.data_ptr(), B, N, C, k,
+                                 plan.blocks, part.data_ptr(),
                                  knn2.data_ptr(), rmax2.data_ptr(), _stream(x))
     check(err, "knn_stream")
     knn_stream.launches += 1
@@ -118,9 +175,12 @@ def parent_stream(x, x2, density):
         return parent2
     from .build import check, kernels
 
+    plan = dpc_plan(B, N)
+    part = dpc_scratch(plan, x, None)
     err = kernels().dmlt_dpc_parent(x.data_ptr(), x2.data_ptr(),
-                                    density.data_ptr(), B, N, C,
-                                    parent2.data_ptr(), _stream(x))
+                                    density.data_ptr(), B, N, C, plan.blocks,
+                                    part.data_ptr(), parent2.data_ptr(),
+                                    _stream(x))
     check(err, "parent_stream")
     parent_stream.launches += 1
     return parent2
@@ -167,6 +227,8 @@ def dpc_knn_cluster_streamed(x, cluster_num: int, k: int = 5, *,
     return idx_cluster.scatter(1, index_down, ids), index_down
 
 
-__all__ = ["BIG", "KMAX", "dpc_knn_cluster_streamed", "knn_stream",
+__all__ = ["BIG", "BLOCKS", "KMAX", "DpcPlan", "dpc_knn_cluster_streamed",
+           "dpc_plan",
+           "dpc_scratch", "knn_stream",
            "knn_stream_reference", "parent_stream", "parent_stream_reference",
            "squared_distances"]

@@ -485,6 +485,75 @@ def test_dpc_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert _dpc_launches() == before
 
 
+def _dpc_case(B, N, C, device, seed):
+    """LayerNormed tokens whose last quarter repeats the first token (exact
+    ties), their |x|^2 and a random density."""
+    rng = np.random.default_rng(seed)
+    x = _ln_tokens(rng, (B, N, C), device)
+    x[:, N - N // 4:] = x[:, :1]
+    density = torch.from_numpy(rng.uniform(size=(B, N)).astype(np.float32)
+                               ).to(device)
+    return x, (x * x).sum(-1), density
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C,k", [(1, 1, 4, 1), (2, 50, 12, 8),
+                                     (1, 130, 4, 8), (3, 2501, 12, 8),
+                                     (1, 64, 128, 5)])
+def test_dpc_kernels_at_the_split_and_tile_edges(dev, B, N, C, k):
+    """K3 at the edges of its plan: N = 1; N below one 128-neighbour tile
+    and below one 64-token tile; C = 4 and 12 (one zero-padded 32-channel
+    slice); N past a tile, with blocks of two runs; against the plain
+    versions, bitwise over two calls, one launch counted per wrapper
+    call."""
+    x, x2, density = _dpc_case(B, N, C, dev, seed=N + C)
+    before = _dpc_launches()
+    first = dpc_knn.knn_stream(x, x2, k) + (
+        dpc_knn.parent_stream(x, x2, density),)
+    again = dpc_knn.knn_stream(x, x2, k) + (
+        dpc_knn.parent_stream(x, x2, density),)
+    torch.cuda.synchronize()
+    assert _dpc_launches() == (before[0] + 2, before[1] + 2)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    want = dpc_knn.knn_stream_reference(x, x2, k) + (
+        dpc_knn.parent_stream_reference(x, x2, density),)
+    tol = K3_TOL_ULPS * C * 2.0 ** -24 * x2.max().item()
+    for got, w in zip(first, want):
+        assert got.shape == w.shape
+        assert (got - w).abs().max().item() <= tol
+    assert torch.equal(first[2] >= 1e37, want[2] >= 1e37)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [44, 45, 97, 264, 484])
+def test_dpc_kernels_do_not_depend_on_the_block_count(dev, blocks):
+    """The finishing kernel's merge is exact: K3 at any block count gives
+    the wrapper's result bitwise (B=2, N = 1345: 44 token tiles, 11
+    neighbour tiles, the last 65 wide; from one token tile a block to one
+    pair a block)."""
+    from disentangled_multimodal_learning_tpu_torch.ops.build import kernels
+
+    B, N, C, k = 2, 1345, 32, 8
+    x, x2, density = _dpc_case(B, N, C, dev, seed=blocks)
+    want = dpc_knn.knn_stream(x, x2, k) + (
+        dpc_knn.parent_stream(x, x2, density),)
+    plan = dpc_knn.dpc_plan(B, N)._replace(blocks=blocks)
+    knn2, rmax2, parent2 = (torch.empty_like(w) for w in want)
+    stream = torch.cuda.current_stream().cuda_stream
+    part = dpc_knn.dpc_scratch(plan, x, k)
+    assert kernels().dmlt_dpc_knn(
+        x.data_ptr(), x2.data_ptr(), B, N, C, k, plan.blocks,
+        part.data_ptr(), knn2.data_ptr(), rmax2.data_ptr(), stream) == 0
+    part = dpc_knn.dpc_scratch(plan, x, None)
+    assert kernels().dmlt_dpc_parent(
+        x.data_ptr(), x2.data_ptr(), density.data_ptr(), B, N, C,
+        plan.blocks, part.data_ptr(), parent2.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    for got, w in zip((knn2, rmax2, parent2), want):
+        assert torch.equal(got, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("divisor", [1, 0])
 def test_student_forward_on_card_matches_cpu(dev, divisor):

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Kernels of the PyTorch port against an earlier version of their
 sources, on one NVIDIA GPU: the exact-CPB kernels K2 (``--kernel k2``, the
-default), the fused table attention K6 with K7-bwd (``--kernel k6``), or
-the table CPB's backward K1-bwd and K5-bwd (``--kernel table``).
+default), the fused table attention K6 with K7-bwd (``--kernel k6``), the
+table CPB's backward K1-bwd and K5-bwd (``--kernel table``), or the
+streamed DPC-KNN passes K3-knn and K3-parent (``--kernel k3``).
 
     mkdir -p build/k2_parent && git archive <commit> \\
         disentangled_multimodal_learning_tpu_torch/csrc | tar -x -C build/k2_parent
     python3 tools/torch_k2_compare.py --parent build/k2_parent \\
-        [--kernel k6 | --kernel table [--groups 32 64]]
+        [--kernel k6 | --kernel table [--groups 32 64]
+         | --kernel k3 [--blocks 200 528]]
 
 ``--parent`` is a directory holding an earlier
 ``disentangled_multimodal_learning_tpu_torch/csrc`` (``build/`` is ignored
@@ -59,6 +61,21 @@ change), and K7-bwd in "nk" (its attention part and K2-bwd's kernels on
 its ``ds``); then each patched copy twice; whether the earlier and
 current K6 agree (max abs difference); and, per K6 kernel of both
 libraries, its HMMA count beside its FFMA count and spills in the SASS.
+
+``k3``: the earlier and the current ``dpc_knn.cu``, each with its
+compile-time phase splits (``K3_STREAM_SPLIT`` for the earlier design, a
+block per token tile, ``K3_SPLITS_SPLIT`` for the design whose blocks
+split the neighbour axis): without the selection epilogue, the loads
+alone, without loading the neighbour tiles, and for the split design
+without the finishing kernel, with fewer operand loads, and variants of
+its ring.  Then, by raw C calls on the inputs of
+``chip_smoke.py``'s phase 2c (B=4, N=2500, C=128, k=5, LayerNormed
+tokens, seed 2): each version against the plain version (max abs) and
+whether two calls are bitwise equal, both timed with CUDA events
+(earlier, current, current, earlier), each split twice, the split design
+at the block counts of ``--blocks``, and f32 ``torch.bmm(x, x^T)`` with
+TF32 off as a yardstick for the dots alone (not the function); and each
+build's ptxas lines and its HMMA and FFMA counts in the SASS.
 """
 
 from __future__ import annotations
@@ -67,6 +84,7 @@ import argparse
 import ctypes
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -233,19 +251,27 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--kernel", choices=("k2", "k6", "table"), default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k6", "table", "k3"),
+                    default="k2")
     ap.add_argument("--groups", type=int, nargs="*", default=(),
                     help="table: also time the current design at these "
                     "row-group counts")
+    ap.add_argument("--blocks", type=int, nargs="*", default=(),
+                    help="k3: also time the current design at these "
+                    "block counts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_k2_compare: no CUDA device", file=sys.stderr)
         return 2
     parent = args.parent.resolve() / SUB
     print(cs.card_line())
+    t0 = time.perf_counter()
     build.kernels()
+    print(f"the port's build: {time.perf_counter() - t0:.1f} s")
     if args.kernel == "table":
         return compare_table(parent, args.groups)
+    if args.kernel == "k3":
+        return compare_k3(parent, args.blocks)
     return (compare_k6 if args.kernel == "k6" else compare_k2)(parent)
 
 
@@ -798,6 +824,234 @@ def compare_table(parent: Path, group_counts=()) -> int:
                       + " / ".join(f"{x:.4f}" for x in t))
         c.pop("scratch", None)
         torch.cuda.empty_cache()
+    return 0
+
+
+K3_KERNELS = ("dpc_stream_kernel", "dpc_split_kernel", "dpc_finish_kernel")
+# compile-time patches (SPLIT k) of the earlier design, a block per token
+# tile with a 1 x 32 register tile; each skips one phase, for the
+# time it takes (1 keeps the dots alive through a test that never holds)
+K3_STREAM_SPLIT = {
+    1: ("without the selection epilogue", [
+        ("    if (!live) continue;",
+         "    if (SPLIT == 1 || SPLIT == 2) {\n      float s = 0.f;\n"
+         "#pragma unroll\n      for (int j = 0; j < kNbr; ++j) s += acc[j];\n"
+         "      if (s == 1.25e-30f) { best[0] = s; row_max = s; pmin = s; }\n"
+         "      continue;\n    }\n    if (!live) continue;")]),
+    2: ("the loads alone (no dots, no selection)", [
+        ("    if (!live) continue;",
+         "    if (SPLIT == 1 || SPLIT == 2) {\n      float s = 0.f;\n"
+         "#pragma unroll\n      for (int j = 0; j < kNbr; ++j) s += acc[j];\n"
+         "      if (s == 1.25e-30f) { best[0] = s; row_max = s; pmin = s; }\n"
+         "      continue;\n    }\n    if (!live) continue;"),
+        ("    for (int q = 0; q < c4n; ++q) {",
+         "    for (int q = 0; SPLIT != 2 && q < c4n; ++q) {")]),
+    3: ("without loading the neighbour tiles", [
+        ("      sxj[e] = e < nj * c4n ? src[e]",
+         "      if (SPLIT != 3) sxj[e] = e < nj * c4n ? src[e]")]),
+}
+# ... and of the design that splits the neighbour axis
+K3_SPLITS_SPLIT = {
+    1: ("without the selection epilogue (d2 values, selection, partials)", [
+        ("    if (at.ch != nch - 1) {\n",
+         "    if (SPLIT == 1 || SPLIT == 2) {\n      if (at.ch == nch - 1) {\n"
+         "        float s = 0.f;\n#pragma unroll\n"
+         "        for (int r = 0; r < kRM; ++r)\n#pragma unroll\n"
+         "          for (int q = 0; q < kRN; ++q) s += acc[r][q];\n"
+         "        if (s == 1.25e-30f) part[tid] = s;\n      }\n"
+         "      at.next(nch, work);\n      continue;\n    }\n"
+         "    if (at.ch != nch - 1) {\n")]),
+    2: ("the loads alone (no dots, no selection)", [
+        ("    if (at.ch != nch - 1) {\n",
+         "    if (SPLIT == 1 || SPLIT == 2) {\n      if (at.ch == nch - 1) {\n"
+         "        float s = 0.f;\n#pragma unroll\n"
+         "        for (int r = 0; r < kRM; ++r)\n#pragma unroll\n"
+         "          for (int q = 0; q < kRN; ++q) s += acc[r][q];\n"
+         "        if (s == 1.25e-30f) part[tid] = s;\n      }\n"
+         "      at.next(nch, work);\n      continue;\n    }\n"
+         "    if (at.ch != nch - 1) {\n"),
+        ("    for (int kk = 0; kk < kKC; kk += 4) {",
+         "    for (int kk = 0; SPLIT != 2 && kk < kKC; kk += 4) {")]),
+    3: ("without loading the neighbour slices", [
+        ("      cp_async16(dst + r * kLdb,",
+         "      if (SPLIT != 3) cp_async16(dst + r * kLdb,")]),
+    4: ("without the finishing kernel", [
+        ("  dpc_finish_kernel<kParent, K><<<",
+         "  if (SPLIT != 4) dpc_finish_kernel<kParent, K><<<")]),
+    5: ("variant: a two-stage ring", [
+        ("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
+    6: ("variant: 16-channel slices, a four-stage ring", [
+        ("constexpr int kStages = 3;", "constexpr int kStages = 4;"),
+        ("constexpr int kKC = 32;", "constexpr int kKC = 16;")]),
+    7: ("the products reading one token float4 a slice (not 8)", [
+        ("            a + (warp + kWarps * r) * la + kk);",
+         "            a + (warp + kWarps * r) * la + "
+         "(SPLIT == 7 ? 0 : kk));")]),
+    8: ("the products reading one neighbour float4 a slice (not 8)", [
+        ("bs + (lane + 32 * q) * kLdb +\n" + " " * 49 + "kk);",
+         "bs + (lane + 32 * q) * kLdb +\n (SPLIT == 8 ? 0 : kk));")]),
+}
+
+
+def k3_design(csrc: Path) -> str:
+    """``"splits"`` for the design whose blocks split the neighbour axis
+    (a finishing kernel merges them), else ``"stream"``."""
+    text = (csrc / "dpc_knn.cu").read_text()
+    return "splits" if "dpc_finish_kernel" in text else "stream"
+
+
+class K3Lib:
+    """Raw C calls of one build of K3-knn and K3-parent, with its own
+    outputs and scratch."""
+
+    def __init__(self, lib_name: str, design: str):
+        from disentangled_multimodal_learning_tpu_torch.ops import build
+
+        self.lib = ctypes.CDLL(str(OUT / lib_name / "lib.so"))
+        stream_args = {"dmlt_dpc_knn": [P, P, I, I, I, I, P, P, P],
+                       "dmlt_dpc_parent": [P, P, P, I, I, I, P, P]}
+        for entry in stream_args:
+            getattr(self.lib, entry).argtypes = (
+                stream_args[entry] if design == "stream"
+                else list(build.SIGNATURES[entry]))
+        self.design = design
+
+    def calls(self, x, x2, density, k: int, blocks: int | None = None):
+        """``(knn, parent, outputs)``: two functions that run K3-knn and
+        K3-parent once on ``x``, and their outputs ``(knn2, rmax2,
+        parent2)``; ``blocks`` overrides the plan of the split design."""
+        import torch
+
+        B, N, C = x.shape
+        dev = x.device
+        stream = torch.cuda.current_stream().cuda_stream
+        knn2 = torch.empty(B, N, k, device=dev)
+        rmax2, parent2 = torch.empty(B, N, device=dev), torch.empty(
+            B, N, device=dev)
+        outs = (knn2, rmax2, parent2)
+        if self.design == "stream":
+            return (lambda: self.lib.dmlt_dpc_knn(
+                x.data_ptr(), x2.data_ptr(), B, N, C, k, knn2.data_ptr(),
+                rmax2.data_ptr(), stream),
+                lambda: self.lib.dmlt_dpc_parent(
+                    x.data_ptr(), x2.data_ptr(), density.data_ptr(), B, N, C,
+                    parent2.data_ptr(), stream), outs)
+        from disentangled_multimodal_learning_tpu_torch.ops import dpc_knn
+
+        plan = dpc_knn.dpc_plan(B, N)
+        if blocks:
+            plan = plan._replace(blocks=blocks)
+        part_k = dpc_knn.dpc_scratch(plan, x, k)
+        part_p = dpc_knn.dpc_scratch(plan, x, None)
+        return (lambda: self.lib.dmlt_dpc_knn(
+            x.data_ptr(), x2.data_ptr(), B, N, C, k, plan.blocks,
+            part_k.data_ptr(), knn2.data_ptr(), rmax2.data_ptr(), stream),
+            lambda: self.lib.dmlt_dpc_parent(
+                x.data_ptr(), x2.data_ptr(), density.data_ptr(), B, N, C,
+                plan.blocks, part_p.data_ptr(), parent2.data_ptr(), stream),
+            outs)
+
+
+def compare_k3(parent: Path, block_counts=()) -> int:
+    """K3-knn and K3-parent: earlier against current sources on phase 2c's
+    inputs, raw C calls timed with CUDA events (earlier, current, current,
+    earlier), each version's compile-time splits, its ptxas lines and
+    SASS counts, and the f32 ``torch.bmm`` of the same tokens."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import dpc_knn
+
+    current = ROOT / SUB
+    designs = {"earlier": k3_design(parent), "current": k3_design(current)}
+    print(f"designs: {designs}")
+    splits = {"stream": K3_STREAM_SPLIT, "splits": K3_SPLITS_SPLIT}
+    jobs = []
+    for ver, csrc in (("earlier", parent), ("current", current)):
+        jobs.append((f"k3_{ver}", csrc, ("dpc_knn.cu",), (), ()))
+        jobs += [(f"k3_{ver}_split{n}", csrc, ("dpc_knn.cu",), patches,
+                  (f"-DSPLIT={n}",))
+                 for n, (_, patches) in splits[designs[ver]].items()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda j: nvcc_build(*j), jobs))
+    for name, log in built:
+        if "split" not in name:
+            print(f"{name} ptxas:\n  " + "\n  ".join(
+                cs.kernel_ptxas(log, K3_KERNELS, cs.k3_instance)))
+            print(f"{name} SASS:\n  " + "\n  ".join(
+                cs.sass_counts(OUT / name / "lib.so", K3_KERNELS,
+                               cs.k3_instance)))
+    libs = {name: K3Lib(name, designs[name.split("_")[1]])
+            for name, _ in built}
+
+    dev = torch.device("cuda")
+    B, N, C, k = 4, 2500, 128, 5  # chip_smoke.py phase 2c, random bags
+    gen = torch.Generator().manual_seed(2)
+    x = torch.nn.functional.layer_norm(torch.randn(B, N, C, generator=gen),
+                                       (C,)).to(dev)
+    x2 = (x * x).sum(-1)
+    knn_p, rmax_p = dpc_knn.knn_stream_reference(x, x2, k)
+    density = torch.exp(-knn_p.clamp_min(1e-12).mean(-1) / C) + torch.rand(
+        B, N, generator=gen).to(dev) * 1e-6
+    plain = (knn_p, rmax_p, dpc_knn.parent_stream_reference(x, x2, density))
+    print(f"[K3] B={B} N={N} C={C} k={k} | {cs.card_line()}")
+    runs = {}
+    for ver in ("earlier", "current"):
+        knn, par, outs = libs[f"k3_{ver}"].calls(x, x2, density, k)
+        assert knn() == 0 and par() == 0
+        first = [o.clone() for o in outs]
+        assert knn() == 0 and par() == 0
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, outs))
+        errs = [(o - p).abs().max().item() for o, p in zip(outs, plain)]
+        print(f"[K3] {ver} ({designs[ver]}): bitwise over two calls {same}; "
+              "max abs against the plain version: knn2 {:.3e}, rowmax2 "
+              "{:.3e}, parent2 {:.3e}".format(*errs))
+        runs[ver] = (knn, par, outs)
+    for i, name in enumerate(("knn2", "rowmax2", "parent2")):
+        d = (runs["current"][2][i] - runs["earlier"][2][i]).abs().max().item()
+        print(f"[K3] current against earlier, {name} max abs {d:.3e}")
+
+    def timed(label, make_pair):
+        for which, idx in (("K3-knn", 0), ("K3-parent", 1)):
+            ms = {}
+            for ver in ("earlier", "current", "current", "earlier"):
+                ms.setdefault(ver, []).append(cs.cuda_ms(make_pair(ver)[idx],
+                                                         20))
+            print(f"[K3] {which}{label} ms: " + ", ".join(
+                f"{ver} " + " / ".join(f"{t:.4f}" for t in ts)
+                for ver, ts in ms.items()) + f" | {cs.card_line()}")
+
+    timed("", lambda ver: runs[ver])
+    for ver in ("earlier", "current"):
+        for n, (what, _) in splits[designs[ver]].items():
+            knn, par, _ = libs[f"k3_{ver}_split{n}"].calls(x, x2, density, k)
+            assert knn() == 0 and par() == 0
+            for which, fn in (("K3-knn", knn), ("K3-parent", par)):
+                t = [cs.cuda_ms(fn, 20) for _ in range(2)]
+                print(f"[K3] {ver} split {n}, {what}: {which} ms "
+                      + " / ".join(f"{v:.4f}" for v in t))
+    if designs["current"] == "splits":
+        for blocks in block_counts:
+            knn, par, _ = libs["k3_current"].calls(x, x2, density, k, blocks)
+            assert knn() == 0 and par() == 0
+            t = [cs.cuda_ms(fn, 20) for fn in (knn, knn, par, par)]
+            print(f"[K3] current at {blocks} blocks: K3-knn ms "
+                  f"{t[0]:.4f} / {t[1]:.4f}, K3-parent ms {t[2]:.4f} / "
+                  f"{t[3]:.4f}")
+    xt = x.transpose(1, 2).contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = torch.empty(B, N, N, device=dev)
+        t = [cs.cuda_ms(lambda: torch.bmm(x, xt, out=out), 20)
+             for _ in range(2)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    flops = 2 * B * N * N * C
+    print(f"[K3] yardstick, the dots alone, not the function: f32 "
+          f"torch.bmm(x, x^T) with TF32 off ms {t[0]:.4f} / {t[1]:.4f} "
+          f"({flops / min(t) / 1e9:.1f} TFLOP/s) | {cs.card_line()}")
     return 0
 
 
