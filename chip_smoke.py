@@ -16,12 +16,13 @@ with ``return_vgrid``) with seeded random weights:
    together), prints the ptxas figures of the K2 kernels' instances
    (registers, spills, barriers) with the dynamic shared memory of a
    block, those of the K6 kernels with their tensor-core (HMMA) and
-   f32 FMA (FFMA) instruction counts in the SASS, and those of K1-bwd's
-   and K5-bwd's instances, and holds each forward
+   f32 FMA (FFMA) instruction counts in the SASS, and those of K1-bwd's,
+   K5-bwd's, K4-bwd's and K1-fwd's instances, and holds each forward
    kernel against its plain PyTorch version on the card at production
    shapes:
-   K1 (table CPB, R=4608, side=50, tn=139, clipped rows included) within
-   1e-5 abs, K2 (exact CPB, BH=32, K=144, N=2500, O=1 and O=2) within 1e-4
+   K1 (table CPB, R=4608, side=50, tn=139, clipped rows included) bitwise
+   (and so within 1e-5 abs), then at odd shapes (side 7 and 33, R 1 and 5)
+   bitwise, K2 (exact CPB, BH=32, K=144, N=2500, O=1 and O=2) within 1e-4
    abs on a bias of O(1) (FMA contraction and another sum order);
 2b. holds K1-bwd (same shapes) and K2-bwd (O=1 and O=2) against their plain
    versions in float64 on the card, norm-relative (``K1_BWD_TOL``,
@@ -45,7 +46,9 @@ with ``return_vgrid``) with seeded random weights:
    the same step on the CPU: the loss within ``STEP_LOSS_TOL``, every
    parameter's gradient after modulation within ``GRAD_TOL`` rel-L2;
 6. times each forward kernel against its plain version and the eval
-   forward (bags/s) with CUDA events, after warm-up (K1 also with the L2
+   forward (bags/s) with CUDA events, after warm-up (a kernel's calls are
+   queued behind a spin of the card, so that the host's time to launch
+   them is not counted in theirs), with K1's bound (K1 also with the L2
    cache flushed before each call, since its 46 MB output fits the 50 MB
    L2), and prints a torch.profiler table of the preset forward with the
    device's idle share;
@@ -76,7 +79,10 @@ with ``return_vgrid``) with seeded random weights:
 2d. holds K4-fwd (the 1-D table CPB, R = 10,000 rows of B=4 x G=4 x K=625,
    O=2, n_q=2501, clipped rows included) against its plain version within
    ``K4_TOL`` abs, and K4-bwd against its plain version in float64 within
-   ``K4_BWD_TOL`` norm-relative, bitwise equal over two calls; then K2 at
+   ``K4_BWD_TOL`` norm-relative, bitwise equal over two calls, every
+   clipped row's shift cotangent kept, at the wrapper's plan, at a forced
+   small row-group count, and at an odd shape (n_q 37, kv 3, 21 rows in
+   groups of 6); then K2 at
    the shape the 1-D attention gives it at divisor 0 (16 x 625 x 2501,
    O=2, the coordinate padded to 2) the same way, within ``K2_TOL`` and
    ``K2_BWD_TOL``;
@@ -88,11 +94,12 @@ with ``return_vgrid``) with seeded random weights:
 5d. compares f32 deformpathomic forwards (logits within ``LOGITS_TOL``)
    and one f32 ``deterministic_training`` step on the card with the CPU,
    at attn_dim 1 (divisor 1 and 0) and at attn_dim 2 with return_vgrid;
-6d. times K4 and K2 at the 1-D shape (O=2) against their plain versions,
-   with their bounds, the deformpathomic eval forward and train step of
+6d. times K4-fwd, K4-bwd and K2 at the 1-D shape (O=2) against their
+   plain versions, with their bounds, the deformpathomic eval forward and train step of
    each setting (bags/s, median and p80), and profiles one forward and one
    train step of each (device-busy share);
-2e. holds K1-fwd with the bf16 store (``cpb_table_bf16``) and K5-fwd (the
+2e. holds K1-fwd with the bf16 store (``cpb_table_bf16``; also at phase
+   2's odd shapes) and K5-fwd (the
    table CPB at divisor 2 and 4, tn 274 and 544, f32 and bf16 store, R =
    4608 rows of side 50, clipped rows included) bitwise against their plain
    versions, K1-bwd with a bf16 cotangent (within ``K1_BWD_TOL``) and
@@ -287,6 +294,9 @@ REDESIGNED.update({name: "table tiles" for name in (
 REDESIGNED.update({
     name: "one wave over tile pairs, register-tiled f32 FMA" for name in (
         "dpc_knn (K3-knn)", "dpc_parent (K3-parent)")})
+REDESIGNED["cpb_table_1d_bwd (K4-bwd)"] = "1-D table tiles, owner computes"
+REDESIGNED["cpb_table_interp_fwd (K1-fwd)"] = (
+    "one-wave row pipeline, vector stores")
 # the K6 kernels (the resident attention backward serves K7-bwd too; the
 # earlier design's instances are fused_attention_bwd_kernel<...>), whose
 # ptxas and SASS figures phase 2 prints
@@ -294,6 +304,9 @@ K6_KERNELS = ("fused_table_fwd_kernel", "fused_attention_bwd_resident_kernel",
               "fused_attention_bwd_kernel")
 # the K3 kernels (an instance per k of K3-knn's, one of K3-parent's)
 K3_KERNELS = ("dpc_split_kernel", "dpc_finish_kernel")
+# K4-bwd's kernels and K1-fwd's (an instance per store type)
+K4_BWD_KERNELS = ("table1d_bwd_tile_kernel", "table1d_bwd_finish_kernel")
+K1_FWD_KERNELS = ("cpb_table_interp_fwd_kernel",)
 
 
 def card_line() -> str:
@@ -316,6 +329,16 @@ def host_cpu() -> str:
             f"{torch.backends.cpu.get_cpu_capability()}")
 
 
+def hold_queue(calls: int) -> None:
+    """Queue a spin of the card long enough for the host to launch
+    ``calls`` calls behind it (100 us each), so that events around them
+    time the card's work and not the host's launches: a kernel of ~0.02 ms
+    is otherwise timed at its wrapper's host cost."""
+    import torch
+
+    torch.cuda._sleep(int(calls * 1e-4 * 2e9))  # cycles at up to 2 GHz
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     import torch
 
@@ -324,6 +347,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    hold_queue(iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -647,6 +671,14 @@ def k2_ptxas(log: str, lib) -> list[str]:
 RESIDENT = {"ILb1E": "<resident>", "ILb0E": "<chunked>"}
 
 
+def k1_instance(name: str) -> str:
+    """K1-fwd's instance of the mangled ``name``: its store type and where
+    it reads the table (``kShared``, the first template argument)."""
+    store = "bf16" if "nv_bfloat16" in name else "f32"
+    where = "in shared memory" if "ILb1E" in name else "through L1"
+    return f"<{store} store, table {where}>"
+
+
 def k3_instance(name: str) -> str:
     """The instance of a K3 kernel by its mangled name: K3-parent, or
     K3-knn and its k (the earlier design had no k)."""
@@ -799,6 +831,11 @@ def main() -> int:
         print(f"[K6 SASS] {line}")
     for label, line in table_bwd_ptxas(build.build_log()):
         print(f"[{label} ptxas] {line}")
+    for line in kernel_ptxas(build.build_log(), K4_BWD_KERNELS, {}):
+        print(f"[K4-bwd ptxas] {line}")
+    for line in kernel_ptxas(build.build_log(), K1_FWD_KERNELS,
+                             k1_instance):
+        print(f"[K1-fwd ptxas] {line}")
     for line in kernel_ptxas(build.build_log(), K3_KERNELS, k3_instance):
         print(f"[K3 ptxas] {line}")
     for line in sass_counts(build.library_dir() / build.LIB_NAME,
@@ -822,10 +859,14 @@ def main() -> int:
         k1_ref = cpb.table_interp_reference(table, taps, fracs, side)
     torch.cuda.synchronize()
     k1_err = (k1 - k1_ref).abs().max().item()
+    k1_same = torch.equal(k1, k1_ref)
     print(f"[K1] R={taps.shape[0]} side={side} tn={table.shape[0]} "
-          f"clipped rows={n_clipped} max_abs_err={k1_err:.3e} (tol {K1_TOL})")
-    if table.shape[0] != 139 or n_clipped == 0 or not k1_err <= K1_TOL:
+          f"clipped rows={n_clipped} max_abs_err={k1_err:.3e} (tol {K1_TOL})"
+          f", bitwise equal: {k1_same}")
+    if (table.shape[0] != 139 or n_clipped == 0 or not k1_err <= K1_TOL
+            or not k1_same):
         raise RuntimeError("K1 disagrees with its plain version")
+    check_table_fwd_shapes(cpb, dev, card, torch.float32)
 
     grid_q = normalized_grid_flat(side, dev)
     gkv2 = ((torch.rand(B * H, K, 2, generator=gen) * 2 - 1) * kv_bound).to(dev)
@@ -976,10 +1017,16 @@ def main() -> int:
         # 67 TFLOP/s f32 outside the tensor cores (H100 SXM data sheet)
         k1_bytes = taps.shape[0] * side * side * 4
         k2_flops = k2_fwd_flops(gkv2.shape[0] * K * side * side, 1)
+        k1_bound, k1_by = table_bounds(table, taps, side)[0]
+        k1_blocks = build.kernels().dmlt_cpb_table_interp_fwd_blocks(
+            0, *table.shape)
         print(f"[time] K1 table_interp R=4608 side=50: kernel {k1_ms:.4f} ms,"
               f" plain {k1_plain:.4f} ms; {k1_bytes / k1_ms / 1e9:.3f} TB/s "
-              f"written = {k1_bytes / k1_ms / 1e9 / 3.35:.1%} of 3.35 TB/s "
-              f"| {card}")
+              f"written = {k1_bytes / k1_ms / 1e9 / 3.35:.1%} of 3.35 TB/s; "
+              f"bound {k1_bound:.4f} ms by {k1_by} "
+              f"({k1_bound / k1_ms:.1%} of it); "
+              f"{k1_blocks} blocks an SM, the {4 * table.numel()} B table "
+              f"in shared memory each | {card}")
         flush = torch.empty(32 * 2 ** 20, device=dev)  # 128 MB > 50 MB L2
         k1_cold = median(ms_samples(
             lambda: cpb.table_interp(table, taps, fracs, side), 50,
@@ -1181,16 +1228,7 @@ def kernel_line(launches, errs, times, fwd, bwd, dpc, k4, k5, k6,
     x_bytes = 4 * (B * N * C + B * N)  # x and x2
     k3k_bound = bound(x_bytes + 4 * B * N * (dpc["k"] + 1), dots)
     k3p_bound = bound(x_bytes + 4 * B * N * 2, dots)
-    # K4: the bias written once (fwd) or its cotangent read once (bwd), the
-    # table, taps and fractions read once; 3 flops per output (two products,
-    # a sum), 7 per cotangent element (the scatter's two products and two
-    # sums, the shift term's difference, product and sum)
-    k4_out = k4["out_numel"]
-    k4_small = 4 * (k4["table"].numel() + 2 * k4["taps"].shape[0])
-    k4_bound = bound(4 * k4_out + k4_small, 3 * k4_out)
-    k4b_bound = bound(4 * k4_out + k4_small + 4 * (k4["table"].numel()
-                                                   + k4["taps"].shape[0]),
-                      7 * k4_out)
+    k4_bound, k4b_bound = table1d_bounds(k4)
     # K5 at divisor 4, f32 (phase 6e's timed case)
     k5_bound, k5b_bound = table_bounds(k5[4]["table"], k5[4]["taps"], side)
     # K6: q, k, v, the table, taps and fractions read, out and attn written
@@ -1587,13 +1625,44 @@ def deformpathomic_settings(cfg) -> tuple:
             cfg.replace(mode="deformpathomic", attn_dim=2, return_vgrid=True))
 
 
-def check_table1d_kernels(dev, card: str) -> dict:
-    """Phase 2d: K4-fwd at deformpathomic's preset shape (B=4 x G=4 rows of
-    K=625 kv points, O=2 channels, n_q=2501 queries, kv points up to 25%
-    past the bound so that some rows clip) against its plain version, and
-    K4-bwd against its plain version in float64 (the f32 plain version's
-    own error printed beside), called twice to show that it is
-    deterministic."""
+def check_table_fwd_shapes(cpb, dev, card: str, dtype) -> None:
+    """K1-fwd with the ``dtype`` store bitwise against its plain version at
+    odd shapes: side 7 and 33 (rows that start off the vector alignment, so
+    a scalar head and tail), R 1 and 5, kv points up to 25% past the bound
+    of the teacher's 12 x 12 deformed grid, from seed 11."""
+    import torch
+
+    gen = torch.Generator().manual_seed(11)
+    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    for side in (7, 33):
+        table = cpb.cpb_table(*mlp_weights(1, gen, dev), side=side,
+                              kv_bound=kv_bound)
+        for R in (1, 5):
+            gkv = ((torch.rand(1, R, 2, generator=gen) * 2 - 1)
+                   * kv_bound * 1.25).to(dev)
+            taps, fracs = cpb.table_taps(
+                cpb.table_shifts(gkv, side=side, kv_bound=kv_bound),
+                side=side, tn=table.shape[0])
+            with torch.inference_mode():
+                got = cpb.table_interp(table, taps, fracs, side, dtype)
+                want = cpb.table_interp_reference(table, taps, fracs, side,
+                                                  out_dtype=dtype)
+            torch.cuda.synchronize()
+            same = got.dtype == want.dtype == dtype and torch.equal(got, want)
+            print(f"[K1 {str(dtype)[6:]} store] side={side} R={R} "
+                  f"tn={table.shape[0]}: bitwise equal to its plain version "
+                  f"{same} | {card}")
+            if not same:
+                raise RuntimeError(f"K1 ({str(dtype)[6:]} store) disagrees "
+                                   f"with its plain version at side {side}, "
+                                   f"R {R}")
+
+
+def table1d_case(dev) -> dict:
+    """Phase 2d's inputs: deformpathomic's preset shape (B=4 x G=4 rows of
+    K=625 kv points, O=2 channels, n_q=2501 queries), the 1-D table of a
+    random MLP, kv points up to 25% past the bound so that some rows clip,
+    and a random f32 bias cotangent, drawn from seed 4 in that order."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.ops import cpb1d
@@ -1609,47 +1678,124 @@ def check_table1d_kernels(dev, card: str) -> dict:
     taps, fracs = cpb1d.table1d_taps(
         cpb1d.table1d_shifts(gkv, n_q=n_q, kv_bound=kv_bound),
         n_q=n_q, tn=table.shape[1])
+    dout = torch.randn(B * G, O, K, n_q, generator=gen).to(dev)
+    return dict(table=table, taps=taps, fracs=fracs, dout=dout, n_q=n_q,
+                kv=K)
+
+
+def check_table1d_backward(c: dict, card: str, plans: dict) -> float:
+    """K4-bwd on case ``c`` against its plain version in float64 within
+    ``K4_BWD_TOL`` norm-relative (the f32 plain version's own error printed
+    beside), bitwise equal over two calls, every clipped row's shift
+    cotangent kept; at each of ``plans`` (label -> ``TABLE1D_BWD_BLOCKS``
+    for the two calls, None for the wrapper's plan).  Returns the largest
+    abs error against float64."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb1d
+
+    table, taps, fracs, dout = (c[n] for n in ("table", "taps", "fracs",
+                                               "dout"))
+    n_q, kv = c["n_q"], c["kv"]
+    R = taps.shape[0]
+    want = cpb1d.table1d_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), n_q, kv)
+    plain = cpb1d.table1d_interp_backward_reference(table, taps, fracs, dout,
+                                                    n_q, kv)
+    clipped = (fracs < 0) | (fracs > 1)
+    bwd_err = 0.0
+    for label, blocks in plans.items():
+        saved = cpb1d.TABLE1D_BWD_BLOCKS
+        cpb1d.TABLE1D_BWD_BLOCKS = blocks or saved
+        try:
+            plan = cpb1d.table1d_bwd_plan(*table.shape, R)
+            kb = [cpb1d.table1d_interp_backward(table, taps, fracs, dout,
+                                                n_q, kv) for _ in range(2)]
+        finally:
+            cpb1d.TABLE1D_BWD_BLOCKS = saved
+        torch.cuda.synchronize()
+        det = all(torch.equal(a, b) for a, b in zip(*kb))
+        errs = {n: (rel_err(g, ww), rel_err(p, ww)) for n, g, p, ww in
+                zip(("dtable", "dshifts"), kb[0], plain, want)}
+        err = max((g.double() - ww).abs().max().item()
+                  for g, ww in zip(kb[0], want))
+        bwd_err = max(bwd_err, err)
+        kept = bool((kb[0][1][clipped] != 0).all())
+        print(f"[K4-bwd] {label}: R={R} O={table.shape[0]} n_q={n_q} "
+              f"tn={table.shape[1]}, {plan.groups} row groups of "
+              f"{plan.rows_per_group}, {plan.tiles} tiles of {plan.tile}: "
+              "rel err vs f64 kernel / f32 plain " + ", ".join(
+                  f"{n} {e:.3e} / {pe:.3e} (tol {K4_BWD_TOL[n]})"
+                  for n, (e, pe) in errs.items())
+              + f"; deterministic (2 calls bitwise equal) {det}; clipped "
+              f"rows {int(clipped.sum())}, their dshift kept {kept}; "
+              f"max_abs_err {err:.3e} | {card}")
+        if (not det or not clipped.any() or not kept
+                or not all(e <= K4_BWD_TOL[n] for n, (e, _) in errs.items())):
+            raise RuntimeError(f"K4-bwd ({label}) disagrees with its plain "
+                               "version or is not deterministic")
+        del kb
+    return bwd_err
+
+
+def table1d_odd_case(dev) -> dict:
+    """An odd K4 shape: n_q 37, kv 3, 7 (batch, group) rows of 3 kv points
+    (21 rows: groups of 6 at 4 row groups), O=2, kv points up to 50% past
+    the bound (clipped rows at both ends), from seed 12."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb1d
+
+    BG, K, O, n_q = 7, 3, 2, 37
+    kv_bound = 1.0 + 4.0 / (K - 1)
+    gen = torch.Generator().manual_seed(12)
+    w = list(mlp_weights(O, gen, dev))
+    w[0] = w[0][:1].contiguous()
+    table = cpb1d.cpb_table_1d(*w, n_q=n_q, kv_bound=kv_bound)
+    gkv = ((torch.rand(BG, K, generator=gen) * 2 - 1)
+           * kv_bound * 1.5).to(dev)
+    taps, fracs = cpb1d.table1d_taps(
+        cpb1d.table1d_shifts(gkv, n_q=n_q, kv_bound=kv_bound),
+        n_q=n_q, tn=table.shape[1])
+    dout = torch.randn(BG, O, K, n_q, generator=gen).to(dev)
+    return dict(table=table, taps=taps, fracs=fracs, dout=dout, n_q=n_q,
+                kv=K)
+
+
+def check_table1d_kernels(dev, card: str) -> dict:
+    """Phase 2d: K4-fwd on :func:`table1d_case`'s inputs against its plain
+    version, and K4-bwd through :func:`check_table1d_backward` at three
+    plans: the wrapper's, a forced small row-group count (the fewest the
+    1,024-row group limit allows), and :func:`table1d_odd_case`'s odd
+    shape in 4 row groups."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb1d
+
+    c = table1d_case(dev)
+    table, taps, fracs, n_q, K = (c[n] for n in ("table", "taps", "fracs",
+                                                 "n_q", "kv"))
     clipped = (fracs < 0) | (fracs > 1)
     with torch.inference_mode():
         got = cpb1d.table1d_interp(table, taps, fracs, n_q, K)
         want = cpb1d.table1d_interp_reference(table, taps, fracs, n_q, K)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    print(f"[K4] R={B * G * K} O={O} n_q={n_q} tn={table.shape[1]} out "
-          f"{tuple(got.shape)} clipped rows={int(clipped.sum())} "
-          f"max_abs_err={err:.3e} (tol {K4_TOL}), bitwise equal: "
-          f"{torch.equal(got, want)} | {card}")
+    print(f"[K4] R={taps.shape[0]} O={table.shape[0]} n_q={n_q} "
+          f"tn={table.shape[1]} out {tuple(got.shape)} clipped "
+          f"rows={int(clipped.sum())} max_abs_err={err:.3e} (tol {K4_TOL}), "
+          f"bitwise equal: {torch.equal(got, want)} | {card}")
     if (table.shape[1] != 5023 or not clipped.any() or got.shape != want.shape
             or not err <= K4_TOL):
         raise RuntimeError("K4 disagrees with its plain version")
     del got, want
-    dout = torch.randn(B * G, O, K, n_q, generator=gen).to(dev)
-    kb = [cpb1d.table1d_interp_backward(table, taps, fracs, dout, n_q, K)
-          for _ in range(2)]
-    torch.cuda.synchronize()
-    det = all(torch.equal(a, b) for a, b in zip(*kb))
-    want = cpb1d.table1d_interp_backward_reference(
-        table.double(), taps, fracs.double(), dout.double(), n_q, K)
-    plain = cpb1d.table1d_interp_backward_reference(table, taps, fracs, dout,
-                                                    n_q, K)
-    errs = {n: (rel_err(g, ww), rel_err(p, ww))
-            for n, g, p, ww in zip(("dtable", "dshifts"), kb[0], plain, want)}
-    bwd_err = max((g.double() - ww).abs().max().item()
-                  for g, ww in zip(kb[0], want))
-    clipped_dsh = kb[0][1][clipped].abs().min().item()
-    for n, (e, pe) in errs.items():
-        print(f"[K4-bwd] R={B * G * K} O={O} n_q={n_q} {n}: rel err vs f64 "
-              f"kernel {e:.3e}, f32 plain {pe:.3e} (tol {K4_BWD_TOL[n]}) "
-              f"| {card}")
-    print(f"[K4-bwd] clipped rows' smallest |dshift| {clipped_dsh:.3e}; "
-          f"deterministic (2 calls bitwise equal): {det}; max_abs_err "
-          f"{bwd_err:.3e}")
-    if (not det or not clipped_dsh > 0
-            or not all(e <= K4_BWD_TOL[n] for n, (e, _) in errs.items())):
-        raise RuntimeError("K4-bwd disagrees with its plain version or is "
-                           "not deterministic")
-    return dict(table=table, taps=taps, fracs=fracs, dout=dout, n_q=n_q,
-                kv=K, err=err, bwd_err=bwd_err, out_numel=dout.numel())
+    bwd_err = max(
+        check_table1d_backward(c, card, {
+            "the wrapper's plan": None,
+            "a forced small row-group count": 1}),
+        check_table1d_backward(table1d_odd_case(dev), card,
+                               {"an odd shape": 8}))
+    return dict(c, err=err, bwd_err=bwd_err, out_numel=c["dout"].numel())
 
 
 def exact_backward_in_chunks(cpb, grid_q, gkv, w, dbias, dtype,
@@ -1764,6 +1910,20 @@ def run_deformpathomic_entries(preset, train_preset, dev, card: str) -> dict:
     return main_counts
 
 
+def table1d_bounds(k4: dict) -> tuple:
+    """``(forward, backward)`` bounds of K4 on phase 2d's inputs: the bias
+    written once (fwd) or its cotangent read once (bwd), the table, taps
+    and fractions read once (the backward also writes the table and shift
+    cotangents); 3 flops per output (two products, a sum), 7 per cotangent
+    element (the scatter's two products and two sums, the shift term's
+    difference, product and sum)."""
+    out = k4["out_numel"]
+    small = 4 * (k4["table"].numel() + 2 * k4["taps"].shape[0])
+    return (bound(4 * out + small, 3 * out),
+            bound(4 * out + small + 4 * (k4["table"].numel()
+                                         + k4["taps"].shape[0]), 7 * out))
+
+
 def time_table1d_kernels(k4: dict, k2_1d: dict, card: str) -> dict:
     """Phase 6d: K4-fwd and K4-bwd against their plain versions (for the
     backward, autograd through the plain forward with its graph kept), on
@@ -1772,6 +1932,7 @@ def time_table1d_kernels(k4: dict, k2_1d: dict, card: str) -> dict:
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.ops import cpb, cpb1d
+    from disentangled_multimodal_learning_tpu_torch.ops.build import kernels
 
     t, taps, fracs, dout = k4["table"], k4["taps"], k4["fracs"], k4["dout"]
     n_q, kv = k4["n_q"], k4["kv"]
@@ -1787,12 +1948,21 @@ def time_table1d_kernels(k4: dict, k2_1d: dict, card: str) -> dict:
         lambda: cpb1d.table1d_interp_backward(t, taps, fracs, dout, n_q, kv),
         20)
     del out
-    for name, (ms, plain) in (("K4-fwd", fwd), ("K4-bwd", bwd)):
+    fwd_bound, bwd_bound = table1d_bounds(k4)
+    for name, (ms, plain), (bms, by) in (("K4-fwd", fwd, fwd_bound),
+                                         ("K4-bwd", bwd, bwd_bound)):
         print(f"[time] {name} R={taps.shape[0]} O=2 n_q={n_q}: kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms; {nbytes / ms / 1e9:.3f} "
               f"TB/s of the {nbytes / 1e6:.0f} MB bias "
               f"{'written' if name == 'K4-fwd' else 'cotangent read'} = "
-              f"{nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s | {card}")
+              f"{nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s; bound {bms:.4f} "
+              f"ms by {by} ({bms / ms:.1%} of it) | {card}")
+    plan = cpb1d.table1d_bwd_plan(*t.shape, taps.shape[0])
+    print(f"[K4-bwd plan] {plan.groups} row groups of {plan.rows_per_group},"
+          f" {plan.tiles} tiles of {plan.tile} entries: {plan.groups * plan.tiles}"
+          f" blocks of 256 threads, "
+          f"{kernels().dmlt_cpb_table_1d_bwd_blocks(plan.rows_per_group)} an "
+          f"SM, {52 * plan.rows_per_group} B of shared memory each | {card}")
     torch.cuda.empty_cache()
 
     grid_q, gkv, w, dbias = (k2_1d[k] for k in ("grid_q", "gkv", "w", "dbias"))
@@ -1941,6 +2111,7 @@ def check_table_strided_kernels(cpb, dev, card: str) -> dict:
     if not same:
         raise RuntimeError("K1 with the bf16 store disagrees with its plain "
                            "version")
+    check_table_fwd_shapes(cpb, dev, card, torch.bfloat16)
     out["k1_bwd_err"] = check_table_backward(
         cpb, "K1-bwd", table, taps, fracs, dout.to(torch.bfloat16), side, 1,
         K1_BWD_TOL, card)
@@ -2192,6 +2363,7 @@ def time_opt_in_kernels(cpb, k5: dict, k6: dict, card: str) -> dict:
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.ops import fused_table
+    from disentangled_multimodal_learning_tpu_torch.ops.build import kernels
 
     side, times = 50, {}
     with torch.inference_mode():
@@ -2203,8 +2375,11 @@ def time_opt_in_kernels(cpb, k5: dict, k6: dict, card: str) -> dict:
             lambda: cpb.table_interp(c1["table"], c1["taps"], c1["fracs"],
                                      side, torch.bfloat16), 50)
         bms, by = table_bounds(c1["table"], c1["taps"], side, 2)[0]
+        blocks = kernels().dmlt_cpb_table_interp_fwd_blocks(
+            1, *c1["table"].shape)
         print(f"[time] K1-fwd bf16 store R=4608 side=50: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms; bound {bms:.4f} ms by {by} | {card}")
+              f"plain {plain:.4f} ms; bound {bms:.4f} ms by {by} "
+              f"({bms / ms:.1%} of it); {blocks} blocks an SM | {card}")
         times["k1_bf16"] = (ms, plain)
         ms = cuda_ms(lambda: cpb.table_interp_backward(
             c1["table"], c1["taps"], c1["fracs"], c1["dout"], side), 20)

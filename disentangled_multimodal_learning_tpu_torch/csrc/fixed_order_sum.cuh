@@ -1,6 +1,5 @@
 // Fixed-order sums shared by the backward kernels (K2-bwd cpb_exact_bwd.cu,
-// K4-bwd cpb_table_1d_bwd.cu, the attention backward of K6-bwd and K7-bwd
-// fused_attention_bwd.cuh).
+// the attention backward of K6-bwd and K7-bwd fused_attention_bwd.cuh).
 //
 // Blocks run in no order, so f32 atomics would make every training step
 // non-reproducible.  Each backward kernel instead sums a row's values over

@@ -38,6 +38,7 @@ _F = ctypes.c_float
 # ctypes would pass them as 32-bit ints and cut them); each returns an int
 SIGNATURES = {
     "dmlt_cpb_table_interp_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
+    "dmlt_cpb_table_interp_fwd_blocks": (_I, _I, _I),
     "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _P),
     "dmlt_cpb_table_strided_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -63,8 +64,9 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _F, _P),
     "dmlt_fused_exact_bwd_smem": (_I, _I),
     "dmlt_cpb_table_1d_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
-    "dmlt_cpb_table_1d_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _P),
+    "dmlt_cpb_table_1d_bwd": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _P),
+    "dmlt_cpb_table_1d_bwd_blocks": (_I,),
     "dmlt_dpc_knn": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "dmlt_dpc_parent": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "dmlt_dpc_smem_bytes": (_I,),

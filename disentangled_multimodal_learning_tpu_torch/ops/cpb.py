@@ -64,11 +64,6 @@ import torch
 
 HID = 32  # CPB hidden width (dim // 4 at dim 128); the K2 kernels' constant
 MAX_OUT_CHANNELS = 64  # K2 keeps w3 [HID, O] in shared memory
-# partial results of the backward kernels (one per block, summed in block
-# order by csrc/fixed_order_sum.cuh; fixed counts, so the sum order and the
-# result are fixed).  K4-bwd (ops/cpb1d.py): two 80 KB blocks per SM on the
-# H100's 132 SMs
-TABLE_BWD_PARTS = 264
 # K1-bwd and K5-bwd (csrc/table_bwd_tiles.cuh): one block per tile of the
 # table and group of rows; the rows split into enough groups for about this
 # many warps in all (64 on each of the H100's 132 SMs), a function of the
@@ -367,9 +362,6 @@ class _TableInterp(torch.autograd.Function):
         if out_dtype not in _OUT_DTYPES:
             raise ValueError(f"{name}: out_dtype {out_dtype}, want one of "
                              f"{_OUT_DTYPES}")
-        if divisor == 1 and (side + 1) ** 2 * 4 > 48 * 1024:
-            raise ValueError(f"table_interp: side {side} needs more than "
-                             "48 KB of shared memory per window")
         R = taps.shape[0]
         out = torch.empty((R, side, side), dtype=out_dtype,
                           device=table.device)

@@ -25,9 +25,24 @@ bitwise-equal results).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .cpb import SMEM_LIMIT, TABLE_BWD_PARTS, _on_card, _stream, table_consts
+from .cpb import _on_card, _stream, table_consts
+
+# K4-bwd (csrc/cpb_table_1d_bwd.cu): a block of 8 warps owns a tile of 1024
+# consecutive entries of one channel (each warp 128: 4 strips of 32) and
+# one group of rows; the rows split into groups for about this many blocks
+# in all (four waves of 4 blocks on each of the H100's 132 SMs: the tiles'
+# work differs, and the later waves even it out), a function of the shapes
+# alone, so that the groups' partial tables are summed in one fixed order
+TABLE1D_BWD_TILE = 1024
+TABLE1D_BWD_BLOCKS = 2112
+# and at most this many rows a group: a block lists its group's rows that
+# meet its tile in shared memory (kMaxRows in csrc/cpb_table_1d_bwd.cu)
+TABLE1D_BWD_ROWS_MAX = 1024
+GRID_Y_MAX = 65535  # row groups are the grid's y dimension
 
 
 def cpb_table_1d(w1, b1, w2, b2, w3, b3, *, n_q: int, kv_bound: float):
@@ -104,10 +119,60 @@ def _check_shapes(name, table, taps, fracs, n_q, kv):
                          f" n_q {n_q} kv {kv}")
 
 
+class Table1dBwdPlan(NamedTuple):
+    """The launch of K4-bwd (``csrc/cpb_table_1d_bwd.cu``): a block owns a
+    tile of ``tile`` consecutive entries of one of ``n_out`` channels
+    (``tiles_c`` tiles a channel) and one of ``groups`` runs of
+    ``rows_per_group`` consecutive rows.  The kernel takes ``groups`` and
+    restates the rest from the shapes."""
+
+    groups: int
+    rows_per_group: int
+    tile: int
+    tiles_c: int
+    n_out: int
+
+    @property
+    def tiles(self) -> int:
+        """The blocks of one row group: one per tile of each channel."""
+        return self.n_out * self.tiles_c
+
+
+def table1d_bwd_plan(n_out: int, tn: int, rows: int,
+                     groups: int | None = None) -> Table1dBwdPlan:
+    """K4-bwd's launch for an ``[n_out, tn]`` table and ``rows`` rows: tiles
+    of ``TABLE1D_BWD_TILE`` entries, and row groups for about
+    ``TABLE1D_BWD_BLOCKS`` blocks in all (or ``groups``), of at most
+    ``TABLE1D_BWD_ROWS_MAX`` rows, none empty.  Raises ``ValueError`` where
+    the rows need more than ``GRID_Y_MAX`` groups."""
+    tiles_c = -(-tn // TABLE1D_BWD_TILE)
+    if groups is None:
+        groups = -(-TABLE1D_BWD_BLOCKS // (n_out * tiles_c))
+    groups = max(1, min(rows, groups), -(-rows // TABLE1D_BWD_ROWS_MAX))
+    per_group = -(-rows // groups)
+    groups = -(-rows // per_group)  # none empty; ceil(rows / groups) stays
+    if groups > GRID_Y_MAX:
+        raise ValueError(f"table1d_interp_backward: {rows} rows need "
+                         f"{groups} row groups of at most "
+                         f"TABLE1D_BWD_ROWS_MAX = {TABLE1D_BWD_ROWS_MAX} rows,"
+                         f" more than GRID_Y_MAX = {GRID_Y_MAX}")
+    return Table1dBwdPlan(groups, per_group, TABLE1D_BWD_TILE, tiles_c, n_out)
+
+
+def table1d_bwd_scratch(plan: Table1dBwdPlan, rows: int, table):
+    """The kernels' scratch: the groups' partial table cotangents ``[groups,
+    n_out * tn]`` and the (row, tile) shift sums ``[rows, tiles]``, f32."""
+    return (torch.empty((plan.groups, table.numel()), dtype=torch.float32,
+                        device=table.device),
+            torch.empty((rows, plan.tiles), dtype=torch.float32,
+                        device=table.device))
+
+
 def table1d_interp_backward(table, taps, fracs, dout, n_q: int, kv: int):
     """K4-bwd wrapper: the forward's inputs and ``dout [BG, O, kv, n_q]``
     f32 -> ``(dtable [O, tn], dshifts [R])`` f32
-    (``csrc/cpb_table_1d_bwd.cu``, replaces ``_tbl1_bwd_kernel``)."""
+    (``csrc/cpb_table_1d_bwd.cu``, replaces ``_tbl1_bwd_kernel``), with
+    :func:`table1d_bwd_plan`'s launch."""
     if table.device.type == "cpu":
         return table1d_interp_backward_reference(table, taps, fracs, dout,
                                                  n_q, kv)
@@ -120,24 +185,19 @@ def table1d_interp_backward(table, taps, fracs, dout, n_q: int, kv: int):
     if dout.shape != want:
         raise ValueError(f"table1d_interp_backward: dout "
                          f"{tuple(dout.shape)}, want {want}")
-    smem = 4 * (2 * O * tn + 8)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"table1d_interp_backward: table {tuple(table.shape)}"
-                         f" needs {smem} B of shared memory per block, more "
-                         f"than {SMEM_LIMIT}")
     dtable = torch.empty_like(table)
     dshifts = torch.empty_like(fracs)
     if R == 0:  # nothing to launch, so nothing to count
         return dtable.zero_(), dshifts
     from .build import check, kernels
 
-    nparts = min(R, TABLE_BWD_PARTS)
-    partial = torch.empty((nparts, O * tn), dtype=torch.float32,
-                          device=table.device)
+    plan = table1d_bwd_plan(O, tn, R)
+    partial, dpart = table1d_bwd_scratch(plan, R, table)
     err = kernels().dmlt_cpb_table_1d_bwd(
         table.data_ptr(), O, tn, taps.data_ptr(), fracs.data_ptr(),
         dout.data_ptr(), dtable.data_ptr(), dshifts.data_ptr(),
-        partial.data_ptr(), R, kv, n_q, nparts, _stream(table))
+        partial.data_ptr(), dpart.data_ptr(), R, kv, n_q, plan.groups,
+        _stream(table))
     check(err, "table1d_interp_backward")
     table1d_interp_backward.launches += 1
     return dtable, dshifts
@@ -206,6 +266,7 @@ def cpb_bias_table_1d(grid_kv, w1, b1, w2, b2, w3, b3, *, n_q: int,
     return table1d_interp(table, taps, fracs, n_q, grid_kv.shape[1])
 
 
-__all__ = ["cpb_bias_table_1d", "cpb_table_1d", "table1d_interp",
-           "table1d_interp_backward", "table1d_interp_backward_reference",
+__all__ = ["cpb_bias_table_1d", "cpb_table_1d", "table1d_bwd_plan",
+           "table1d_interp", "table1d_interp_backward",
+           "table1d_interp_backward_reference",
            "table1d_interp_reference", "table1d_shifts", "table1d_taps"]

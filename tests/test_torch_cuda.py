@@ -170,8 +170,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cpb.table_interp(table, taps[:, :1].contiguous(), fracs, 10)
     with pytest.raises(ValueError, match="bad shapes"):
         cpb.table_interp(table, taps, fracs, 20)
-    with pytest.raises(ValueError, match="shared memory"):
-        cpb.table_interp(torch.zeros(200, 200, device=dev), taps, fracs, 120)
+    with pytest.raises(ValueError, match="out_dtype"):
+        cpb.table_interp(table, taps, fracs, 10, torch.float16)
 
     grid_q = torch.zeros(16, 2, device=dev)
     gkv = torch.zeros(2, 3, 2, device=dev)
@@ -584,10 +584,11 @@ def _k4_launches():
             cpb1d.table1d_interp_backward.launches)
 
 
-def _table1d_case(rng, n_q, bg, kv, dev):
+def _table1d_case(rng, n_q, bg, kv, dev, kv_bound=None):
     """The 1-D table of a random MLP (O = 2) and taps of kv points up to
-    25% past the bound, so that clipped rows extrapolate."""
-    kv_bound = 1.0 + 4.0 / (kv - 1)
+    25% past the bound, so that clipped rows extrapolate (the bound is
+    the 1-D attention's unless given: a larger one makes a wider table)."""
+    kv_bound = kv_bound or 1.0 + 4.0 / (kv - 1)
     w = _mlp(rng, 2, dev)
     w[0] = w[0][:1].contiguous()  # the 1-coordinate first layer
     table = cpb1d.cpb_table_1d(*w, n_q=n_q, kv_bound=kv_bound)
@@ -616,13 +617,34 @@ def test_table1d_kernel_matches_plain_version(dev, n_q, bg, kv):
     assert (got - want).abs().max().item() <= K4_TOL
 
 
+# K4-bwd's cases: (n_q, bg, kv, TABLE1D_BWD_BLOCKS or None for the
+# default, kv_bound or None for the 1-D attention's): the wrapper's plan at
+# fixdim 64 and at the preset, the preset in 10 row groups (the fewest its
+# 1,024-row groups allow), an odd shape in groups of 6 that do not divide
+# its 21 rows, one row, and a 2 x 14,917 table, past the 227 KB of shared
+# memory that the earlier design's table and partial copies needed
+TABLE1D_BWD_CASES = [
+    pytest.param(65, 8, 16, None, None, id="65-8-16"),
+    pytest.param(2501, 16, 625, None, None, id="2501-16-625"),
+    pytest.param(2501, 16, 625, 1, None, id="2501-16-625-in-10-groups"),
+    pytest.param(37, 7, 3, 8, None, id="37-7-3-in-groups-of-6"),
+    pytest.param(37, 1, 1, None, 2.0, id="37-1-1"),
+    pytest.param(65, 4, 9, None, 232.0, id="65-4-9-tn-14917"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_q,bg,kv", [(65, 8, 16), (2501, 16, 625)])
-def test_table1d_backward_kernel_matches_float64(dev, n_q, bg, kv):
+@pytest.mark.parametrize("n_q,bg,kv,blocks,kv_bound", TABLE1D_BWD_CASES)
+def test_table1d_backward_kernel_matches_float64(dev, monkeypatch, n_q, bg,
+                                                 kv, blocks, kv_bound):
     """K4-bwd against its plain version in float64, clipped rows included
-    (their shift cotangent kept), and bitwise equal over two calls."""
-    rng = np.random.default_rng(10 + n_q)
-    table, taps, fracs = _table1d_case(rng, n_q, bg, kv, dev)
+    (their shift cotangent kept), and bitwise equal over two calls, at the
+    wrapper's plan and at other row-group counts, odd shapes and a table
+    wider than the earlier design's shared memory held."""
+    rng = np.random.default_rng(10 + n_q + bg + kv)
+    table, taps, fracs = _table1d_case(rng, n_q, bg, kv, dev, kv_bound)
+    if blocks:
+        monkeypatch.setattr(cpb1d, "TABLE1D_BWD_BLOCKS", blocks)
     dout = torch.from_numpy(rng.normal(size=(bg, 2, kv, n_q))
                             .astype(np.float32)).to(dev)
     before = _k4_launches()
@@ -635,7 +657,8 @@ def test_table1d_backward_kernel_matches_float64(dev, n_q, bg, kv):
         assert torch.equal(a, b)
         assert a.shape == w.shape and _rel(a, w) <= K4_BWD_TOL
     clipped = (fracs < 0) | (fracs > 1)
-    assert clipped.any() and (got[0][1][clipped] != 0).all()
+    assert bg * kv == 1 or clipped.any()
+    assert (got[0][1][clipped] != 0).all()
 
 
 @pytest.mark.cuda
@@ -656,10 +679,17 @@ def test_table1d_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cpb1d.table1d_interp_backward(table, taps, fracs,
                                       torch.zeros(2, 2, 3, 9, device=dev),
                                       10, 3)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="CUDA"):
+        cpb1d.table1d_interp_backward(table, taps, fracs,
+                                      torch.zeros(2, 2, 3, 10), 10, 3)
+    # more rows than GRID_Y_MAX groups of TABLE1D_BWD_ROWS_MAX rows hold
+    rows = cpb1d.GRID_Y_MAX * cpb1d.TABLE1D_BWD_ROWS_MAX + 1
+    with pytest.raises(ValueError, match="TABLE1D_BWD_ROWS_MAX"):
         cpb1d.table1d_interp_backward(
-            torch.zeros(2, 15000, device=dev), taps, fracs,
-            torch.zeros(2, 2, 3, 10, device=dev), 10, 3)
+            torch.zeros(1, 8, device=dev),
+            torch.zeros(rows, dtype=torch.int32, device=dev),
+            torch.zeros(rows, device=dev),
+            torch.empty(rows, 1, 1, 1, device=dev), 1, 1)
     # empty inputs give empty outputs and launch (and count) nothing
     assert cpb1d.table1d_interp(table, taps[:0], fracs[:0], 10, 3).shape == (
         0, 2, 3, 10)
@@ -791,6 +821,48 @@ def test_table_kernels_match_plain_version_bitwise(dev, divisor, dtype):
     assert delta == ((1, 0, 0, 0, 0, 0) if divisor == 1
                      else (0, 0, 1, 0, 0, 0))
     want = cpb.table_interp_reference(table, taps, fracs, 50, divisor, dtype)
+    assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,rows", [(1, 1), (2, 5), (3, 7), (7, 1),
+                                       (7, 5), (33, 1), (33, 5), (50, 1),
+                                       (7, 3000), (33, 2500), (120, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_kernel_at_odd_sides_bitwise(dev, side, rows, dtype):
+    """K1-fwd at sides whose rows start off the vector alignment (a scalar
+    head and tail; side 1 to 3 below one vector a window row), R = 1, more
+    rows than one wave's blocks take once, and side 120 (a window past the
+    48 KB the earlier design staged per row), in f32 and with the bf16
+    store: bitwise equal to its plain version, clipped rows within four
+    cells included, one launch each."""
+    rng = np.random.default_rng(1000 * side + rows)
+    table, taps, fracs, _ = _tile_edge_case(rng, side, 1, rows, dev)
+    before = _k56_launches()
+    with torch.inference_mode():
+        got = cpb.table_interp(table, taps, fracs, side, dtype)
+    delta = tuple(a - b for a, b in zip(_k56_launches(), before))
+    assert delta == (1, 0, 0, 0, 0, 0)
+    want = cpb.table_interp_reference(table, taps, fracs, side, 1, dtype)
+    assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_kernel_reads_a_large_table_through_l1(dev, dtype):
+    """K1-fwd with a 311 x 311 table (378 KB, more than a block's shared
+    memory, so read from global memory through L1 instead of copied):
+    bitwise equal to its plain version at side 50, clipped rows included,
+    one launch."""
+    rng = np.random.default_rng(77)
+    table, taps, fracs, _ = _tile_edge_case(rng, 50, 1, 300, dev, extra=260)
+    assert table.numel() * 4 > 227 * 1024
+    before = _k56_launches()
+    with torch.inference_mode():
+        got = cpb.table_interp(table, taps, fracs, 50, dtype)
+    delta = tuple(a - b for a, b in zip(_k56_launches(), before))
+    assert delta == (1, 0, 0, 0, 0, 0)
+    want = cpb.table_interp_reference(table, taps, fracs, 50, 1, dtype)
     assert got.dtype == want.dtype == dtype and torch.equal(got, want)
 
 

@@ -2,14 +2,17 @@
 """Kernels of the PyTorch port against an earlier version of their
 sources, on one NVIDIA GPU: the exact-CPB kernels K2 (``--kernel k2``, the
 default), the fused table attention K6 with K7-bwd (``--kernel k6``), the
-table CPB's backward K1-bwd and K5-bwd (``--kernel table``), or the
-streamed DPC-KNN passes K3-knn and K3-parent (``--kernel k3``).
+table CPB's backward K1-bwd and K5-bwd (``--kernel table``), the streamed
+DPC-KNN passes K3-knn and K3-parent (``--kernel k3``), the 1-D table CPB's
+backward K4-bwd (``--kernel k4``), or the divisor-1 table CPB's forward
+K1-fwd (``--kernel k1``).
 
     mkdir -p build/k2_parent && git archive <commit> \\
         disentangled_multimodal_learning_tpu_torch/csrc | tar -x -C build/k2_parent
     python3 tools/torch_k2_compare.py --parent build/k2_parent \\
         [--kernel k6 | --kernel table [--groups 32 64]
-         | --kernel k3 [--blocks 200 528]]
+         | --kernel k3 [--blocks 200 528] | --kernel k4 [--groups 53 209]
+         | --kernel k1]
 
 ``--parent`` is a directory holding an earlier
 ``disentangled_multimodal_learning_tpu_torch/csrc`` (``build/`` is ignored
@@ -76,6 +79,31 @@ whether two calls are bitwise equal, both timed with CUDA events
 at the block counts of ``--blocks``, and f32 ``torch.bmm(x, x^T)`` with
 TF32 off as a yardstick for the dots alone (not the function); and each
 build's ptxas lines and its HMMA and FFMA counts in the SASS.
+
+``k4``: the earlier and the current ``cpb_table_1d_bwd.cu``, each with its
+compile-time phase splits (``K4_PARTIALS_SPLIT`` for the design with a
+partial table per block: without the shift sums, without the partial
+tables, the loads alone with and without the barrier between rows;
+``K4_TILES_SPLIT`` for the tile design: without the shift sums, without
+the finishing kernel, without reading the cotangent, without the rows,
+and variants of its rows in flight, strips and warps).  Then, by raw C
+calls on ``chip_smoke.py``'s phase-2d inputs (R = 10,000, O = 2, n_q =
+2501): each version's errors against float64 and whether two calls are
+bitwise equal, both timed with CUDA events (earlier, current, current,
+earlier), each split twice, the current design at the row-group counts of
+``--groups``; and each build's ptxas lines.
+
+``k1``: the earlier and the current ``cpb_table.cu``, each with its
+compile-time splits (``K1_ROWS_SPLIT`` for the block-per-row design:
+stores alone with scalar and with vector stores, no window staging;
+``K1_WAVE_SPLIT`` for the one-wave design: stores alone, scalar stores,
+the table through L1, the blends alone, and variants of block size).  Then, with the f32 and the bf16 store, by raw C calls on
+``chip_smoke.py``'s phase-2e divisor-1 inputs (R = 4608, side 50): each
+version bitwise against the plain version, both timed (earlier, current,
+current, earlier), each split twice; each build's ptxas lines and the
+current build's SASS op counts.  Times are taken with the calls queued
+behind a spin of the card (``chip_smoke.py hold_queue``), so they are the
+card's and not the host's.
 """
 
 from __future__ import annotations
@@ -235,6 +263,32 @@ def sass_spills(lib: Path):
               f"{len(set(f['STL']))} stack slots, {len(f['LDL'])} spill loads")
 
 
+def sass_ops(lib: Path, key: str, ops=("LDS", "LD", "LDG", "STG", "STS",
+                                        "FMUL", "FADD", "FFMA", "SHFL",
+                                        "BAR", "LDGSTS")):
+    """Per instance of the kernels whose names hold ``key`` in ``lib``: the
+    count of each of ``ops`` in its SASS (from ``cuobjdump -sass``)."""
+    import re
+
+    from disentangled_multimodal_learning_tpu_torch.ops import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    found = []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            found.append([m.group(1) if key in m.group(1) else None,
+                          dict.fromkeys(ops, 0)])
+        elif found and found[-1][0]:
+            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if op and op.group(1) in found[-1][1]:
+                found[-1][1][op.group(1)] += 1
+    return [f"{name[-60:]}: " + ", ".join(f"{n} {op}" for op, n in c.items())
+            for name, c in found if name]
+
+
 def load(name: str):
     lib = ctypes.CDLL(str(OUT / name / "lib.so"))
     if hasattr(lib, "dmlt_cpb_exact_fwd"):
@@ -251,11 +305,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--kernel", choices=("k2", "k6", "table", "k3"),
-                    default="k2")
+    ap.add_argument("--kernel", choices=("k2", "k6", "table", "k3", "k4",
+                                         "k1"), default="k2")
     ap.add_argument("--groups", type=int, nargs="*", default=(),
-                    help="table: also time the current design at these "
-                    "row-group counts")
+                    help="table and k4: also time the current design at "
+                    "these row-group counts")
     ap.add_argument("--blocks", type=int, nargs="*", default=(),
                     help="k3: also time the current design at these "
                     "block counts")
@@ -272,6 +326,10 @@ def main() -> int:
         return compare_table(parent, args.groups)
     if args.kernel == "k3":
         return compare_k3(parent, args.blocks)
+    if args.kernel == "k4":
+        return compare_k4(parent, args.groups)
+    if args.kernel == "k1":
+        return compare_k1(parent)
     return (compare_k6 if args.kernel == "k6" else compare_k2)(parent)
 
 
@@ -1052,6 +1110,422 @@ def compare_k3(parent: Path, block_counts=()) -> int:
     print(f"[K3] yardstick, the dots alone, not the function: f32 "
           f"torch.bmm(x, x^T) with TF32 off ms {t[0]:.4f} / {t[1]:.4f} "
           f"({flops / min(t) / 1e9:.1f} TFLOP/s) | {cs.card_line()}")
+    return 0
+
+
+# ---------------------------------------------------------------- K4-bwd
+
+K4_PARTIALS_KERNELS = ("cpb_table_1d_bwd_partial_kernel",
+                       "sum_partials_kernel")
+# compile-time patches (SPLIT k) of the earlier K4-bwd, a block per run of
+# rows keeping the table and a partial table in shared memory: each skips
+# one phase, for the time it takes (the results are wrong)
+K4_PARTIALS_SPLIT = {
+    1: ("without the shift sums (each row's terms and block sum)", [
+        ("        if (n < n_q) sd += d0 * (t[n + 1] - t[n]);",
+         "        if (SPLIT != 1 && n < n_q) sd += d0 * (t[n + 1] - t[n]);"),
+        ("    block_sum<kThreads>(s, s_red);",
+         "    if (SPLIT != 1) block_sum<kThreads>(s, s_red);")]),
+    2: ("without writing and summing the partial tables", [
+        ("  for (int i = threadIdx.x; i < tsize; i += blockDim.x) out[i] = "
+         "s_dtab[i];",
+         "  for (int i = threadIdx.x; SPLIT != 2 && i < tsize; "
+         "i += blockDim.x) out[i] = s_dtab[i];"),
+        ("  return sum_partials(partial, nparts, tsize, dtable, s);",
+         "  return SPLIT == 2 ? 0 : sum_partials(partial, nparts, tsize, "
+         "dtable, s);")]),
+    3: ("the loads alone (the row loop with its barrier reading d, no "
+        "scatter, no shift sum, no partial tables)", [
+            ("        dt[n] += d0 * g + d1 * f;\n"
+             "        if (n < n_q) sd += d0 * (t[n + 1] - t[n]);",
+             "        sd += d0 + d1;"),
+            ("    block_sum<kThreads>(s, s_red);\n"
+             "    if (threadIdx.x == 0) dshifts[r] = s[0];",
+             "    if (s[0] == 1234.5f) dshifts[r] = s[0];"),
+            ("  for (int i = threadIdx.x; i < tsize; i += blockDim.x) out[i] = "
+             "s_dtab[i];", ""),
+            ("  return sum_partials(partial, nparts, tsize, dtable, s);",
+             "  return 0;")]),
+    4: ("the loads alone, and no barrier between rows", [
+        ("    __syncthreads();  // the previous row's scatter (and s_red) "
+         "are done", ""),
+        ("        dt[n] += d0 * g + d1 * f;\n"
+         "        if (n < n_q) sd += d0 * (t[n + 1] - t[n]);",
+         "        sd += d0 + d1;"),
+        ("    block_sum<kThreads>(s, s_red);\n"
+         "    if (threadIdx.x == 0) dshifts[r] = s[0];",
+         "    if (s[0] == 1234.5f) dshifts[r] = s[0];"),
+        ("  for (int i = threadIdx.x; i < tsize; i += blockDim.x) out[i] = "
+         "s_dtab[i];", ""),
+        ("  return sum_partials(partial, nparts, tsize, dtable, s);",
+         "  return 0;")]),
+}
+# the same for the tile design, and variants of its rows in flight, strips
+# and warps (each a compile-time constant)
+K4_TILES_SPLIT = {
+    1: ("without the shift sums", [
+        ("      const float sum = warp_sum_rows<kRows>(sd, lane);",
+         "      const float sum = SPLIT == 1 ? 0.0f : "
+         "warp_sum_rows<kRows>(sd, lane);")]),
+    2: ("without the finishing kernel", [
+        ("  const int table_blocks = (n_out * tn + 31) / 32;",
+         "  if (SPLIT == 2) return 0;\n"
+         "  const int table_blocks = (n_out * tn + 31) / 32;")]),
+    3: ("without reading the cotangent", [
+        ("? __ldg(d + e) : 0.0f;", "? (SPLIT == 3 ? 0.0f : __ldg(d + e)) : "
+         "0.0f;"),
+        ("? __ldg(d + wb - 1) : 0.0f;",
+         "? (SPLIT == 3 ? 0.0f : __ldg(d + wb - 1)) : 0.0f;")]),
+    4: ("without the rows (listing them, the differences, the partial "
+        "tables and the finishing kernel)", [
+            ("    unsigned todo = __ballot_sync(0xffffffffu, active);",
+             "    unsigned todo = SPLIT == 4 ? 0u : "
+             "__ballot_sync(0xffffffffu, active);")]),
+    5: ("variant: 2 rows in flight", [
+        ("constexpr int kRows = 4;", "constexpr int kRows = 2;")]),
+    6: ("variant: 8 rows in flight", [
+        ("constexpr int kRows = 4;", "constexpr int kRows = 8;")]),
+    7: ("variant: strips of 8 (tiles of 2048)", [
+        ("constexpr int kStrip = 4;", "constexpr int kStrip = 8;")]),
+    8: ("variant: 4 warps a block (tiles of 512)", [
+        ("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
+        ("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 8)")]),
+    9: ("variant: strips of 8 (tiles of 2048), 3 blocks an SM", [
+        ("constexpr int kStrip = 4;", "constexpr int kStrip = 8;"),
+        ("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 3)")]),
+}
+K4_PARTIALS_ARGS = [P, I, I, P, P, P, P, P, P, I, I, I, I, P]
+
+
+def k4_design(csrc: Path) -> str:
+    """``"tiles"`` for the owner-computes tile design of K4-bwd, else
+    ``"partials"`` (a partial table per block)."""
+    text = (csrc / "cpb_table_1d_bwd.cu").read_text()
+    return "tiles" if "table1d_bwd_tile_kernel" in text else "partials"
+
+
+class Table1dBwd:
+    """Raw C calls of one build of K4-bwd, with its own scratch, on the
+    arguments of one case."""
+
+    def __init__(self, lib_name: str, design: str):
+        from disentangled_multimodal_learning_tpu_torch.ops import build
+
+        self.lib = ctypes.CDLL(str(OUT / lib_name / "lib.so"))
+        self.lib.dmlt_cpb_table_1d_bwd.argtypes = (
+            K4_PARTIALS_ARGS if design == "partials"
+            else list(build.SIGNATURES["dmlt_cpb_table_1d_bwd"]))
+        self.design = design
+
+    def call(self, c: dict, groups: int | None = None):
+        """A function that runs the backward once on case ``c`` into its
+        dtable and dshifts."""
+        import torch
+
+        from disentangled_multimodal_learning_tpu_torch.ops import cpb1d
+
+        table, taps, fracs, dout = (c[n] for n in ("table", "taps", "fracs",
+                                                   "dout"))
+        O, tn = table.shape
+        R = taps.shape[0]
+        head = (table.data_ptr(), O, tn, taps.data_ptr(), fracs.data_ptr(),
+                dout.data_ptr(), c["dtable"].data_ptr(),
+                c["dshifts"].data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.design == "tiles":
+            plan = cpb1d.table1d_bwd_plan(O, tn, R, groups)
+            partial = torch.empty(plan.groups, table.numel(),
+                                  device=table.device)
+            # room for the (row, tile) sums of tiles down to 256 entries
+            dpart = torch.empty(R, O * -(-tn // 256), device=table.device)
+            args = (*head, partial.data_ptr(), dpart.data_ptr(), R, c["kv"],
+                    c["n_q"], plan.groups, stream)
+            scratch = (partial, dpart)
+        else:
+            nparts = min(R, 264)  # TABLE_BWD_PARTS of the partial design
+            partial = torch.empty(nparts, table.numel(), device=table.device)
+            args = (*head, partial.data_ptr(), R, c["kv"], c["n_q"], nparts,
+                    stream)
+            scratch = (partial,)
+        c.setdefault("scratch", []).append(scratch)
+        fn = self.lib.dmlt_cpb_table_1d_bwd
+        return lambda: fn(*args)
+
+
+def compare_k4(parent: Path, group_counts=()) -> int:
+    """K4-bwd: earlier against current sources on phase 2d's inputs, raw C
+    calls timed with CUDA events (earlier, current, current, earlier), each
+    version's errors against float64 and its bitwise repeatability, its
+    compile-time splits, its ptxas lines, and the current design at the
+    row-group counts of ``--groups``."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb1d
+
+    current = ROOT / SUB
+    designs = {"earlier": k4_design(parent), "current": k4_design(current)}
+    print(f"designs: {designs}")
+    splits = {"partials": K4_PARTIALS_SPLIT, "tiles": K4_TILES_SPLIT}
+    kernels = {"partials": K4_PARTIALS_KERNELS, "tiles": cs.K4_BWD_KERNELS}
+    src = ("cpb_table_1d_bwd.cu",)
+    jobs = []
+    for ver, csrc in (("earlier", parent), ("current", current)):
+        jobs.append((f"k4_{ver}", csrc, src, (), ()))
+        jobs += [(f"k4_{ver}_split{n}", csrc, src, patches, (f"-DSPLIT={n}",))
+                 for n, (_, patches) in splits[designs[ver]].items()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda j: nvcc_build(*j), jobs))
+    for name, log in built:
+        design = designs[name.split("_")[1]]
+        keys = kernels[design]
+        if "split" in name:  # the variants' registers and spills
+            n = int(name.split("split")[1])
+            if splits[design][n][0].startswith("variant"):
+                print(f"{name} ptxas: " + " | ".join(cs.kernel_ptxas(log,
+                                                                     keys,
+                                                                     {})))
+            continue
+        print(f"{name} ptxas:\n  " + "\n  ".join(cs.kernel_ptxas(log, keys,
+                                                                  {})))
+    libs = {name: Table1dBwd(name, designs[name.split("_")[1]])
+            for name, _ in built}
+
+    dev = torch.device("cuda")
+    c = cs.table1d_case(dev)
+    c["dtable"] = torch.empty_like(c["table"])
+    c["dshifts"] = torch.empty_like(c["fracs"])
+    table, taps, fracs, dout = (c[n] for n in ("table", "taps", "fracs",
+                                               "dout"))
+    n_q, kv = c["n_q"], c["kv"]
+    R = taps.shape[0]
+    (bms, by) = cs.table1d_bounds(dict(c, out_numel=dout.numel()))[1]
+    plan = cpb1d.table1d_bwd_plan(*table.shape, R)
+    print(f"[K4-bwd] R={R} O={table.shape[0]} n_q={n_q} tn={table.shape[1]}:"
+          f" bound {bms:.4f} ms by {by}; the current plan {plan.groups} row "
+          f"groups of {plan.rows_per_group}, {plan.tiles} tiles | "
+          f"{cs.card_line()}")
+    want = cpb1d.table1d_interp_backward_reference(
+        table.double(), taps, fracs.double(), dout.double(), n_q, kv)
+    plain = cpb1d.table1d_interp_backward_reference(table, taps, fracs, dout,
+                                                    n_q, kv)
+    outs = {}
+    for ver in ("earlier", "current"):
+        run = libs[f"k4_{ver}"].call(c)
+        assert run() == 0
+        first = (c["dtable"].clone(), c["dshifts"].clone())
+        assert run() == 0
+        torch.cuda.synchronize()
+        det = all(torch.equal(a, b)
+                  for a, b in zip(first, (c["dtable"], c["dshifts"])))
+        outs[ver] = first
+        errs = [(cs.rel_err(g, w), cs.rel_err(p, w))
+                for g, p, w in zip(first, plain, want)]
+        print(f"[K4-bwd] {ver} ({designs[ver]}): deterministic {det}; rel "
+              "err vs f64, kernel / f32 plain: " + ", ".join(
+                  f"{n} {e:.3e} / {pe:.3e}"
+                  for n, (e, pe) in zip(("dtable", "dshifts"), errs)))
+    print("[K4-bwd] current against earlier, max abs: " + ", ".join(
+        f"{n} {(a - b).abs().max().item():.3e}" for n, a, b in
+        zip(("dtable", "dshifts"), outs["current"], outs["earlier"])))
+    del want, plain
+    ms = {}
+    for ver in ("earlier", "current", "current", "earlier"):
+        ms.setdefault(ver, []).append(cs.cuda_ms(libs[f"k4_{ver}"].call(c),
+                                                 20))
+    print("[K4-bwd] ms: " + ", ".join(
+        f"{ver} " + " / ".join(f"{t:.4f}" for t in ts)
+        for ver, ts in ms.items()) + f" | {cs.card_line()}")
+    for ver in ("earlier", "current"):
+        for n, (what, _) in splits[designs[ver]].items():
+            t = [cs.cuda_ms(libs[f"k4_{ver}_split{n}"].call(c), 20)
+                 for _ in range(2)]
+            print(f"[K4-bwd] {ver} split {n}, {what}: ms "
+                  + " / ".join(f"{x:.4f}" for x in t))
+    if designs["current"] == "tiles":
+        for g in group_counts:
+            t = [cs.cuda_ms(libs["k4_current"].call(c, g), 20)
+                 for _ in range(2)]
+            p = cpb1d.table1d_bwd_plan(*table.shape, R, g)
+            print(f"[K4-bwd] current at {p.groups} row groups of "
+                  f"{p.rows_per_group}: ms " + " / ".join(f"{x:.4f}"
+                                                          for x in t))
+    return 0
+
+
+# ---------------------------------------------------------------- K1-fwd
+
+# compile-time patches (SPLIT k) of the earlier K1-fwd, a block per row:
+# each run drops the window staging, and stores a constant with scalar or
+# vector stores, or reads its taps straight from the table in L2
+_K1_ROWS_NO_STAGING = (
+    "  for (int i = threadIdx.x; i < w * w; i += blockDim.x) {",
+    "  for (int i = threadIdx.x; SPLIT == 0 && i < w * w; i += blockDim.x) {")
+K1_ROWS_SPLIT = {
+    1: ("stores only: a constant, scalar stores", [
+        _K1_ROWS_NO_STAGING,
+        ("    store(o + i, __fadd_rn(__fmul_rn(a, gx), __fmul_rn(b, fx)));",
+         "    store(o + i, SPLIT == 1 ? 1.0f : "
+         "__fadd_rn(__fmul_rn(a, gx), __fmul_rn(b, fx)));")]),
+    2: ("stores only: a constant, 4-output vector stores (16 B f32, 8 B "
+        "bf16)", [
+            _K1_ROWS_NO_STAGING,
+            ("  Out* o = out + static_cast<size_t>(r) * side * side;\n",
+             "  Out* o = out + static_cast<size_t>(r) * side * side;\n"
+             "  if (SPLIT == 2) {\n"
+             "    for (int j = threadIdx.x; j < side * side / 4; "
+             "j += blockDim.x) {\n"
+             "      if constexpr (sizeof(Out) == 4) {\n"
+             "        reinterpret_cast<float4*>(o)[j] = "
+             "make_float4(1.0f, 1.0f, 1.0f, 1.0f);\n"
+             "      } else {\n"
+             "        reinterpret_cast<uint2*>(o)[j] = "
+             "make_uint2(0x3f803f80u, 0x3f803f80u);\n"
+             "      }\n"
+             "    }\n"
+             "    return;\n"
+             "  }\n")]),
+    3: ("no window staging: each output reads its four taps from the table "
+        "(L2)", [
+            _K1_ROWS_NO_STAGING,
+            ("    const float* t = win + y * w + x;\n"
+             "    const float a = __fadd_rn(__fmul_rn(t[0], gy), "
+             "__fmul_rn(t[w], fy));\n"
+             "    const float b = __fadd_rn(__fmul_rn(t[1], gy), "
+             "__fmul_rn(t[w + 1], fy));",
+             "    const int ws = tn_cols;\n"
+             "    const float* t = table + static_cast<size_t>(y0 + y) * "
+             "tn_cols + x0 + x;\n"
+             "    const float a = __fadd_rn(__fmul_rn(t[0], gy), "
+             "__fmul_rn(t[ws], fy));\n"
+             "    const float b = __fadd_rn(__fmul_rn(t[1], gy), "
+             "__fmul_rn(t[ws + 1], fy));")]),
+}
+# the same for the one-wave design (the table kept in shared memory), and
+# variants of its table source and block size
+K1_WAVE_SPLIT = {
+    1: ("stores only: a constant, vector stores", [
+        ("    store_vec(o + head + kVec * j, v);",
+         "    if (SPLIT == 1) for (float& e : v) e = 1.0f;\n"
+         "    store_vec(o + head + kVec * j, v);")]),
+    2: ("scalar stores instead of vector stores", [
+        ("  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], "
+         "v[3]);",
+         "  if (SPLIT == 2) {\n    p[0] = v[0]; p[1] = v[1]; p[2] = v[2]; "
+         "p[3] = v[3];\n    return;\n  }\n"
+         "  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], "
+         "v[3]);"),
+        ("  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);",
+         "  if (SPLIT == 2) {\n    for (int k = 0; k < kVec; ++k) p[k] = "
+         "__float2bfloat16_rn(v[k]);\n    return;\n  }\n"
+         "  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);")]),
+    3: ("the table read from global memory through L1 (not kept in shared "
+        "memory)", [
+            ("  return static_cast<long long>(tn_rows) * tn_cols * 4 <= "
+             "kSharedTableMax;", "  return false;")]),
+    4: ("the blends alone (no stores but one the compiler cannot drop)", [
+        ("    store_vec(o + head + kVec * j, v);",
+         "    if (v[0] + v[1] + v[2] + v[3] == 1234.5f) "
+         "store_vec(o + head + kVec * j, v);")]),
+    5: ("stores only, no table staging", [
+        ("    store_vec(o + head + kVec * j, v);",
+         "    if (SPLIT == 5) for (float& e : v) e = 1.0f;\n"
+         "    store_vec(o + head + kVec * j, v);"),
+        ("        cp_async16(s_table + i, table + i);", ""),
+        ("      cp_async4(s_table + i, table + i);", "")]),
+    6: ("variant: 128 threads a block", [
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")]),
+    7: ("variant: 512 threads a block", [
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
+}
+
+
+def k1_design(csrc: Path) -> str:
+    """``"wave"`` for the one-wave row pipeline of K1-fwd, else ``"rows"``
+    (a block per row)."""
+    text = (csrc / "cpb_table.cu").read_text()
+    return "wave" if "cp.async" in text else "rows"
+
+
+def compare_k1(parent: Path) -> int:
+    """K1-fwd, f32 and bf16 store: earlier against current sources on
+    phase 2e's divisor-1 inputs (R = 4608, side 50, clipped rows), raw C
+    calls timed with CUDA events (earlier, current, current, earlier), each
+    version bitwise against the plain version, its compile-time splits and
+    its ptxas lines."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import build, cpb
+
+    current = ROOT / SUB
+    designs = {"earlier": k1_design(parent), "current": k1_design(current)}
+    print(f"designs: {designs}")
+    splits = {"rows": K1_ROWS_SPLIT, "wave": K1_WAVE_SPLIT}
+    src = ("cpb_table.cu",)
+    jobs = []
+    for ver, csrc in (("earlier", parent), ("current", current)):
+        jobs.append((f"k1_{ver}", csrc, src, (), ()))
+        jobs += [(f"k1_{ver}_split{n}", csrc, src, patches, (f"-DSPLIT={n}",))
+                 for n, (_, patches) in splits[designs[ver]].items()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda j: nvcc_build(*j), jobs))
+    for name, log in built:
+        lines = cs.kernel_ptxas(log, cs.K1_FWD_KERNELS, cs.k1_instance)
+        if "split" not in name:
+            print(f"{name} ptxas:\n  " + "\n  ".join(lines))
+            print(f"{name} SASS:\n  " + "\n  ".join(
+                sass_ops(OUT / name / "lib.so", "cpb_table_interp_fwd")))
+        elif splits[designs[name.split("_")[1]]][int(
+                name.split("split")[1])][0].startswith("variant"):
+            print(f"{name} ptxas: " + " | ".join(lines))
+    libs = {}
+    for name, _ in built:
+        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
+        lib.dmlt_cpb_table_interp_fwd.argtypes = list(
+            build.SIGNATURES["dmlt_cpb_table_interp_fwd"])
+        libs[name] = lib
+
+    dev = torch.device("cuda")
+    c = cs.opt_in_table_cases(cpb, dev)[1]
+    table, taps, fracs = c["table"], c["taps"], c["fracs"]
+    R, side = taps.shape[0], 50
+    stream = torch.cuda.current_stream().cuda_stream
+    for dt in (torch.float32, torch.bfloat16):
+        store = str(dt)[6:]
+        out = torch.empty(R, side, side, dtype=dt, device=dev)
+        want = cpb.table_interp_reference(table, taps, fracs, side,
+                                          out_dtype=dt)
+        bms, by = cs.table_bounds(table, taps, side, out.element_size())[0]
+        print(f"[K1-fwd {store} store] R={R} side={side} "
+              f"tn={table.shape[0]}: bound {bms:.4f} ms by {by} | "
+              f"{cs.card_line()}")
+
+        def run(name):
+            fn = libs[name].dmlt_cpb_table_interp_fwd
+            args = (table.data_ptr(), *table.shape, taps.data_ptr(),
+                    fracs.data_ptr(), out.data_ptr(),
+                    int(dt == torch.bfloat16), R, side, stream)
+            return lambda: fn(*args)
+
+        for ver in ("earlier", "current"):
+            out.zero_()
+            assert run(f"k1_{ver}")() == 0
+            torch.cuda.synchronize()
+            print(f"[K1-fwd {store} store] {ver} ({designs[ver]}): bitwise "
+                  f"equal to the plain version {torch.equal(out, want)}")
+        ms = {}
+        for ver in ("earlier", "current", "current", "earlier"):
+            ms.setdefault(ver, []).append(cs.cuda_ms(run(f"k1_{ver}"), 50))
+        print(f"[K1-fwd {store} store] ms: " + ", ".join(
+            f"{ver} " + " / ".join(f"{t:.4f}" for t in ts)
+            for ver, ts in ms.items()) + f" | {cs.card_line()}")
+        for ver in ("earlier", "current"):
+            for n, (what, _) in splits[designs[ver]].items():
+                t = [cs.cuda_ms(run(f"k1_{ver}_split{n}"), 50)
+                     for _ in range(2)]
+                print(f"[K1-fwd {store} store] {ver} split {n}, {what}: ms "
+                      + " / ".join(f"{x:.4f}" for x in t))
     return 0
 
 
