@@ -17,7 +17,8 @@ with ``return_vgrid``) with seeded random weights:
    (registers, spills, barriers) with the dynamic shared memory of a
    block, those of the K6 kernels with their tensor-core (HMMA) and
    f32 FMA (FFMA) instruction counts in the SASS, and those of K1-bwd's,
-   K5-bwd's, K4-bwd's and K1-fwd's instances, and holds each forward
+   K5-bwd's, K4-bwd's, K1-fwd's, K5-fwd's and K7-fwd's instances (K7-fwd
+   with its HMMA and FFMA counts), and holds each forward
    kernel against its plain PyTorch version on the card at production
    shapes:
    K1 (table CPB, R=4608, side=50, tn=139, clipped rows included) bitwise
@@ -169,7 +170,7 @@ Each kernel's ``bound_ms`` is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its flops over 67
 TFLOP/s (f32 outside the tensor cores), counted from this run's inputs
 (H100 SXM data sheet; K3's dots are f32 FMAs); for K6-fwd, K6-bwd and
-K7-bwd's attention part,
+K7-fwd's and K7-bwd's attention parts,
 whose products run on the tensor cores as 3xTF32, those products count
 three TF32 passes over 494.7 TFLOP/s (dense TF32) instead; ``library_ms``
 is null for all sixteen: no single
@@ -297,6 +298,10 @@ REDESIGNED.update({
 REDESIGNED["cpb_table_1d_bwd (K4-bwd)"] = "1-D table tiles, owner computes"
 REDESIGNED["cpb_table_interp_fwd (K1-fwd)"] = (
     "one-wave row pipeline, vector stores")
+REDESIGNED["cpb_table_strided_fwd (K5-fwd)"] = (
+    "x-phase pair planes (d >= 3), a block a row, 4 outputs in flight")
+REDESIGNED["fused_exact_fwd (K7-fwd)"] = (
+    "four-point MLP bias, 3xTF32 tensor-core products")
 # the K6 kernels (the resident attention backward serves K7-bwd too; the
 # earlier design's instances are fused_attention_bwd_kernel<...>), whose
 # ptxas and SASS figures phase 2 prints
@@ -307,6 +312,10 @@ K3_KERNELS = ("dpc_split_kernel", "dpc_finish_kernel")
 # K4-bwd's kernels and K1-fwd's (an instance per store type)
 K4_BWD_KERNELS = ("table1d_bwd_tile_kernel", "table1d_bwd_finish_kernel")
 K1_FWD_KERNELS = ("cpb_table_interp_fwd_kernel",)
+# K5-fwd's two kernels (the main one an instance per store type and
+# source), and K7-fwd's (an instance for one kv chunk and one for more)
+K5_FWD_KERNELS = ("strided_pairs_kernel", "strided_row_kernel")
+K7_FWD_KERNELS = ("fused_exact_fwd_kernel",)
 
 
 def card_line() -> str:
@@ -679,6 +688,17 @@ def k1_instance(name: str) -> str:
     return f"<{store} store, table {where}>"
 
 
+def k5_instance(name: str) -> str:
+    """K5-fwd's main kernel instance of the mangled ``name``: its store
+    type and where it reads the taps (``kPairs``, the second template
+    argument); the first kernel has one instance."""
+    if "strided_row_kernel" not in name:
+        return ""
+    store = "bf16" if "nv_bfloat16" in name else "f32"
+    where = "pair planes (d >= 3)" if "ELb1E" in name else "table (d = 2)"
+    return f"<{store} store, {where}>"
+
+
 def k3_instance(name: str) -> str:
     """The instance of a K3 kernel by its mangled name: K3-parent, or
     K3-knn and its k (the earlier design had no k)."""
@@ -836,6 +856,17 @@ def main() -> int:
     for line in kernel_ptxas(build.build_log(), K1_FWD_KERNELS,
                              k1_instance):
         print(f"[K1-fwd ptxas] {line}")
+    for line in kernel_ptxas(build.build_log(), K5_FWD_KERNELS,
+                             k5_instance):
+        print(f"[K5-fwd ptxas] {line}")
+    k7_smem = ", ".join(
+        f"{build.kernels().dmlt_fused_exact_fwd_smem(kk, dd)} B at K {kk}, "
+        f"D {dd}" for kk, dd in ((144, 64), (625, 16)))
+    for line in kernel_ptxas(build.build_log(), K7_FWD_KERNELS):
+        print(f"[K7-fwd ptxas] {line} dynamic shared memory {k7_smem}")
+    for line in sass_counts(build.library_dir() / build.LIB_NAME,
+                            K7_FWD_KERNELS, RESIDENT):
+        print(f"[K7-fwd SASS] {line}")
     for line in kernel_ptxas(build.build_log(), K3_KERNELS, k3_instance):
         print(f"[K3 ptxas] {line}")
     for line in sass_counts(build.library_dir() / build.LIB_NAME,
@@ -2396,11 +2427,17 @@ def time_opt_in_kernels(cpb, k5: dict, k6: dict, card: str) -> dict:
                     lambda: cpb.table_interp_strided(
                         c["table"], c["taps"], c["fracs"], side, d, dt), 50)
                 nbytes = c["dout"].numel() * (4 if dt == torch.float32 else 2)
+                bms, by = table_bounds(c["table"], c["taps"], side,
+                                       nbytes // c["dout"].numel())[0]
+                blocks = kernels().dmlt_cpb_table_strided_fwd_blocks(
+                    int(dt == torch.bfloat16), d)
                 print(f"[time] K5-fwd divisor {d} {str(dt)[6:]} store "
                       f"R=4608 side=50 tn={c['table'].shape[0]}: kernel "
                       f"{ms:.4f} ms, plain {plain:.4f} ms; "
                       f"{nbytes / ms / 1e9:.3f} TB/s written = "
-                      f"{nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s | {card}")
+                      f"{nbytes / ms / 1e9 / 3.35:.1%} of 3.35 TB/s; bound "
+                      f"{bms:.4f} ms by {by} ({bms / ms:.1%} of it); "
+                      f"{blocks} blocks an SM | {card}")
                 times[("k5_fwd", d, dt)] = (ms, plain)
     for d in (2, 4):
         c = k5[d]
@@ -2925,8 +2962,9 @@ def time_nk(nk: dict, preset, train_preset, batch, dev, card: str) -> dict:
 def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:
     """``(forward, backward)`` bounds of K7: the forward reads q, k, v,
     grid_q, grid_kv and the weights and writes out and attn, and does K2's
-    MLP flops at every (query, kv) point plus the sim and PV products (2
-    flops a multiply-add); the backward also reads attn and both
+    MLP flops at every (query, kv) point on the CUDA cores and the sim and
+    PV products on the tensor cores, 3 TF32 passes of 2 flops a
+    multiply-add each; the backward also reads attn and both
     cotangents and writes dq, dk, dv, dgrid_kv and the weight cotangents,
     and does K2-bwd's flops on the CUDA cores and the four products (dp,
     dv, dq, dk) on the tensor cores, 3 TF32 passes each."""
@@ -2935,7 +2973,7 @@ def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:
     qkv = 4 * (BH * N * D + 2 * BH * K * D)
     small = 4 * (2 * N + 2 * BH * K + 2 * cpb_param_count(1))
     fwd = bound(qkv + small + 4 * (BH * N * D + points),
-                k2_fwd_flops(points, 1) + 4 * macs)
+                k2_fwd_flops(points, 1), 3 * 4 * macs)
     bwd = bound(2 * qkv + small + 4 * (BH * N * D + 2 * points),
                 k2_bwd_flops(points, 1), 3 * 8 * macs)
     return fwd, bwd

@@ -45,13 +45,22 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 }
 
 // keep element idx of the attention map?  threshold = round(rate * 2^24);
-// threshold 0 keeps every element.
+// threshold 0 keeps every element.  inner0 = mix32(seed_mix), the inner
+// hash of a high word 0, computed once by a caller whose indices are
+// mostly below 2^32.
+__device__ __forceinline__ bool dropout_keep(uint32_t seed_mix,
+                                             uint32_t inner0,
+                                             unsigned long long idx,
+                                             uint32_t threshold) {
+  const uint32_t hi = static_cast<uint32_t>(idx >> 32);
+  const uint32_t inner = hi == 0u ? inner0 : mix32(hi ^ seed_mix);
+  return (mix32(static_cast<uint32_t>(idx) ^ inner) >> 8) >= threshold;
+}
+
 __device__ __forceinline__ bool dropout_keep(uint32_t seed_mix,
                                              unsigned long long idx,
                                              uint32_t threshold) {
-  const uint32_t h = mix32(static_cast<uint32_t>(idx) ^
-                           mix32(static_cast<uint32_t>(idx >> 32) ^ seed_mix));
-  return (h >> 8) >= threshold;
+  return dropout_keep(seed_mix, mix32(seed_mix), idx, threshold);
 }
 
 }  // namespace

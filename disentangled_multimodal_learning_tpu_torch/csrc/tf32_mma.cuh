@@ -1,6 +1,6 @@
 // f32-accurate products on the tensor cores, by a 3xTF32 split, for K6-fwd
-// (fused_table.cu) and the resident attention backward
-// (fused_attention_bwd.cuh).
+// (fused_table.cu), K7-fwd (fused_exact.cu) and the resident attention
+// backward (fused_attention_bwd.cuh).
 //
 // A TF32 tensor-core product keeps 10 mantissa bits of each operand, about
 // 5e-4 relative per product: too coarse for the f32 tolerances the fused
@@ -12,7 +12,8 @@
 // tensor-core passes.  The two small terms go first, so that they are
 // added to the accumulator before the large one, or into an accumulator
 // of their own that is added at the end.
-// tests/test_torch_tf32_split.py emulates the split at K6's shapes.
+// tests/test_torch_tf32_split.py emulates the split at K6's and K7-fwd's
+// shapes.
 //
 // Fragments of mma.sync.m16n8k8 .tf32 (PTX ISA), for lane = 4 g + t:
 //     A (16 x 8, row):  a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
@@ -33,11 +34,14 @@
 
 namespace {
 
-// cvt.rna.tf32.f32: round to nearest, ties away from zero, 10 mantissa bits
+// TF32 bits of x rounded to nearest, ties away from zero, 10 mantissa
+// bits: half of the last kept bit added to the magnitude, the 13 low bits
+// cleared.  For finite x and for infinities these are the bits of
+// cvt.rna.tf32.f32, in two integer instructions where the compiler's
+// emulation of that cvt takes about five; a NaN may come out as an
+// infinity or a zero, but then lo = x - hi is a NaN, and so is the product.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo to about 2^-22 relative, both TF32

@@ -42,7 +42,9 @@ SIGNATURES = {
     "dmlt_cpb_table_interp_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _P),
     "dmlt_cpb_table_strided_fwd": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                                   _P),
+                                   _P, _P),
+    "dmlt_cpb_table_strided_fwd_scratch": (_I, _I, _I),
+    "dmlt_cpb_table_strided_fwd_blocks": (_I, _I),
     "dmlt_cpb_table_strided_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dmlt_fused_table_fwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,

@@ -16,7 +16,10 @@ weights in the JAX layout (``w1 [2, 32]``, ``w2 [32, 32]``, ``w3 [32, O]``):
   ``csrc/cpb_table_strided.cu``, its backward in
   ``csrc/cpb_table_strided_bwd.cu``).  Same arithmetic as
   ``cpb_bias_table``, on the full lattice, without the TPU's lane-split
-  (divisor 1) or phase-decomposed (d >= 2) table layouts.  Both kernels
+  (divisor 1) table layout; at d >= 3 K5's forward first writes the
+  table's x-phase planes (the TPU's phase decomposition in x, each entry
+  paired with its right neighbour) into a scratch of its wrapper's.  Both
+  kernels
   can store the windows in bf16 (``out_dtype``; ``cpb_table_bf16``): the
   blend stays f32 and only the store rounds, and the backward reads a bf16
   cotangent and sums in f32.  Autograd carries the table cotangent back to
@@ -378,10 +381,15 @@ class _TableInterp(torch.autograd.Function):
             check(err, name)
             table_interp.launches += 1
         else:
+            # the x-phase pair planes (d >= 3; the kernel's first launch)
+            scratch = torch.empty(
+                kernels().dmlt_cpb_table_strided_fwd_scratch(
+                    table.shape[0], table.shape[1], divisor),
+                dtype=torch.uint8, device=table.device)
             err = kernels().dmlt_cpb_table_strided_fwd(
                 table.data_ptr(), table.shape[0], table.shape[1],
                 taps.data_ptr(), fracs.data_ptr(), out.data_ptr(), bf16, R,
-                side, divisor, _stream(table))
+                side, divisor, scratch.data_ptr(), _stream(table))
             check(err, name)
             table_interp_strided.launches += 1
         return out

@@ -867,6 +867,64 @@ def test_table_kernel_reads_a_large_table_through_l1(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [2, 3, 4])
+@pytest.mark.parametrize("side,rows", [(1, 1), (2, 5), (3, 7), (7, 1),
+                                       (7, 1003), (33, 529), (50, 4609)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_kernel_at_the_edges_bitwise(dev, divisor, side, rows, dtype):
+    """K5-fwd (the x-phase pair planes at d >= 3, the table at d = 2, a
+    block a row) at sides 1 to 3, 7, 33 and 50, R from 1 to 4609, tables
+    37 lines past a window's reach (the last pair of phase d - 1 past the
+    table's last column), clipped rows within four cells, f32 and bf16
+    stores: bitwise equal to its plain version, one launch each."""
+    rng = np.random.default_rng(2000 * divisor + 10 * side + rows)
+    table, taps, fracs, _ = _tile_edge_case(rng, side, divisor, rows, dev)
+    assert ((fracs < 0) | (fracs > 1)).any()
+    before = _k56_launches()
+    with torch.inference_mode():
+        got = cpb.table_interp_strided(table, taps, fracs, side, divisor,
+                                       dtype)
+    delta = tuple(a - b for a, b in zip(_k56_launches(), before))
+    assert delta == (0, 0, 1, 0, 0, 0)
+    want = cpb.table_interp_reference(table, taps, fracs, side, divisor,
+                                      dtype)
+    assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [2, 3, 4])
+@pytest.mark.parametrize("side", [7, 50])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_kernel_at_a_misaligned_output(dev, divisor, side, dtype):
+    """K5-fwd's C entry writing from one element past an aligned start
+    (every row off the bf16 pair alignment at side 50): bitwise equal to
+    the plain version, nothing written before the output; its scratch is
+    the restated pair planes (``[d, tn_rows, ceil(tn_cols / d)]`` float2)
+    at d >= 3 and none at d = 2."""
+    from disentangled_multimodal_learning_tpu_torch.ops.build import kernels
+
+    rng = np.random.default_rng(3000 + 10 * divisor + side)
+    table, taps, fracs, _ = _tile_edge_case(rng, side, divisor, 777, dev)
+    R, n = taps.shape[0], side * side
+    buf = torch.zeros(R * n + 1, dtype=dtype, device=dev)
+    nbytes = kernels().dmlt_cpb_table_strided_fwd_scratch(*table.shape,
+                                                          divisor)
+    assert nbytes == (0 if divisor == 2 else 8 * divisor * table.shape[0]
+                      * -(-table.shape[1] // divisor))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    err = kernels().dmlt_cpb_table_strided_fwd(
+        table.data_ptr(), *table.shape, taps.data_ptr(), fracs.data_ptr(),
+        buf[1:].data_ptr(), int(dtype == torch.bfloat16), R, side, divisor,
+        scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    want = cpb.table_interp_reference(table, taps, fracs, side, divisor,
+                                      dtype)
+    assert buf[0].item() == 0 and torch.equal(buf[1:].view(R, side, side),
+                                              want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("divisor", [2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_strided_backward_kernel_matches_float64(dev, divisor, dtype):
@@ -1373,6 +1431,50 @@ def test_fused_exact_kernels_take_any_k(dev, k, d):
                                                2 * _rel(plain[i], want[i]))
             assert _rel(bwd[0][i], want[i]) <= tol, (lay, i)
         assert bwd[0][9].abs().max() <= 1e-4 * bwd[0][8].abs().max(), lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 9, 144, 160, 161, 625])
+@pytest.mark.parametrize("d", [4, 12, 16, 64])
+def test_fused_exact_forward_at_any_k_and_head_width(dev, k, d):
+    """K7-fwd (3xTF32 products, the four-point bias) at one kv row, a
+    partial m16 tile, the teacher's 144, one full chunk (160), a chunk and
+    one row (161) and the 1-D attention's 625 (four chunks), at head widths
+    that pad (4 and 12 to 8 and 16 for sim, 16 for PV) and do not, N = 169
+    (odd: the "kn" map row by row; no multiple of the 8-query groups),
+    dropout 0.1: out and attn within ``K2_TOL`` of the plain version, "nk"
+    equal to "kn" transposed and two calls equal, bitwise; one launch each;
+    K7-bwd on the "nk" map against float64 (dq, dk, dv within 2e-5, grid_kv
+    and the weights within 1e-3 or twice the f32 plain version's own
+    error)."""
+    c = _exact_attention_case(np.random.default_rng(700 + k + d), dev, bh=6,
+                              k=k, side=13, d=d)
+    args = (c["q"], c["k"], c["v"], c["grid_q"], c["gkv"], *c["w"])
+    before = _exact_launches()
+    with torch.inference_mode():
+        got = {lay: [fused_exact.fused_exact_attention(*args, 9, 0.1, lay)
+                     for _ in range(2)] for lay in ("nk", "kn")}
+    assert _delta(before) == (0, 0, 0, 0, 4, 0)
+    for lay in ("nk", "kn"):
+        assert all(torch.equal(a, b) for a, b in zip(*got[lay]))
+    (out, attn), (out_kn, attn_kn) = got["nk"][0], got["kn"][0]
+    assert torch.equal(out, out_kn) and torch.equal(attn,
+                                                    attn_kn.transpose(1, 2))
+    want_out, want_attn = fused_exact.fused_exact_attention_reference(
+        *args, 9, 0.1)
+    assert (attn - want_attn).abs().max().item() <= K2_TOL
+    assert (out - want_out).abs().max().item() <= K2_TOL
+    bwd = fused_exact.fused_exact_attention_backward(
+        *args, attn, c["g_out"], c["g_attn"], 9, 0.1, "nk")
+    want = fused_exact.fused_exact_attention_backward_reference(
+        *(a.double() for a in args), c["g_out"].double(),
+        c["g_attn"].double(), 9, 0.1, "nk")
+    plain = fused_exact.fused_exact_attention_backward_reference(
+        *args, c["g_out"], c["g_attn"], 9, 0.1, "nk")
+    for i in range(9):
+        tol = K6_BWD_TOL if i < 3 else max(K2_BWD_TOL,
+                                           2 * _rel(plain[i], want[i]))
+        assert _rel(bwd[i], want[i]) <= tol, i
 
 
 @pytest.mark.cuda

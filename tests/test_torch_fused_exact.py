@@ -205,3 +205,96 @@ def test_fused_exact_wrappers_raise_off_cpu_instead_of_falling_back():
             *w)
     with pytest.raises(ValueError, match="layout"):
         fused_exact.fused_exact_attention(q, k, k, q, q, *w, layout="kv")
+
+
+# ---------------------------------------------------------------- K7-fwd's plan
+# kFwdBlocks, kFwdWarps, kGroup (two n8 tiles) and kMaxK of
+# csrc/fused_exact.cu
+FWD_BLOCKS, FWD_WARPS, GROUP, CHUNK = 132, 8, 16, 160
+
+
+def _fwd_plan(BH, N, K):
+    """K7-fwd's launch: ``splits`` blocks a bh, and per (block, warp) the
+    16-query groups it takes, in its order (one kv chunk: the warp walks
+    them alone; more: the block's warps step together, ``steps`` steps)."""
+    ngroups = -(-N // GROUP)
+    splits = max(1, min(FWD_BLOCKS // BH, -(-ngroups // FWD_WARPS)))
+    stride = splits * FWD_WARPS
+    steps = -(-ngroups // stride)
+    return splits, {(b, w): [g for g in range(b * FWD_WARPS + w,
+                                              b * FWD_WARPS + w
+                                              + steps * stride, stride)
+                             if g < ngroups]
+                    for b in range(splits) for w in range(FWD_WARPS)}
+
+
+@pytest.mark.parametrize("BH,N,K", [(32, 2500, 144), (16, 2501, 625),
+                                    (4, 40, 12), (1, 1, 1), (16, 576, 161),
+                                    (200, 64, 9)])
+def test_k7_fwd_plan_takes_every_query_and_chunk_once(BH, N, K):
+    """Every (bh, 16-query group) is taken by exactly one warp, and, with
+    the kv points in chunks of 160, every (group, chunk) pair once: the
+    chunks of a group are those of its warp's step, all of them; at the
+    teacher's shape 4 blocks a bh (128 of the card's 132 SMs), each warp
+    4 or 5 groups."""
+    splits, groups = _fwd_plan(BH, N, K)
+    taken = sorted(g for gs in groups.values() for g in gs)
+    assert taken == list(range(-(-N // GROUP)))
+    chunks = [(c, min(CHUNK, K - c)) for c in range(0, K, CHUNK)]
+    assert sum(n for _, n in chunks) == K
+    pairs = [(g, c) for gs in groups.values() for g in gs for c, _ in chunks]
+    assert len(pairs) == len(set(pairs)) == -(-N // GROUP) * len(chunks)
+    if (BH, N, K) == (32, 2500, 144):
+        assert splits * BH == 128
+        assert {len(gs) for gs in groups.values()} == {4, 5}
+
+
+def test_k7_fragments_hold_each_point_once_and_pv_reads_its_lane():
+    """mma.sync m16n8k8's C fragment: lane 4g + t holds kv rows g and
+    g + 8 of an m16 tile against queries 2t and 2t + 1 of an n8 tile (a
+    warp's group is two), so the 32 lanes' four points (the four its MLP
+    evaluates for the tile) cover the 16 x 8 tile once.  PV's B fragment of k8 step (mt, h) wants drop(p) at kv
+    row 16 mt + 8 h + t (and + 4), query g: the kernel shuffles it from
+    lane 4t + (g >> 1) (and + 16), element 2h + (g & 1)."""
+    held = {}
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for e in range(4):
+            held[(lane, e)] = (g + 8 * (e >> 1), 2 * t + (e & 1))
+    assert sorted(held.values()) == [(r, c) for r in range(16)
+                                     for c in range(8)]
+    for h in range(2):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            src = 4 * t + (g >> 1)
+            e = 2 * h + (g & 1)
+            assert held[(src, e)] == (8 * h + t, g)
+            assert held[(src + 16, e)] == (8 * h + t + 4, g)
+
+
+@pytest.mark.parametrize("D", [4, 12, 16, 64])
+def test_k7_padded_head_dims_contribute_nothing(rng, D):
+    """K7-fwd pads q and k to a multiple of 8 head dims (the k8 steps of
+    sim) and v to a multiple of 16 (PV's m16 tiles) with zeros: sim over
+    the padded columns is bitwise the sum over the true ones (every added
+    product is an exact zero), and the padded rows of out^T are zero and
+    are not stored."""
+    q = torch.from_numpy(rng.normal(size=(8, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(16, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(16, D)).astype(np.float32))
+    p = torch.softmax(torch.from_numpy(
+        rng.normal(size=(16, 8)).astype(np.float32)), 0)
+    dp, dv = -(-D // 8) * 8, -(-D // 16) * 16
+
+    def sim(width):
+        qp = torch.nn.functional.pad(q, (0, width - D)).double()
+        kp = torch.nn.functional.pad(k, (0, width - D)).double()
+        acc = torch.zeros(16, 8, dtype=torch.float32)
+        for d0 in range(0, width, 8):  # one f32 accumulator per k8 step
+            acc = (acc.double() + kp[:, d0:d0 + 8] @ qp[:, d0:d0 + 8].T
+                   ).float()
+        return acc
+
+    assert torch.equal(sim(dp), sim(dp + 8))
+    out_t = torch.nn.functional.pad(v, (0, dv - D)).T.double() @ p.double()
+    assert torch.equal(out_t[D:], torch.zeros(dv - D, 8, dtype=torch.float64))

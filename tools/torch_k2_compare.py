@@ -4,15 +4,17 @@ sources, on one NVIDIA GPU: the exact-CPB kernels K2 (``--kernel k2``, the
 default), the fused table attention K6 with K7-bwd (``--kernel k6``), the
 table CPB's backward K1-bwd and K5-bwd (``--kernel table``), the streamed
 DPC-KNN passes K3-knn and K3-parent (``--kernel k3``), the 1-D table CPB's
-backward K4-bwd (``--kernel k4``), or the divisor-1 table CPB's forward
-K1-fwd (``--kernel k1``).
+backward K4-bwd (``--kernel k4``), the divisor-1 table CPB's forward
+K1-fwd (``--kernel k1``), the table CPB's forward at divisor >= 2 K5-fwd
+(``--kernel k5``), or the fused exact-CPB attention's forward K7-fwd
+(``--kernel k7``).
 
     mkdir -p build/k2_parent && git archive <commit> \\
         disentangled_multimodal_learning_tpu_torch/csrc | tar -x -C build/k2_parent
     python3 tools/torch_k2_compare.py --parent build/k2_parent \\
         [--kernel k6 | --kernel table [--groups 32 64]
          | --kernel k3 [--blocks 200 528] | --kernel k4 [--groups 53 209]
-         | --kernel k1]
+         | --kernel k1 | --kernel k5 | --kernel k7]
 
 ``--parent`` is a directory holding an earlier
 ``disentangled_multimodal_learning_tpu_torch/csrc`` (``build/`` is ignored
@@ -104,6 +106,32 @@ current, earlier), each split twice; each build's ptxas lines and the
 current build's SASS op counts.  Times are taken with the calls queued
 behind a spin of the card (``chip_smoke.py hold_queue``), so they are the
 card's and not the host's.
+
+``k5``: the earlier and the current ``cpb_table_strided.cu``, each with its
+compile-time splits (``K5_ROWS_SPLIT`` for the block-per-row design on the
+table as it is: stores alone with scalar and with vector stores, the taps
+alone, the taps at unit stride; ``K5_PAIRS_SPLIT`` for the design on
+x-phase pair planes: stores alone, the taps alone, without or only its
+first kernel, variants of block size, unrolling and source).  Then, with
+the f32 and the bf16 store, by raw C calls on ``chip_smoke.py``'s
+phase-2e inputs at divisors 2 and 4 (R = 4608, side 50, clipped rows):
+each version bitwise against the plain version, both timed (earlier,
+current, current, earlier, queued behind a spin), each split twice; each
+build's ptxas lines and SASS op counts.
+
+``k7``: the earlier and the current ``fused_exact.cu`` (with the headers
+of each), each with its compile-time splits (``K7_FMA_SPLIT`` for the
+design with f32 FMA products and a point a thread in the bias, each phase
+alone; ``K7_MMA_SPLIT`` for the design with 3xTF32 products and the
+four-point bias: each phase dropped, the bias alone, one TF32 pass, and
+variants).  Then, by raw C calls on inputs of ``chip_smoke.py``'s
+phase-2f shapes (the teacher's 32 x 2500 x 144, D 64, at rate 0 and 0.1;
+the 1-D attention's 16 x 2501 x 625, D 16, in kv chunks, at rate 0.1), in
+both layouts: the current version's out and map against the earlier
+one's (max abs), "nk" against "kn" transposed and two calls (bitwise),
+both timed (earlier, current, current, earlier, queued behind a spin),
+each split twice at the teacher's shape; each build's ptxas lines, HMMA
+/ FFMA counts and an opcode histogram.
 """
 
 from __future__ import annotations
@@ -289,6 +317,33 @@ def sass_ops(lib: Path, key: str, ops=("LDS", "LD", "LDG", "STG", "STS",
             for name, c in found if name]
 
 
+def sass_histogram(lib: Path, key: str, top: int = 24):
+    """Per instance of the kernels whose names hold ``key`` in ``lib``: its
+    instruction count and its ``top`` most frequent opcodes (from
+    ``cuobjdump -sass``)."""
+    import re
+    from collections import Counter
+
+    from disentangled_multimodal_learning_tpu_torch.ops import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    found = []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            found.append([m.group(1) if key in m.group(1) else None,
+                          Counter()])
+        elif found and found[-1][0]:
+            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", line)
+            if op:
+                found[-1][1][op.group(1)] += 1
+    return [f"{name[-40:]}: {sum(c.values())} instructions; " + ", ".join(
+        f"{op} {n}" for op, n in c.most_common(top))
+        for name, c in found if name]
+
+
 def load(name: str):
     lib = ctypes.CDLL(str(OUT / name / "lib.so"))
     if hasattr(lib, "dmlt_cpb_exact_fwd"):
@@ -306,7 +361,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--kernel", choices=("k2", "k6", "table", "k3", "k4",
-                                         "k1"), default="k2")
+                                         "k1", "k5", "k7"), default="k2")
     ap.add_argument("--groups", type=int, nargs="*", default=(),
                     help="table and k4: also time the current design at "
                     "these row-group counts")
@@ -330,6 +385,10 @@ def main() -> int:
         return compare_k4(parent, args.groups)
     if args.kernel == "k1":
         return compare_k1(parent)
+    if args.kernel == "k5":
+        return compare_k5(parent)
+    if args.kernel == "k7":
+        return compare_k7(parent)
     return (compare_k6 if args.kernel == "k6" else compare_k2)(parent)
 
 
@@ -1526,6 +1585,439 @@ def compare_k1(parent: Path) -> int:
                      for _ in range(2)]
                 print(f"[K1-fwd {store} store] {ver} split {n}, {what}: ms "
                       + " / ".join(f"{x:.4f}" for x in t))
+    return 0
+
+
+# compile-time splits (SPLIT k) of K5-fwd's block-per-row design (PR 5)
+_K5_ROWS_OUT = ("    store(o + i, __fadd_rn(__fmul_rn(a, gx), "
+                "__fmul_rn(b, fx)));")
+K5_ROWS_SPLIT = {
+    1: ("stores only: a constant, scalar stores", [
+        (_K5_ROWS_OUT, "    store(o + i, SPLIT == 1 ? 1.0f : "
+         "__fadd_rn(__fmul_rn(a, gx), __fmul_rn(b, fx)));")]),
+    2: ("stores only: a constant, 4-output vector stores (16 B f32, 8 B "
+        "bf16)", [
+            ("  Out* o = out + static_cast<size_t>(r) * side * side;\n",
+             "  Out* o = out + static_cast<size_t>(r) * side * side;\n"
+             "  if (SPLIT == 2) {\n"
+             "    for (int j = threadIdx.x; j < side * side / 4; "
+             "j += blockDim.x) {\n"
+             "      if constexpr (sizeof(Out) == 4) {\n"
+             "        reinterpret_cast<float4*>(o)[j] = "
+             "make_float4(1.0f, 1.0f, 1.0f, 1.0f);\n"
+             "      } else {\n"
+             "        reinterpret_cast<uint2*>(o)[j] = "
+             "make_uint2(0x3f803f80u, 0x3f803f80u);\n"
+             "      }\n"
+             "    }\n"
+             "    return;\n"
+             "  }\n")]),
+    3: ("the taps alone (no stores but one the compiler cannot drop)", [
+        (_K5_ROWS_OUT, "    const float val = __fadd_rn(__fmul_rn(a, gx), "
+         "__fmul_rn(b, fx));\n    if (val == 1234.5f) store(o + i, val);")]),
+    4: ("the taps at unit stride (as at divisor 1: every fetched sector "
+        "useful)", [
+            ("    const float* t = table + static_cast<size_t>(y0 + d * y) * "
+             "tn_cols +\n                     x0 + d * x;",
+             "    const float* t = table + static_cast<size_t>(y0 + y) * "
+             "tn_cols +\n                     x0 + x;")]),
+}
+# compile-time splits of K5-fwd's design on x-phase pair planes (PR 12),
+# and its variants
+_K5_PAIRS_LAUNCH = (
+    "    strided_pairs_kernel<<<blocks, kPairThreads, 0, s>>>(\n"
+    "        table, tn_rows, tn_cols, d, static_cast<float2*>(scratch));")
+_K5_ROW_LAUNCH = "  strided_row_kernel<Out, kPairs><<<rows, kThreads, 0, s>>>("
+_K5_STORE = "    if (i0 + t < n) store(o + i0 + t, w.at(y, x));"
+_K5_DISPATCH = (
+    "template <typename Out>\n"
+    "int launch(const float* table, int tn_rows, int tn_cols, const int* taps,\n"
+    "           const float* fracs, Out* out, int rows, int side, int d,\n"
+    "           void* scratch, cudaStream_t s) {")
+K5_PAIRS_SPLIT = {
+    1: ("stores only: a constant (the first kernel still runs)", [
+        (_K5_STORE, "    if (i0 + t < n) store(o + i0 + t, "
+                    "SPLIT == 1 ? 1.0f : w.at(y, x));")]),
+    2: ("the taps alone (no stores but one the compiler cannot drop)", [
+        (_K5_STORE, "    const float v = i0 + t < n ? w.at(y, x) : 0.0f;\n"
+                    "    if (v == 1234.5f) store(o + i0 + t, v);")]),
+    3: ("without the first kernel (the pair planes of an earlier call on "
+        "the same scratch)", [
+            (_K5_PAIRS_LAUNCH,
+             "    static void* last = nullptr;\n"
+             "    if (!(SPLIT == 3 && scratch == last))\n" + _K5_PAIRS_LAUNCH
+             + "\n    last = scratch;")]),
+    4: ("the first kernel alone (no main kernel)", [
+        (_K5_ROW_LAUNCH, "  if (SPLIT != 4) " + _K5_ROW_LAUNCH.strip())]),
+    5: ("variant: 256 threads a row", [
+        ("constexpr int kThreads = 128; ", "constexpr int kThreads = 256; ")]),
+    6: ("variant: the output loop not unrolled", [
+        ("#pragma unroll 4\n  for (int i0 = 0;",
+         "#pragma unroll 1\n  for (int i0 = 0;")]),
+    7: ("variant: the table as it is at every divisor (no pair planes)", [
+        ("inline bool uses_pairs(int d) { return d >= 3; }",
+         "inline bool uses_pairs(int d) { return false; }")]),
+    8: ("variant: the pair planes at d = 2 too", [
+        ("inline bool uses_pairs(int d) { return d >= 3; }",
+         "inline bool uses_pairs(int d) { return d >= 2; }")]),
+    9: ("variant: a class's band of plane rows staged in shared memory "
+        "(tools/k5_band_stage.cuh)", [
+            (_K5_DISPATCH,
+             f'#include "{ROOT / "tools" / "k5_band_stage.cuh"}"\n\n'
+             + _K5_DISPATCH + "\n  if (const int e = band_launch(table, "
+             "tn_rows, tn_cols, taps, fracs, out, rows, side, d, s); "
+             "e >= 0) {\n    return e;\n  }")]),
+}
+
+
+def k5_design(csrc: Path) -> str:
+    """``"pairs"`` for the design on x-phase pair planes (PR 12), else
+    ``"rows"`` (a block per row on the table as it is, PR 5)."""
+    text = (csrc / "cpb_table_strided.cu").read_text()
+    return "pairs" if "strided_pairs_kernel" in text else "rows"
+
+
+def compare_k5(parent: Path) -> int:
+    """K5-fwd, f32 and bf16 store, at divisors 2 and 4: earlier against
+    current sources on phase 2e's inputs, raw C calls timed with CUDA
+    events (earlier, current, current, earlier), each version bitwise
+    against the plain version, its compile-time splits, its ptxas lines
+    and SASS op counts."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+    current = ROOT / SUB
+    designs = {"earlier": k5_design(parent), "current": k5_design(current)}
+    print(f"designs: {designs}")
+    splits = {"rows": K5_ROWS_SPLIT, "pairs": K5_PAIRS_SPLIT}
+    src = ("cpb_table_strided.cu",)
+    jobs = []
+    for ver, csrc in (("earlier", parent), ("current", current)):
+        jobs.append((f"k5_{ver}", csrc, src, (), ()))
+        jobs += [(f"k5_{ver}_split{n}", csrc, src, patches, (f"-DSPLIT={n}",))
+                 for n, (_, patches) in splits[designs[ver]].items()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda j: nvcc_build(*j), jobs))
+    for name, log in built:
+        lines = list(ptxas_lines(log))
+        if "split" not in name:
+            print(f"{name} ptxas:\n  " + "\n  ".join(lines))
+            print(f"{name} SASS:\n  " + "\n  ".join(
+                sass_ops(OUT / name / "lib.so", "strided")))
+        elif splits[designs[name.split("_")[1]]][int(
+                name.split("split")[1])][0].startswith("variant"):
+            print(f"{name} ptxas: " + " | ".join(lines))
+    libs = {}
+    for name, _ in built:
+        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
+        # PR 12's entry takes a scratch pointer before the stream
+        scratch_arg = hasattr(lib, "dmlt_cpb_table_strided_fwd_scratch")
+        lib.dmlt_cpb_table_strided_fwd.argtypes = (
+            [P, I, I, P, P, P, I, I, I, I] + [P] * (1 + scratch_arg))
+        if scratch_arg:
+            lib.dmlt_cpb_table_strided_fwd_scratch.argtypes = [I, I, I]
+        libs[name] = (lib, scratch_arg)
+
+    dev = torch.device("cuda")
+    cases = cs.opt_in_table_cases(cpb, dev)
+    side = 50
+    stream = torch.cuda.current_stream().cuda_stream
+    for d in (2, 4):
+        table, taps, fracs = (cases[d][n] for n in ("table", "taps", "fracs"))
+        R = taps.shape[0]
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"[K5-fwd divisor {d} {str(dt)[6:]} store]"
+            out = torch.empty(R, side, side, dtype=dt, device=dev)
+            want = cpb.table_interp_reference(table, taps, fracs, side, d,
+                                              out_dtype=dt)
+            bms, by = cs.table_bounds(table, taps, side,
+                                      out.element_size())[0]
+            print(f"{label} R={R} side={side} tn={table.shape[0]}: bound "
+                  f"{bms:.4f} ms by {by} | {cs.card_line()}")
+
+            # one scratch for every library that takes one, as large as
+            # the largest asks (split 3 reuses what an earlier call left)
+            scratch = torch.empty(max([
+                lib.dmlt_cpb_table_strided_fwd_scratch(*table.shape, d)
+                for lib, scratch_arg in libs.values() if scratch_arg] + [0]),
+                dtype=torch.uint8, device=dev)
+
+            def run(name):
+                lib, scratch_arg = libs[name]
+                fn = lib.dmlt_cpb_table_strided_fwd
+                args = [table.data_ptr(), *table.shape, taps.data_ptr(),
+                        fracs.data_ptr(), out.data_ptr(),
+                        int(dt == torch.bfloat16), R, side, d]
+                if scratch_arg:
+                    args.append(scratch.data_ptr())
+                args.append(stream)
+                return lambda: fn(*args)
+
+            for ver in ("earlier", "current"):
+                out.zero_()
+                assert run(f"k5_{ver}")() == 0
+                torch.cuda.synchronize()
+                print(f"{label} {ver} ({designs[ver]}): bitwise equal to the "
+                      f"plain version {torch.equal(out, want)}")
+            ms = {}
+            for ver in ("earlier", "current", "current", "earlier"):
+                ms.setdefault(ver, []).append(cs.cuda_ms(run(f"k5_{ver}"), 50))
+            print(f"{label} ms: " + ", ".join(
+                f"{ver} " + " / ".join(f"{t:.4f}" for t in ts)
+                for ver, ts in ms.items()) + f" | {cs.card_line()}")
+            for ver in ("earlier", "current"):
+                for n, (what, _) in splits[designs[ver]].items():
+                    t = [cs.cuda_ms(run(f"k5_{ver}_split{n}"), 50)
+                         for _ in range(2)]
+                    print(f"{label} {ver} split {n}, {what}: ms "
+                          + " / ".join(f"{x:.4f}" for x in t))
+        torch.cuda.empty_cache()
+    return 0
+
+
+# compile-time splits (SPLIT k) of K7-fwd's design with f32 FMA products
+# and a point a thread in the bias (PR 6): every split build guards the
+# four phases, and phase k runs only in split k (the staging and the out
+# store stay)
+_K7_FMA_GUARDS = [
+    ("    for (int i = threadIdx.x; i < nrows * kQT; i += kThreads) {\n"
+     "      const int kk = i / kQT;\n      const int cc = i - kk * kQT;\n"
+     "      const float fx",
+     "    for (int i = threadIdx.x; SPLIT == 1 && i < nrows * kQT; "
+     "i += kThreads) {\n      const int kk = i / kQT;\n"
+     "      const int cc = i - kk * kQT;\n      const float fx"),
+    ("    // sim = k q^T + bias, a 10 x 4 tile per thread\n    {",
+     "    // sim = k q^T + bias, a 10 x 4 tile per thread\n"
+     "    if (SPLIT == 2) {"),
+    ("    for (int kk = part; kk < nrows; kk += 4) mx = ",
+     "    for (int kk = part; SPLIT == 3 && kk < nrows; kk += 4) mx = "),
+    ("    for (int kk = part; kk < nrows; kk += 4) {\n"
+     "      const float e = expf(",
+     "    for (int kk = part; SPLIT == 3 && kk < nrows; kk += 4) {\n"
+     "      const float e = expf("),
+    ("      for (int kk = part; kk < nrows; kk += 4) s_p[kk * kLdp + c] "
+     "/= row_sum;",
+     "      for (int kk = part; SPLIT == 3 && kk < nrows; kk += 4) "
+     "s_p[kk * kLdp + c] /= row_sum;"),
+    ("    for (int i = threadIdx.x; i < nrows * kQT; i += kThreads) {\n"
+     "      const int kk = nk ? i % nrows : i / kQT;\n"
+     "      const int cc = nk ? i / nrows : i % kQT;\n"
+     "      const int n = n0 + cc;",
+     "    for (int i = threadIdx.x; SPLIT == 3 && i < nrows * kQT; "
+     "i += kThreads) {\n      const int kk = nk ? i % nrows : i / kQT;\n"
+     "      const int cc = nk ? i / nrows : i % kQT;\n"
+     "      const int n = n0 + cc;"),
+    ("    if (dg * 4 < D) {\n      for (int kk = 0; kk < nrows; ++kk) {",
+     "    if (SPLIT == 4 && dg * 4 < D) {\n"
+     "      for (int kk = 0; kk < nrows; ++kk) {")]
+K7_FMA_SPLIT = {
+    1: ("the bias pass alone", _K7_FMA_GUARDS),
+    2: ("sim (k q^T) alone", _K7_FMA_GUARDS),
+    3: ("the softmax and the map store alone", _K7_FMA_GUARDS),
+    4: ("PV alone", _K7_FMA_GUARDS),
+    5: ("the staging and the out store alone", _K7_FMA_GUARDS),
+}
+# compile-time splits of K7-fwd's design with 3xTF32 products and the
+# four-point bias (PR 12), at one kv chunk: every split build guards the
+# phases; split k drops phase k, split 5 keeps the bias MLP alone
+_K7_MMA_GUARDS = [
+    ("  for (int f = 0; f < NT * nmt; ++f) {",
+     "  for (int f = 0; SPLIT != 1 && f < NT * nmt; ++f) {"),
+    ("        for (int nt = 0; nt < NT; ++nt) mma_3xtf32(P[nt][mt], A, b[nt]);",
+     "        for (int nt = 0; nt < NT; ++nt) {\n"
+     "          if (SPLIT == 7) mma_tf32(P[nt][mt], A.hi, b[nt].hi);\n"
+     "          else if (SPLIT != 2 && SPLIT != 5) "
+     "mma_3xtf32(P[nt][mt], A, b[nt]);\n        }"),
+    ("          if (mt * 16 < K) {",
+     "          if (SPLIT != 3 && SPLIT != 5 && mt * 16 < K) {"),
+    ("      store_map_and_drop(P, attn, nk, bh, 0, K, n0, K, N, seed_mix, "
+     "inner0,",
+     "      if (SPLIT != 3 && SPLIT != 5) "
+     "store_map_and_drop(P, attn, nk, bh, 0, K, n0, K, N, seed_mix, inner0,"),
+    ("      chunk_pv(P, s_v, ldv, ndt, K, o, os);",
+     "      if (SPLIT != 4 && SPLIT != 5) chunk_pv(P, s_v, ldv, ndt, K, o, os);"),
+    ("              mma_3xtf32(o[nt][dt], os[nt][dt], A, b[nt]);",
+     "              if (SPLIT == 6) mma_tf32(o[nt][dt], A.hi, b[nt].hi);\n"
+     "              else mma_3xtf32(o[nt][dt], os[nt][dt], A, b[nt]);"),
+    ("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+     "#if SPLIT == 8\n  uint32_t r;\n"
+     "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n"
+     "  return r;\n#else\n"
+     "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n#endif"),
+    ("          b[nt].set(0, odd ? o0 : e0);\n"
+     "          b[nt].set(1, odd ? o1 : e1);",
+     "          b[nt].set(0, SPLIT == 9 ? P[nt][mt][2 * h] : odd ? o0 : e0);\n"
+     "          b[nt].set(1, SPLIT == 9 ? P[nt][mt][2 * h + 1] "
+     ": odd ? o1 : e1);"),
+    ("        if (threshold != 0u) {",
+     "        if (SPLIT != 10 && threshold != 0u) {")]
+K7_MMA_SPLIT = {
+    1: ("without the bias MLP", _K7_MMA_GUARDS),
+    2: ("without the sim products", _K7_MMA_GUARDS),
+    3: ("without the softmax, the map store and the dropout", _K7_MMA_GUARDS),
+    4: ("without PV", _K7_MMA_GUARDS),
+    5: ("the bias MLP alone (no products, softmax or PV)", _K7_MMA_GUARDS),
+    6: ("PV in one TF32 pass (timing only)", _K7_MMA_GUARDS),
+    7: ("sim in one TF32 pass (timing only)", _K7_MMA_GUARDS),
+    8: ("variant: operands split by cvt.rna.tf32.f32",
+        _K7_MMA_GUARDS),
+    9: ("PV's B fragments without the shuffles (timing only)",
+        _K7_MMA_GUARDS),
+    10: ("without the dropout hash", _K7_MMA_GUARDS),
+    11: ("variant: PV's small terms added into the large ones' registers",
+         _K7_MMA_GUARDS + [(
+             "              else mma_3xtf32(o[nt][dt], os[nt][dt], A, b[nt]);",
+             "              else mma_3xtf32(o[nt][dt], A, b[nt]);")]),
+}
+
+
+def k7_design(csrc: Path) -> str:
+    """``"mma"`` for the design with 3xTF32 tensor-core products, else
+    ``"fma"``."""
+    text = (csrc / "fused_exact.cu").read_text()
+    return "mma" if "mma_3xtf32" in text else "fma"
+
+
+def k7_cases(dev) -> dict:
+    """Inputs at phase 2f's two K7 shapes, drawn from seed 12: the
+    teacher's (q [32, 2500, 64] pre-scaled, k, v [32, 144, 64], the 50 x 50
+    query grid, kv points within the 12 x 12 grid's bound) and the 1-D
+    attention's (q [16, 2501, 16], k, v [16, 625, 16], coordinates with a
+    zero y and a zero y row of w1)."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+    gen = torch.Generator().manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    n_q = 2501
+    w1d = list(cs.mlp_weights(1, gen, dev))
+    w1d[0][1].zero_()
+    return {
+        "2-D": (rnd(32, 2500, 64, scale=64 ** -0.5), rnd(32, 144, 64),
+                rnd(32, 144, 64), cs.normalized_grid_flat(50, dev),
+                ((torch.rand(32, 144, 2, generator=gen) * 2 - 1)
+                 * kv_bound).to(dev), *cs.mlp_weights(1, gen, dev)),
+        "1-D": (rnd(16, n_q, 16, scale=0.25), rnd(16, 625, 16),
+                rnd(16, 625, 16),
+                torch.stack([torch.linspace(-1, 1, n_q, device=dev),
+                             torch.zeros(n_q, device=dev)], dim=-1),
+                torch.stack([(torch.rand(16, 625, generator=gen) * 2 - 1)
+                             .to(dev), torch.zeros(16, 625, device=dev)],
+                            dim=-1), *w1d)}
+
+
+def compare_k7(parent: Path) -> int:
+    """K7-fwd in both layouts: earlier against current sources at phase
+    2f's shapes, raw C calls timed with CUDA events (earlier, current,
+    current, earlier), out and map of the two versions against each other,
+    "nk" against "kn" transposed and two calls bitwise, the compile-time
+    splits at the teacher's shape, ptxas lines and HMMA / FFMA counts."""
+    import torch
+
+    import chip_smoke as cs
+    from disentangled_multimodal_learning_tpu_torch.ops import build
+    from disentangled_multimodal_learning_tpu_torch.ops.fused_table import (
+        _dropout_args)
+
+    current = ROOT / SUB
+    designs = {"earlier": k7_design(parent), "current": k7_design(current)}
+    print(f"designs: {designs}")
+    splits = {"fma": K7_FMA_SPLIT, "mma": K7_MMA_SPLIT}
+    src = ("fused_exact.cu",)
+    jobs = []
+    for ver, csrc in (("earlier", parent), ("current", current)):
+        jobs.append((f"k7_{ver}", csrc, src, (), ()))
+        jobs += [(f"k7_{ver}_split{n}", csrc, src, patches, (f"-DSPLIT={n}",))
+                 for n, (_, patches) in splits[designs[ver]].items()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda j: nvcc_build(*j), jobs))
+    for name, log in built:
+        lines = list(ptxas_lines(log))
+        if "split" not in name:
+            print(f"{name} ptxas:\n  " + "\n  ".join(lines))
+            print(f"{name} SASS:\n  " + "\n  ".join(cs.sass_counts(
+                OUT / name / "lib.so", ("fused_exact_fwd",),
+                cs.RESIDENT)))
+            print(f"{name} SASS opcodes (most frequent first):\n  "
+                  + "\n  ".join(sass_histogram(OUT / name / "lib.so",
+                                                "fused_exact_fwd")))
+        elif splits[designs[name.split("_")[1]]][int(
+                name.split("split")[1])][0].startswith("variant"):
+            print(f"{name} ptxas: " + " | ".join(lines))
+    libs = {}
+    for name, _ in built:
+        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
+        for fn in ("dmlt_fused_exact_fwd", "dmlt_fused_exact_fwd_smem"):
+            getattr(lib, fn).argtypes = list(build.SIGNATURES[fn])
+        libs[name] = lib
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, args in k7_cases(dev).items():
+        BH, N, D = args[0].shape
+        K = args[1].shape[1]
+        for rate in ((0.0, 0.1) if label == "2-D" else (0.1,)):
+            threshold, scale = _dropout_args(rate)
+            bms, by = cs.k7_bounds(BH, N, K, D)[0]
+            tag = f"[K7-fwd {label} BH={BH} N={N} K={K} D={D} rate {rate}]"
+            print(f"{tag} bound {bms:.4f} ms by {by} | {cs.card_line()}")
+            res = {}
+            for nk in (1, 0):
+                lay = "nk" if nk else "kn"
+                out = torch.empty_like(args[0])
+                attn = torch.empty((BH, N, K) if nk else (BH, K, N),
+                                   device=dev)
+
+                def run(name, out=out, attn=attn, nk=nk):
+                    fn = libs[name].dmlt_fused_exact_fwd
+                    a = ([t.data_ptr() for t in args] + [out.data_ptr(),
+                         attn.data_ptr(), BH, K, N, D, nk, 4321, threshold,
+                         scale, stream])
+                    return lambda: fn(*a)
+
+                for ver in ("earlier", "current"):
+                    assert run(f"k7_{ver}")() == 0
+                    torch.cuda.synchronize()
+                    res[(ver, lay)] = (out.clone(), attn.clone())
+                assert run("k7_current")() == 0
+                torch.cuda.synchronize()
+                same2 = (torch.equal(out, res[("current", lay)][0])
+                         and torch.equal(attn, res[("current", lay)][1]))
+                e = [(a - b).abs().max().item() for a, b in
+                     zip(res[("current", lay)], res[("earlier", lay)])]
+                print(f"{tag} {lay}: current vs earlier max abs out "
+                      f"{e[0]:.3e}, attn {e[1]:.3e}; two calls bitwise "
+                      f"{same2}")
+                ms = {}
+                iters = 10 if label == "2-D" else 5
+                for ver in ("earlier", "current", "current", "earlier"):
+                    ms.setdefault(ver, []).append(
+                        cs.cuda_ms(run(f"k7_{ver}"), iters))
+                print(f"{tag} {lay} ms: " + ", ".join(
+                    f"{ver} " + " / ".join(f"{t:.4f}" for t in ts)
+                    for ver, ts in ms.items()) + f" | {cs.card_line()}")
+                if label == "2-D" and rate > 0:
+                    for ver in ("earlier", "current"):
+                        for n, (what, _) in splits[designs[ver]].items():
+                            t = [cs.cuda_ms(run(f"k7_{ver}_split{n}"), iters)
+                                 for _ in range(2)]
+                            print(f"{tag} {lay} {ver} split {n}, {what}: ms "
+                                  + " / ".join(f"{x:.4f}" for x in t))
+                del out, attn
+            for ver in ("earlier", "current"):
+                (o1, a1), (o2, a2) = res[(ver, "nk")], res[(ver, "kn")]
+                print(f"{tag} {ver}: nk and kn bitwise equal (out, attn "
+                      f"transposed) {torch.equal(o1, o2) and torch.equal(a1, a2.transpose(1, 2))}")
+            del res
+            torch.cuda.empty_cache()
     return 0
 
 
