@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives ``disentangled_multimodal_learning_tpu_torch`` (never JAX) through its
-serving entry and its training entry, for the teacher, the student and
-deformpathomic, at the full width of ``config/config_mine_diag2021.yaml``
+serving entry and its training entry, for the teacher, the student,
+deformpathomic and distillation (and the teacher on the survival task), at
+the full width of ``config/config_mine_diag2021.yaml``
 (fixdim 2500, B=4, dims 128, 8 heads; the student with ``path_cluster_num``
 0.0008, 2 clusters per bag; deformpathomic at ``attn_dim`` 1, where the cls
 token makes N = 2501 and the 1-D attention K = 625, and at ``attn_dim`` 2
@@ -152,7 +153,28 @@ with ``return_vgrid``) with seeded random weights:
 6f. times K2-nk-fwd and -bwd at both shapes and K7-fwd and -bwd in both
    layouts at dropout 0.1 against their plain versions, with their bounds,
    and the "nk" teacher's eval forward and train step (bags/s and a
-   profiled call each).
+   profiled call each);
+3g. at the preset, with the checkpoints in a temporary directory under
+   ``build/``: the teacher's training entry (3 steps) writes a
+   metric-stamped checkpoint; the distillation training entry restores it
+   (``checkpoints_teacher``) and trains 2 epochs of 3 steps with the
+   teacher-output cache, with exact counts per epoch (epoch 1, every batch
+   a miss: per step K1-fwd 4 + 2, K1-bwd 2, K3-knn 2, K3-parent 2; epoch
+   2, every batch a hit: K1-fwd 2 per step, the teacher's never; each
+   epoch's eval batch the student's forward) and the cache's 3 misses and
+   3 hits; one epoch with ``distill_teacher_cache false`` runs the teacher
+   every step; the serving entry in distillation mode, restored from the
+   student's checkpoint, gives the logits of that run's final evaluation
+   bitwise; the survival preset (``config/config_mine_surv.yaml``, B 8)
+   trains its teacher 3 steps and prints a finite c-index per tag;
+5g. compares one f32 ``deterministic_training`` distillation step on the
+   card with the CPU (as 5c the student), and a distillation fold of 2
+   epochs stopped after epoch 1's rolling checkpoint and resumed with the
+   uninterrupted fold: epoch 2's losses within ``RESUME_LOSS_TOL``;
+6g. times the distillation train step, uncached and cached (a replay from
+   the cache timed with it): bags/s, median and p80 of 30 steps, a
+   profiled call each (device-busy share); and a cache fill and a replay
+   alone.
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
@@ -161,7 +183,8 @@ teacher's also in the opt-in settings (a), (b) and (c), every count set to
 ``launches`` are those of the training runs (K1 and K2: the teacher's at
 divisor 1 and 0; K3: the student's at the preset; K4: deformpathomic's at
 attn_dim 1, divisor 1; K5: the teacher's in (b); K6: the teacher's in
-(a); K2-nk: the "nk" teacher's train steps; K7: its entry's run), and K2's
+(a); K2-nk: the "nk" teacher's train steps; K7: its entry's run; the
+distillation runs of phase 3g add no kernel and change no entry), and K2's
 ``max_abs_err`` is the larger of its errors at the 2-D and the 1-D shape.
 Launches made for comparisons and timings are not counted.  K5's times are
 at divisor 4 in f32, K6's at the preset's dropout 0.1, K2-nk's at the
@@ -183,10 +206,13 @@ non-zero without a result line when there is no CUDA device.
 
 from __future__ import annotations
 
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 K1_TOL = 1e-5
@@ -1207,6 +1233,25 @@ def main() -> int:
 
     # ---- phase 6f: K2-nk, K7 and the "nk" teacher's timings -------------
     nk_ms = time_nk(nk, preset, train_preset, batch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 3g: checkpoints, distillation and survival entries -------
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as ckpt_dir:
+        teacher_ckpt = run_distillation_entries(train_preset, dev, card,
+                                                ckpt_dir)
+        torch.cuda.empty_cache()
+
+        # ---- phase 5g: distillation in f32, card vs CPU; a resumed fold --
+        compare_train_step(f32.replace(mode="distillation",
+                                       deterministic_training=True),
+                           batch, dev)
+        check_resumed_fold(train_preset, teacher_ckpt, dev, card, ckpt_dir)
+    torch.cuda.empty_cache()
+
+    # ---- phase 6g: the distillation step, cached and uncached -----------
+    time_distillation(train_preset, batch, dev, card)
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernel_line(
         train_counts, dict(k1=k1_err, k2=max(*k2_err.values(), k2_1d["err"]),
@@ -1459,7 +1504,7 @@ def time_dpc_kernels(dpc: dict, card: str) -> dict:
 
 def run_training_entry(cfg, dev, steps: int, per_step: dict,
                        per_eval: dict, card: str):
-    """Phases 3b and 3c: the training entry (``main.main``) for one fold;
+    """Phases 3b, 3c and 3g: the training entry (``main.main``) for one fold;
     every count set to 0 just before, read just after, and held to
     ``per_step`` launches per train step and ``per_eval`` per eval batch
     (0 for every kernel not named)."""
@@ -1476,16 +1521,18 @@ def run_training_entry(cfg, dev, steps: int, per_step: dict,
     final = results[0]
     losses = final["train_losses"]
     eval_batches = -(-cfg.synthetic_test_size // cfg.batch_size)
-    want = expect(**{k: per_step.get(k, 0) * steps
-                     + per_eval.get(k, 0) * eval_batches
-                     for k in set(per_step) | set(per_eval)})
+    want = _sum_counts(steps, per_step, eval_batches, per_eval)
     print(f"[train] entry, {setting(cfg)}: {len(losses)} steps + "
           f"{eval_batches} eval batch in {wall:.2f} s (data generation and "
           f"first-call set-up included); losses {losses}; launches {n} "
           f"| {card}")
+    if cfg.task_type == "survival":  # the c-index of every tag
+        print(f"[train] survival c-index per tag {final['detail']} | {card}")
+    names = (tuple(final["detail"]) if cfg.task_type == "survival"
+             else ("acc", "auc", "f1"))
+    values = final["detail"] if cfg.task_type == "survival" else final
     if (len(losses) != steps or not all(map(math.isfinite, losses))
-            or not all(math.isfinite(final[k]) for k in
-                       ("acc", "auc", "f1"))):
+            or not all(math.isfinite(values[k]) for k in names)):
         raise RuntimeError(f"training entry: bad losses or metrics {final}")
     if n != want:
         raise RuntimeError(f"training entry: launches {n}, want {want}")
@@ -1493,9 +1540,10 @@ def run_training_entry(cfg, dev, steps: int, per_step: dict,
 
 
 def compare_train_step(cfg, batch, dev, layout: str = "auto") -> None:
-    """Phases 5b, 5c, 5d, 5e and 5f: one ``deterministic_training`` f32
-    step of ``cfg.mode`` (its attentions in ``layout``) from the same seeded
-    weights on the same batch, on the card and on the CPU."""
+    """Phases 5b, 5c, 5d, 5e, 5f and 5g: one ``deterministic_training``
+    f32 step of ``cfg.mode`` (its attentions in ``layout``; distillation's
+    student against its teacher) from the same seeded weights on the same
+    batch, on the card and on the CPU."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch.models.factory import (
@@ -1507,9 +1555,11 @@ def compare_train_step(cfg, batch, dev, layout: str = "auto") -> None:
 
     out = {}
     for device in (dev, "cpu"):
-        model = define_net(cfg, device, attn_layout=layout)
+        model, teacher = define_net(cfg, device, attn_layout=layout), None
+        if cfg.mode == "distillation":
+            model, teacher = model
         step = make_train_step(model, cfg, make_optimizer(
-            cfg, model.parameters()))
+            cfg, model.parameters()), teacher=teacher)
         m = step(batch_to_tensors(batch, device))
         task_key = "loss3" if cfg.mode == "deformpathomic" else "taskloss"
         out[device] = ((m["loss"].item(), m[task_key].item()),
@@ -2957,6 +3007,242 @@ def time_nk(nk: dict, preset, train_preset, batch, dev, card: str) -> dict:
     del model, step, opt
     torch.cuda.empty_cache()
     return times
+
+
+# phase 3g: the distilled student's kernels per train step, on a batch the
+# teacher-output cache has not seen (the teacher's forward, K1-fwd 4, and
+# the student's) and on one it replays (the student's alone), and per eval
+# batch (the student's forward)
+DISTILL_MISS = dict(k1_fwd=4 + 2, k1_bwd=2, k3_knn=2, k3_parent=2)
+DISTILL_HIT = dict(k1_fwd=2, k1_bwd=2, k3_knn=2, k3_parent=2)
+DISTILL_EVAL = dict(k1_fwd=2, k3_knn=2, k3_parent=2)
+# phase 5g: a distillation fold (f32, deterministic_training) stopped after
+# epoch 1 and resumed, against the uninterrupted fold, epoch 2's losses.
+# The state restored is bitwise the state saved (the CPU test holds the
+# whole fold bitwise), but F.grid_sample's backward adds its gradients by
+# atomics on the card, so two runs of one step differ in the last bits of
+# the offset gradients; three AdamW steps carry that to the losses at about
+# 1e-6 relative (Adam turns noise into full steps only on leaves whose
+# gradient is rounding noise, the CPB output biases, which the softmax over
+# kv ignores), hence 1e-5.
+RESUME_LOSS_TOL = 1e-5
+
+
+class _Tee(io.StringIO):
+    """Standard output kept, and copied."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def _sum_counts(steps: int, per_step: dict, evals: int = 0,
+                per_eval: dict | None = None) -> dict:
+    """Every kernel's count over ``steps`` train steps and ``evals`` eval
+    batches."""
+    per_eval = per_eval or {}
+    return expect(**{k: per_step.get(k, 0) * steps + per_eval.get(k, 0) * evals
+                     for k in set(per_step) | set(per_eval)})
+
+
+def run_distillation_entries(train_preset, dev, card: str,
+                             ckpt_dir: str) -> str:
+    """Phase 3g at the preset: (1) the teacher's training entry (1 fold,
+    3 steps) writes a metric-stamped checkpoint; (2) the distillation
+    training entry restores it through ``checkpoints_teacher`` and trains 2
+    epochs of 3 steps with the teacher-output cache, with exact counts per
+    epoch (the logger, called by the eval after each epoch, reads them) and
+    3 misses then 3 hits; (3) one epoch without the cache runs the teacher
+    every step; (4) the serving entry restores the distilled student's
+    checkpoint and gives the logits of the run's final evaluation bitwise;
+    (5) the survival preset's teacher training entry (B 8, 3 steps) prints
+    a finite c-index per tag.  Returns the teacher's checkpoint."""
+    import contextlib
+    import glob
+    import re
+    import types
+
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+    from disentangled_multimodal_learning_tpu_torch.config import Config
+
+    run_training_entry(train_preset.replace(checkpoints=ckpt_dir), dev, 3,
+                       dict(k1_fwd=4, k1_bwd=4), dict(k1_fwd=4), card)
+    teacher_ckpt, = glob.glob(f"{ckpt_dir}/teacher_fold_1_epoch_1_*.pt")
+    print(f"[distill] teacher checkpoint {teacher_ckpt}")
+
+    distill = train_preset.replace(
+        mode="distillation", checkpoints=ckpt_dir,
+        checkpoints_teacher=teacher_ckpt, epochs=2, eval_every_iters=3)
+    marks = []
+    logger = types.SimpleNamespace(log=lambda payload: marks.append(counts()))
+    out = _Tee()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        final = train_main.main(distill, device=dev, logger=logger)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    marks.append(counts())
+    epochs = [marks[0]] + [{k: b[k] - a[k] for k in a}
+                           for a, b in zip(marks, marks[1:])]
+    want = [_sum_counts(3, DISTILL_MISS, 1, DISTILL_EVAL),
+            _sum_counts(3, DISTILL_HIT, 1, DISTILL_EVAL),
+            _sum_counts(0, {}, 1, DISTILL_EVAL)]
+    cache = re.findall(r"\[distill cache\] (\d+) hits, (\d+) misses",
+                       out.getvalue())
+    losses = final["train_losses"]
+    print(f"[distill] entry, cache on, {setting(distill)}: 2 epochs of 3 "
+          f"steps in {wall:.2f} s (set-up included); losses {losses}; "
+          f"launches epoch 1 (misses) + eval {epochs[0]}, epoch 2 (hits) + "
+          f"eval {epochs[1]}, final eval {epochs[2]}; cache (hits, misses) "
+          f"{cache} | {card}")
+    if epochs != want:
+        raise RuntimeError(f"distillation entry: launches {epochs}, want "
+                           f"{want}")
+    if cache != [("3", "3")]:
+        raise RuntimeError(f"distillation cache: {cache}, want 3 hits and "
+                           "3 misses")
+    if len(losses) != 6 or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"distillation entry: bad losses {losses}")
+    student_ckpt, = glob.glob(
+        f"{ckpt_dir}/distillation_fold_1_epoch_2_*.pt")
+
+    run_training_entry(distill.replace(distill_teacher_cache=False, epochs=1,
+                                       checkpoints="#", eval_every_iters=10),
+                       dev, 3, DISTILL_MISS, DISTILL_EVAL, card)
+
+    reset_counts()
+    metrics, logits = inference.main(
+        distill.replace(checkpoints_student=student_ckpt), device=dev)
+    torch.cuda.synchronize()
+    n = counts()
+    same = {k: bool(np.array_equal(v, final["logits"][k]))
+            for k, v in logits.items()}
+    print(f"[distill] serving from {student_ckpt}: launches {n}; logits "
+          f"bitwise equal to the run's final evaluation: {same} | {card}")
+    check_outputs(metrics, logits, 4)
+    if n != _sum_counts(0, {}, 1, DISTILL_EVAL) or not all(same.values()):
+        raise RuntimeError("the distilled student's serving disagrees with "
+                           "its final evaluation")
+
+    surv = Config.from_yaml("config/config_mine_surv.yaml").replace(
+        synthetic_data=True, synthetic_train_size=3 * 8,
+        synthetic_test_size=8, kfold=1, epochs=1, checkpoints=ckpt_dir)
+    run_training_entry(surv, dev, 3, dict(k1_fwd=4, k1_bwd=4),
+                       dict(k1_fwd=4), card)
+    ckpt = glob.glob(f"{ckpt_dir}/teacher_fold_1_epoch_1_cindex_*.pt")
+    print(f"[survival] teacher, B {surv.batch_size}: checkpoint {ckpt} "
+          f"| {card}")
+    if len(ckpt) != 1:
+        raise RuntimeError("the survival run wrote no cindex checkpoint")
+    return teacher_ckpt
+
+
+class _Stopped(Exception):
+    pass
+
+
+def check_resumed_fold(train_preset, teacher_ckpt: str, dev, card: str,
+                       ckpt_dir: str) -> None:
+    """Phase 5g: a distillation fold (f32, ``deterministic_training``, 2
+    epochs of 3 steps, a rolling checkpoint every epoch) run whole, then
+    run again, stopped after epoch 1's rolling checkpoint, and resumed:
+    epoch 2's losses within ``RESUME_LOSS_TOL`` of the whole run's."""
+    import numpy as np
+
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+    from disentangled_multimodal_learning_tpu_torch.train import trainers
+
+    cfg = train_preset.replace(
+        mode="distillation", attn_bf16_streams=False,
+        deterministic_training=True, epochs=2, save_every_epochs=1,
+        checkpoints_teacher=teacher_ckpt)
+    dirs = [os.path.join(ckpt_dir, name) for name in ("whole", "resumed")]
+    whole = train_main.main(cfg.replace(checkpoints=dirs[0]), device=dev)[0]
+    save = trainers.save_checkpoint
+
+    def stopped_after_rolling_save(directory, name, *args, **kw):
+        path = save(directory, name, *args, **kw)
+        if name.endswith("_latest"):
+            raise _Stopped(path)
+        return path
+
+    part = cfg.replace(checkpoints=dirs[1])
+    trainers.save_checkpoint = stopped_after_rolling_save
+    try:
+        train_main.main(part, device=dev)
+        raise RuntimeError("the run was not stopped after epoch 1")
+    except _Stopped:
+        pass
+    finally:
+        trainers.save_checkpoint = save
+    resumed = train_main.main(part.replace(resume=True), device=dev)[0]
+    a, b = whole["train_losses"][3:], resumed["train_losses"]
+    errs = [abs(x - y) / abs(x) for x, y in zip(a, b)]
+    logit_err = max(float(np.abs(whole["logits"][k]
+                                 - resumed["logits"][k]).max())
+                    for k in whole["logits"])
+    print(f"[resume] distillation, f32, deterministic: epoch 2 losses whole "
+          f"{a}, resumed {b}; rel err {errs} (tol {RESUME_LOSS_TOL}); "
+          f"bitwise {a == b}; final logits max_abs_err {logit_err:.3e} "
+          f"| {card}")
+    if len(b) != 3 or not max(errs) <= RESUME_LOSS_TOL:
+        raise RuntimeError("the resumed fold disagrees with the whole fold")
+
+
+def time_distillation(train_preset, batch, dev, card: str, n: int = 30):
+    """Phase 6g: the distillation train step at the preset, uncached (the
+    teacher's forward every step) and cached (a replay from the
+    teacher-output cache, the replay timed with it): bags/s, median and
+    p80 of ``n`` steps on a resident batch, and a profiled call each
+    (device-busy share); then a cache fill (a miss: the teacher's forward
+    and the store) and a replay (a hit) alone."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.distill_cache import (
+        TeacherBoundaryCache)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_distill_cached_step, make_teacher_boundary_fn,
+        make_train_step)
+
+    cfg = train_preset.replace(mode="distillation")
+    student, teacher = define_net(cfg, dev)
+    opt = make_optimizer(cfg, student.parameters())
+    sched = make_scheduler(cfg, opt, 1000)
+    x = batch_to_tensors(batch, dev)
+    idx = batch.indices
+    boundary = make_teacher_boundary_fn(teacher)
+    cache = TeacherBoundaryCache(boundary, len(idx), dev)
+    steps = {"uncached": make_train_step(student, cfg, opt, sched,
+                                         teacher=teacher)}
+    cached = make_distill_cached_step(student, cfg, opt, sched)
+    steps["cached"] = lambda t: cached(dict(t, **cache.boundary(t, idx)))
+    for name, step in steps.items():
+        ms = ms_samples(lambda: step(x), n)
+        med, p80 = median(ms), ms[int(0.8 * len(ms))]
+        print(f"[time] distillation train step ({name}) B=4 fixdim=2500 "
+              f"{setting(cfg)}: median {med:.3f} ms = {4000.0 / med:.1f} "
+              f"train bags/s, p80 {p80:.3f} ms = {4000.0 / p80:.1f} bags/s "
+              f"({n} steps) | {card}")
+        profile(f"distillation train step ({name}, {setting(cfg)})",
+                lambda: step(x), n=3)
+    fill = ms_samples(lambda: TeacherBoundaryCache(
+        boundary, len(idx), dev).boundary(x, idx), 20)
+    replay = ms_samples(lambda: cache.boundary(x, idx), 50)
+    print(f"[time] teacher-output cache, B=4: fill (a miss: the teacher's "
+          f"forward, the store) median {median(fill):.3f} ms, p80 "
+          f"{fill[16]:.3f}; replay (a hit) median {median(replay):.4f} ms, "
+          f"p80 {replay[40]:.4f} (hits {cache.hits}, misses {cache.misses})"
+          f" | {card}")
+    del student, teacher, opt, steps, cached, cache
 
 
 def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:

@@ -1,7 +1,8 @@
-"""Experiment config of the port: the fields the teacher, student and
-deformpathomic serving and training paths read, under the names and defaults of the JAX
-``Config`` (``disentangled_multimodal_learning_tpu/config.py``), so its YAML
-presets load unchanged.  ``yaml`` is imported only when a YAML file is read;
+"""Experiment config of the port: the fields the teacher, student,
+deformpathomic and distillation serving and training paths read, under the
+names and defaults of the JAX ``Config``
+(``disentangled_multimodal_learning_tpu/config.py``), so its YAML presets
+load unchanged.  ``yaml`` is imported only when a YAML file is read;
 :meth:`Config.diag2021` holds the flagship preset in code for machines
 without it.
 
@@ -48,17 +49,10 @@ IGNORED = {
     "label_path": _UNREAD, "dataDir_pyramid": _UNREAD, "pyramid": _UNREAD,
     "dataset": _UNREAD, "combination_type": _UNREAD, "act_type": _UNREAD,
 }
-_CKPT = "checkpoints, resume and survival evaluation"
-_DISTILL = "distillation"
 _DATA = "real-data loaders"
 _BASELINES = "baselines"
 # JAX Config keys a later part of the port reads -> (JAX default, subject)
 LATER = {
-    "reload": (False, _CKPT), "resume": (False, _CKPT),
-    "save_every_epochs": (0, _CKPT), "save4roc": (False, _CKPT),
-    "save4visualization": (False, _CKPT),
-    "distill_logits": (True, _DISTILL), "distill_feature": (True, _DISTILL),
-    "temperature": (2.0, _DISTILL), "distill_teacher_cache": (True, _DISTILL),
     "buckets": ("", _DATA), "dataDir": ("./data/", _DATA),
     "coTraining": (True, _DATA),
     "init_type": ("max", _BASELINES), "init_gain": (0.02, _BASELINES),
@@ -154,6 +148,24 @@ class Config:
     eval_every_iters: int = 200
     eval_during_training: bool = True
     deterministic_training: bool = False
+    # checkpoints (JAX config.py:110-111, :173): ``reload`` restores the
+    # full state from checkpoints_teacher / checkpoints_student before
+    # training; ``resume`` restarts a fold from its rolling checkpoint,
+    # written every ``save_every_epochs`` epochs (0: never)
+    reload: bool = False
+    resume: bool = False
+    save_every_epochs: int = 0
+    # exports of the evaluation (JAX config.py:257-259): per-tag ROC score
+    # CSVs, and the serving entry's attention-map npz
+    save4roc: bool = False
+    save4visualization: bool = False
+    # distillation (JAX config.py:140, :200-202): the KL on the logits at
+    # ``temperature`` and the MSE on the features, and the teacher-output
+    # cache
+    distill_logits: bool = True
+    distill_feature: bool = True
+    temperature: float = 2.0
+    distill_teacher_cache: bool = True
 
     @property
     def class_weights(self):
@@ -219,7 +231,8 @@ class Config:
                                 type=_parse_bool if isinstance(v, bool)
                                 else type(v))
         parser.add_argument("--checkpoint", default=None,
-                            help="reference-named .pth state_dict")
+                            help="the port's .pt checkpoint or a "
+                            "reference-named .pth state_dict")
         parser.add_argument("--device", default="cuda",
                             help="torch device (default: cuda; pass cpu to "
                             "run on the CPU)")

@@ -1,7 +1,9 @@
 """The 6-tuple bag data contract (port of
 ``disentangled_multimodal_learning_tpu/data/contract.py``): batches unpack as
 ``(x_path10, x_path20, x_omic, x_omic_tumor, x_omic_immune, label)`` with
-``label [B, 12]`` integer columns."""
+``label [B, 12]`` integer columns, with the slide ids (``wsi_id``) the
+attention-map export writes and the dataset rows (``indices``) the
+distillation teacher-output cache keys on."""
 
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ NUM_LABEL_COLUMNS = len(LabelCol)
 @dataclasses.dataclass
 class Batch:
     """A host-side batch (numpy arrays).  ``pad`` counts the duplicated
-    trailing samples of a padded final batch (see ``loader.BagLoader``)."""
+    trailing samples of a padded final batch and ``indices`` holds the
+    dataset row of each sample (both set by ``loader.BagLoader``)."""
 
     x_path10: np.ndarray  # [B, N, 1024] float32
     x_path20: np.ndarray  # [B, N, 1024] float32
@@ -40,4 +43,6 @@ class Batch:
     x_omic_tumor: np.ndarray  # [B, 59] float32
     x_omic_immune: np.ndarray  # [B, 361] float32
     label: np.ndarray  # [B, 12] int32
+    wsi_id: np.ndarray | None = None  # [B] str
     pad: int = 0
+    indices: np.ndarray | None = None  # [B] int

@@ -10,6 +10,9 @@ Evaluation (the defaults): sequential batches, and a short final batch is
 PADDED to full size by repeating its last sample; ``batch.pad`` records how
 many rows are duplicates and the evaluator strips them, so the metrics cover
 exactly the dataset.  Every batch therefore has the same shape.
+
+Every batch carries its dataset rows in ``batch.indices`` (JAX
+``loader.py:62``), the keys of the distillation teacher-output cache.
 """
 
 from __future__ import annotations
@@ -51,4 +54,5 @@ class BagLoader:
                 idx = np.concatenate([idx, np.repeat(idx[-1], pad)])
             batch = self.dataset.batch(idx)
             batch.pad = pad
+            batch.indices = idx  # stable per-sample keys
             yield batch

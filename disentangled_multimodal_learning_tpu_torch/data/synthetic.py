@@ -60,6 +60,10 @@ class SyntheticBagDataset:
         label[LabelCol.SURVIVAL_TIME] = self._surv_time[idx]
         return x10, x20, omic, omic_tumor, omic_immune, label
 
+    def wsi_id(self, idx: int) -> str:
+        return f"SYN-{idx:05d}"
+
     def batch(self, indices) -> Batch:
         items = [self[int(i)] for i in indices]
-        return Batch(*[np.stack([it[j] for it in items]) for j in range(6)])
+        return Batch(*[np.stack([it[j] for it in items]) for j in range(6)],
+                     wsi_id=np.array([self.wsi_id(int(i)) for i in indices]))

@@ -1,37 +1,46 @@
-"""Serving entry of the port: evaluate a teacher, student or deformpathomic
-checkpoint on the fold-0 test set (counterpart of the root ``inference.py``
--> ``testTeachersModel`` / ``testStudentsModel`` -> ``Evaluator.distill_val``,
+"""Serving entry of the port: evaluate a teacher, student, distilled
+student or deformpathomic checkpoint on the fold-0 test set (counterpart of
+the root ``inference.py`` -> ``testTeachersModel`` / ``testStudentsModel``
+/ ``testDistillation`` -> ``Evaluator.distill_val``,
 ``testDeformPathomicModel`` -> ``Evaluator.fused_val``).
 
     python -m disentangled_multimodal_learning_tpu_torch.inference \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
-        [--mode student | --mode deformpathomic --attn_dim 1] \\
-        [--checkpoint model.pth] [--device cpu]
+        [--mode student | --mode distillation | --mode deformpathomic \\
+        --attn_dim 1] [--checkpoint model.pt | model.pth] \\
+        [--save4visualization true] [--device cpu]
 
 It runs on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
 and raises where there is no card.  Without ``--config`` the in-code
-diag2021 preset is used (no ``yaml`` needed).  Without a checkpoint (or
+diag2021 preset is used (no ``yaml`` needed).  The weights come from the
+checkpoint (the port's ``.pt`` or a reference-named ``.pth``; else
 ``checkpoints_teacher`` for the teachers, ``checkpoints_student`` for the
-other modes, as in JAX) the weights are a seeded random init, with a
-warning.  Prints ``name_tag=value`` for acc, f1, auc, bac, sens, spec and
-prec of tea10, tea20 and teas (stu10, stu20 and stus for the student);
-deformpathomic prints ``name=value`` for its fused logits.
+other modes, as in JAX); without one they are a seeded random init, with a
+warning.  Distillation evaluates the student of ``(student, teacher)``.
+Prints ``name_tag=value`` for acc, f1, auc, bac, sens, spec and prec of
+tea10, tea20 and teas (stu10, stu20 and stus for the students), or
+``cindex_tag=value`` on survival; deformpathomic prints ``name=value`` for
+its fused output.  ``save4visualization`` writes the attention maps of the
+teachers and students to ``attention_fold{k}.npz`` in ``checkpoints``
+(root ``inference.py:134-145``).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from .config import Config
 from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
 from .models.factory import define_net, require_device
-from .train.trainers import (testDeformPathomicModel, testStudentsModel,
-                             testTeachersModel)
-from .utils.jax_params import load_checkpoint
+from .train.evaluation import Evaluator, export_dir
+from .train.trainers import (testDeformPathomicModel, testDistillation,
+                             testStudentsModel, testTeachersModel)
+from .utils.checkpoint import restore_state
 
 _TESTS = {"teacher": testTeachersModel, "uniteacher": testTeachersModel,
-          "student": testStudentsModel,
+          "student": testStudentsModel, "distillation": testDistillation,
           "deformpathomic": testDeformPathomicModel}
 
 
@@ -60,16 +69,26 @@ def main(cfg: Config, checkpoint: str | None = None, device="cuda",
     loader = build_fold0_test_loader(cfg)
     if model is None:
         model = define_net(cfg, device)
+        if cfg.mode == "distillation":
+            model = model[0]  # the student
         ckpt = checkpoint or (
             cfg.checkpoints_teacher if cfg.mode in ("teacher", "uniteacher")
             else cfg.checkpoints_student)
         if ckpt and ckpt not in ("#", ""):
-            load_checkpoint(model, ckpt)
+            restore_state(model, None, None, ckpt)
             print(f"[inference] loaded checkpoint: {ckpt}")
         else:
             print("[inference] WARNING: no checkpoint given, evaluating a "
                   f"random init (seed {cfg.seed})")
     metrics, logits = _TESTS[cfg.mode](model, loader, cfg)
+    if cfg.save4visualization and cfg.mode != "deformpathomic":
+        out_dir = export_dir(cfg)
+        os.makedirs(out_dir, exist_ok=True)
+        model_type = ("teacher" if cfg.mode in ("teacher", "uniteacher")
+                      else "student")
+        path = Evaluator(model, cfg, device, model_type).export_attention_maps(
+            loader, os.path.join(out_dir, f"attention_fold{cfg.cur_fold}.npz"))
+        print(f"[inference] attention maps -> {path}")
     print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     return metrics, logits
 

@@ -24,7 +24,6 @@ from .teacher_student import StudentsNet, TeachersNet
 
 # modes the JAX factory knows, with the subject of the port that brings each
 _LATER = {
-    "distillation": "distillation",
     "multiscale": "the multiscale models",
     **{m: "the baselines" for m in (
         "path", "transmil", "omic", "pathomic", "pathomic_original", "mcat",
@@ -53,17 +52,21 @@ def require_device(device) -> torch.device:
     return device
 
 
-def define_net(cfg, device="cuda", attn_layout: str = "auto") -> nn.Module:
+def define_net(cfg, device="cuda", attn_layout: str = "auto"):
     """``cfg`` -> eval-mode model on ``device`` with random weights drawn
     from ``cfg.seed`` by a ``torch.Generator``, every deformable attention
     in ``attn_layout`` (``models/deform_attention.py``); load real weights
-    over them with ``utils.jax_params`` (the same weights in either
-    layout).  The train step switches the model to train mode (eval mode
-    under ``deterministic_training``)."""
+    over them with ``utils.jax_params`` or ``utils.checkpoint`` (the same
+    weights in either layout).  The train step switches the model to train
+    mode (eval mode under ``deterministic_training``).  In distillation
+    mode, ``(student, teacher)``, both seeded so, on ``device``."""
     mode = cfg.mode
     if mode in _LATER:
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet: it comes with {_LATER[mode]}")
+    if mode == "distillation":
+        return (define_net(cfg.replace(mode="student"), device, attn_layout),
+                define_net(cfg.replace(mode="teacher"), device, attn_layout))
     if mode not in ("teacher", "uniteacher", "student", "deformpathomic"):
         raise NotImplementedError(f"model [{mode}] is not implemented")
     device = require_device(device)

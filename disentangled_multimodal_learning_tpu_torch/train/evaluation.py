@@ -1,17 +1,30 @@
-"""Held-out evaluation of the teacher, the student and deformpathomic
-(counterpart of ``disentangled_multimodal_learning_tpu/train/evaluation.py:41
-Evaluator``, ``distill_val`` :78, ``fused_val`` :176): the deterministic
-forward over a loader, softmax of the logits on the host, and the seven
-classification metrics per tag (deformpathomic: one tag, ``fused``, the
-fused logits ``logits[2]``)."""
+"""Held-out evaluation of the teacher, the student (plain or distilled) and
+deformpathomic (counterpart of
+``disentangled_multimodal_learning_tpu/train/evaluation.py:41
+Evaluator``, ``distill_val`` :78, ``export_attention_maps`` :110,
+``fused_val`` :176, ``save_roc_csv`` :219): the deterministic forward over
+a loader, then per tag (deformpathomic: one tag, ``fused``, the fused
+output ``logits[2]``)
+
+- on the classification tasks, softmax of the logits on the host and the
+  seven metrics, and with ``save4roc`` each tag's scores in
+  ``roc_{tag}_fold{k}.csv`` (teacher and student tags, as in JAX);
+- on survival, the c-index of the model's risks (``out[5]``; deformpathomic:
+  ``-sum(cumprod(1 - fused))`` of its hazards) against the censorships and
+  times.
+"""
 
 from __future__ import annotations
+
+import csv
+import os
 
 import numpy as np
 import torch
 
 from ..data.contract import LabelCol
-from .metrics import compute_avg_metrics
+from ..models.deform_attention import DeformCrossAttention2D, attn_kv_axis
+from .metrics import cindex, compute_avg_metrics
 from .steps import MODEL_INPUTS
 
 METRIC_NAMES = ("acc", "f1", "auc", "bac", "sens", "spec", "prec")
@@ -36,33 +49,40 @@ def model_inputs(batch, device, mode: str) -> dict:
             for arg, key in MODEL_INPUTS[mode].items()}
 
 
+def export_dir(cfg) -> str:
+    """Where the evaluation's exports go: ``cfg.checkpoints``, or the
+    working directory where checkpoints are off."""
+    return cfg.checkpoints if cfg.checkpoints not in ("#", "") else "."
+
+
 class Evaluator:
-    """Metrics of ``model`` (a ``cfg.mode`` model) on ``device`` over the
-    tags of ``model_type`` (``teacher``, ``student`` or ``fused``)."""
+    """Metrics of ``model`` (a ``cfg.mode`` model; in distillation mode the
+    student) on ``device`` over the tags of ``model_type`` (``teacher``,
+    ``student`` or ``fused``)."""
 
     def __init__(self, model, cfg, device, model_type: str):
-        if cfg.task_type not in _LABEL_COL:
-            raise NotImplementedError(
-                f"task_type {cfg.task_type!r}: the port evaluates the "
-                "classification tasks; survival (c-index) comes with the "
-                "checkpoints and survival evaluation")
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
         self.tags = TAGS[model_type]
         self.fused = model_type == "fused"
+        self.survival = cfg.task_type == "survival"
 
     @torch.inference_mode()
     def step(self, batch) -> dict:
-        """One deterministic forward -> the logits dict, as host numpy.  The
-        attention maps are not copied back (``need_attention=False``)."""
+        """One deterministic forward -> the logits dict (and on survival
+        the risks, ``risk_<tag>``), as host numpy; the attention maps are
+        not copied back."""
         out = self.model(**model_inputs(batch, self.device, self.cfg.mode))
-        logits = {"logits_fused": out[3][2]} if self.fused else out[2]
-        return {k: v.float().cpu().numpy() for k, v in logits.items()}
+        if self.fused:
+            res = {"logits_fused": out[3][2]}
+        else:
+            res = {**out[2], **out[5]} if self.survival else out[2]
+        return {k: v.float().cpu().numpy() for k, v in res.items()}
 
     def logits(self, loader):
-        """All batches -> (per-tag logits ``[M, C]`` with the loader's padded
-        duplicates stripped, labels ``[M, 12]``)."""
+        """All batches -> (per-tag outputs ``[M, ...]`` with the loader's
+        padded duplicates stripped, labels ``[M, 12]``)."""
         outs, labels = [], []
         for batch in loader:
             out = self.step(batch)
@@ -74,10 +94,73 @@ class Evaluator:
 
     def metrics(self, logits, labels) -> dict:
         """``{f"{metric}_{tag}": value}`` for every metric and tag, the keys
-        of the JAX ``distill_val`` dicts."""
+        of the JAX ``distill_val`` dicts (survival: ``cindex_{tag}``)."""
+        if self.survival:
+            censor = labels[:, LabelCol.CENSOR]
+            times = labels[:, LabelCol.SURVIVAL_TIME]
+            if self.fused:
+                fused = logits["logits_fused"]
+                return {"cindex_fused": cindex(
+                    -np.cumprod(1.0 - fused, axis=1).sum(axis=1), censor,
+                    times)}
+            return {f"cindex_{t}": cindex(logits[f"risk_{t}"], censor, times)
+                    for t in self.tags}
         y = labels[:, _LABEL_COL[self.cfg.task_type]]
         out = {}
         for t in self.tags:
-            vals = compute_avg_metrics(y, _softmax_np(logits[f"logits_{t}"]))
+            probs = _softmax_np(logits[f"logits_{t}"])
+            vals = compute_avg_metrics(y, probs)
             out.update({f"{n}_{t}": v for n, v in zip(METRIC_NAMES, vals)})
+            if self.cfg.save4roc and not self.fused:
+                base = export_dir(self.cfg)
+                os.makedirs(base, exist_ok=True)
+                save_roc_csv(os.path.join(
+                    base, f"roc_{t}_fold{self.cfg.cur_fold}.csv"), y, probs)
         return out
+
+    @torch.inference_mode()
+    def export_attention_maps(self, loader, path: str) -> str:
+        """Write the npz JAX writes (reference train_test.py:1121-1177):
+        for every attention map of the teacher or student, ``att_<key>``
+        ``[M, N]``, its per-head max then its mean over the kv axis of the
+        model's layout; ``scores`` (the combined logits, ``teas`` or
+        ``stus``), ``labels`` (the task's column), ``wsi_ids``, and
+        ``attention``, the first map's alias."""
+        layouts = {m.layout for m in self.model.modules()
+                   if isinstance(m, DeformCrossAttention2D)}
+        kv_ax = attn_kv_axis(layouts.pop())
+        col = (LabelCol.SURVIVAL_BIN if self.survival
+               else _LABEL_COL[self.cfg.task_type])
+        maps: dict[str, list] = {}
+        scores, labels, ids = [], [], []
+        for batch in loader:
+            out = self.model(**model_inputs(batch, self.device, self.cfg.mode))
+            atts, logits = out[1], out[2]
+            keep = batch.label.shape[0] - batch.pad
+            for key in sorted(atts):
+                att = atts[key][:keep].float().amax(dim=1).mean(dim=kv_ax)
+                maps.setdefault(key, []).append(att.cpu().numpy())
+            score_key = sorted(k for k in logits
+                               if k.endswith(("stus", "teas")))[-1]
+            scores.append(logits[score_key][:keep].float().cpu().numpy())
+            labels.append(batch.label[:keep, col])
+            ids.extend(list(batch.wsi_id)[:keep])
+        arrays = {"scores": np.concatenate(scores),
+                  "labels": np.concatenate(labels),
+                  "wsi_ids": np.asarray(ids)}
+        for key, chunks in maps.items():
+            arrays[f"att_{key}"] = np.concatenate(chunks)
+        arrays["attention"] = arrays[f"att_{sorted(maps)[0]}"]
+        np.savez(path, **arrays)
+        return path
+
+
+def save_roc_csv(path: str, ground_truth, activations) -> None:
+    """A header ``label,score_0,...`` and one row a sample (reference
+    train_test.py:1095-1119)."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["label"] + [f"score_{i}"
+                                for i in range(activations.shape[1])])
+        for y, row in zip(ground_truth, activations):
+            w.writerow([int(y)] + [float(v) for v in row])

@@ -2,6 +2,7 @@
 student, and the vgrid consistency loss of deformpathomic (counterpart of
 ``disentangled_multimodal_learning_tpu/train/losses.py``: weighted CE :30,
 ``nll_surv_loss`` :42, ``task_loss`` :89, ``path_batch_loss`` :131,
+``distillation_loss`` :106, ``feature_distillation_loss`` :117,
 ``diag_variance_loss`` :176, ``omic_domain_scale_loss`` :183,
 ``batch_loss_vgrid`` :200).
 
@@ -62,6 +63,23 @@ def task_loss(task_type: str, logits=None, hazards=None, S=None, label=None,
                              label[:, LabelCol.CENSOR], alpha=0.0)
     return weighted_cross_entropy(logits, label[:, _CLASS_COL[task_type]],
                                   class_weights)
+
+
+def distillation_loss(student_logits, teacher_logits, temperature=2.0):
+    """KL(teacher || student) of the softened distributions at
+    ``temperature``, summed over classes, averaged over the batch
+    (``batchmean``) and scaled by T^2; the teacher's probabilities are
+    clipped at 1e-12 inside the log, as in JAX."""
+    t = temperature
+    soft_targets = torch.softmax(teacher_logits / t, dim=1)
+    soft_prob = torch.log_softmax(student_logits / t, dim=1)
+    kl = soft_targets * (torch.log(soft_targets.clamp_min(1e-12)) - soft_prob)
+    return kl.sum() / student_logits.shape[0] * t ** 2
+
+
+def feature_distillation_loss(student_feat, teacher_feat):
+    """Mean squared error of the student's features to the teacher's."""
+    return ((student_feat - teacher_feat) ** 2).mean()
 
 
 def path_batch_loss(att10, att20):

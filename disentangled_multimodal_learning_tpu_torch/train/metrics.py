@@ -1,6 +1,8 @@
-"""Classification metrics in numpy (port of the numpy branch of
-``compute_avg_metrics``, ``disentangled_multimodal_learning_tpu/train/metrics.py:84``;
-no sklearn)."""
+"""Classification metrics and the survival c-index in numpy (port of the
+numpy branch of ``compute_avg_metrics``,
+``disentangled_multimodal_learning_tpu/train/metrics.py:84``, and of
+``concordance_index_censored`` :127 and ``cindex`` :157; no sklearn, no
+sksurv)."""
 
 from __future__ import annotations
 
@@ -97,3 +99,32 @@ def compute_avg_metrics(ground_truth, activations):
     sens = sensitivity_macro(y, pred, n_classes)
     spec = specificity_macro(y, pred, n_classes)
     return acc, f1, auc, bac, sens, spec, prec
+
+
+def concordance_index_censored(event_indicator, event_time, risk_score,
+                               tied_tol: float = 1e-8) -> float:
+    """Harrell's censored concordance index with sksurv's semantics: the
+    comparable pairs are (i, j) with an event at i and ``time_i <
+    time_j``, or tied times where j is censored; a pair is concordant when
+    ``risk_i > risk_j``, and a risk difference within ``tied_tol`` counts
+    0.5.  0.0 when no pair is comparable."""
+    ev = np.asarray(event_indicator).astype(bool)
+    t = np.asarray(event_time, dtype=np.float64)
+    r = np.asarray(risk_score, dtype=np.float64)
+    ti, tj = t[:, None], t[None, :]
+    comparable = ev[:, None] & ((tj > ti) | ((tj == ti) & ~ev[None, :]))
+    np.fill_diagonal(comparable, False)
+    n_comp = int(comparable.sum())
+    if n_comp == 0:
+        return 0.0
+    d = r[:, None] - r[None, :]
+    tied = int((comparable & (np.abs(d) <= tied_tol)).sum())
+    concordant = int((comparable & (d > tied_tol)).sum())
+    return float((concordant + 0.5 * tied) / n_comp)
+
+
+def cindex(all_risk_scores, all_censorships, all_event_times) -> float:
+    """The c-index of risks against censorships (1 = censored) and times."""
+    return concordance_index_censored(
+        (1 - np.asarray(all_censorships)).astype(bool), all_event_times,
+        all_risk_scores)

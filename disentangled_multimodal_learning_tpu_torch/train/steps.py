@@ -1,8 +1,9 @@
-"""The teacher, student and deformpathomic train steps (counterpart of
-``disentangled_multimodal_learning_tpu/train/steps.py``: ``TASK_LABEL_COL``
-:30, ``batch_to_arrays`` :38, ``_model_kwargs`` :48, ``task_class_weights``
-:100 and the teacher / uniteacher / student / deformpathomic branches of
-``make_train_step`` :109-322).
+"""The teacher, student, deformpathomic and distillation train steps
+(counterpart of ``disentangled_multimodal_learning_tpu/train/steps.py``:
+``TASK_LABEL_COL`` :30, ``batch_to_arrays`` :38, ``_model_kwargs`` :48,
+``task_class_weights`` :100, the teacher / uniteacher / student /
+distillation / deformpathomic branches of ``make_train_step`` :109-322,
+``make_teacher_boundary_fn`` :325 and ``make_distill_cached_step`` :349).
 
 One step, in order: the train-mode forward (``TeachersNet``,
 ``StudentsNet`` or ``DeformPathomicNet``); the loss of the mode (below);
@@ -21,6 +22,22 @@ maps, the student's ``1000 * path_batch_loss`` on its two), both on the
 pre-dropout maps; deformpathomic, ``loss3`` (the task loss on the fused
 logits) plus, with ``return_vgrid``, ``0.5 * bs_t + 0.5 * bs_i`` of
 ``batch_loss_vgrid``.
+
+Distillation trains the student against a frozen teacher's boundary
+tensors (:func:`make_teacher_boundary_fn`: its two scales' logits and
+256-wide features, from an eval-mode forward without gradients): the
+student's two-scale task loss plus ``distillation_loss`` at ``temperature``
+on the logits and ``feature_distillation_loss`` on the features, weighted
+as JAX weighs them (both on: ``taskloss + 0.01 dl + 0.01 df``; one alone:
+``taskloss`` plus it); ``path_batch_loss`` is logged under
+``multiscale_attention``, not added, and no gradient is modulated.  The
+uncached step runs the teacher each step; :func:`make_distill_cached_step`
+reads the tensors from the batch (``tea_lt10`` ...), filled by
+``train/distill_cache.py``.  Deviation from JAX: its cached step runs the
+student with ``train=True`` whatever ``deterministic_training`` says
+(``steps.py:371``), while its uncached step honours it; here both honour
+it, so that the two steps compute the same loss, as JAX's docstring says
+they do.
 """
 
 from __future__ import annotations
@@ -40,12 +57,17 @@ TASK_LABEL_COL = {
 }
 _TEACHER_INPUTS = {k: k for k in ("x_path10", "x_path20", "x_omic_tumor",
                                   "x_omic_immune")}
-# the forward's inputs per mode: model argument -> batch field
+_STUDENT_INPUTS = {"x_path10": "x_path10", "x_path20": "x_path20"}
+# the forward's inputs per mode (distillation: the student's): model
+# argument -> batch field
 MODEL_INPUTS = {"teacher": _TEACHER_INPUTS, "uniteacher": _TEACHER_INPUTS,
-                "student": {"x_path10": "x_path10", "x_path20": "x_path20"},
+                "student": _STUDENT_INPUTS, "distillation": _STUDENT_INPUTS,
                 "deformpathomic": {"x_path": "x_path10", "x_omic": "x_omic",
                                    "x_omic_tumor": "x_omic_tumor",
                                    "x_omic_immune": "x_omic_immune"}}
+# the teacher boundary tensors of one batch, in make_teacher_boundary_fn's
+# order: the logits of both scales, then the features of both
+BOUNDARY_KEYS = ("tea_lt10", "tea_lt20", "tea_ft10", "tea_ft20")
 
 
 def batch_to_tensors(batch, device) -> dict:
@@ -68,15 +90,21 @@ def task_class_weights(cfg, task: str):
     return cfg.class_weights
 
 
+def _task_loss(cfg, out, label, cw, tags):
+    """The task loss summed over the two scales' ``tags``."""
+    _, _, logits, hazards, S, _ = out
+    return sum(L.task_loss(cfg.task_type, logits=logits[f"logits_{t}"],
+                           hazards=hazards[f"hazards_{t}"], S=S[f"S_{t}"],
+                           label=label, class_weights=cw)
+               for t in tags)
+
+
 def _two_scale_loss(model, cfg, out, label, cw):
     """Teacher / student: -> (loss, metrics, modulated classifiers)."""
     student = cfg.mode == "student"
-    features, atts, logits, hazards, S, _ = out
-    tags = ("stu10", "stu20") if student else ("tea10", "tea20")
-    taskloss = sum(L.task_loss(cfg.task_type, logits=logits[f"logits_{t}"],
-                               hazards=hazards[f"hazards_{t}"], S=S[f"S_{t}"],
-                               label=label, class_weights=cw)
-                   for t in tags)
+    features, atts, *_ = out
+    taskloss = _task_loss(cfg, out, label, cw, ("stu10", "stu20") if student
+                          else ("tea10", "tea20"))
     loss = taskloss
     metrics = {"taskloss": taskloss}
     if cfg.multiscale_attention:
@@ -114,19 +142,91 @@ def _deformpathomic_loss(model, cfg, out, label, cw):
     return loss, metrics, [(model.classifier, vec_t, vec_i)]
 
 
-def make_train_step(model, cfg, optimizer, scheduler=None):
-    """The train step of ``cfg.mode`` (teacher, uniteacher, student or
-    deformpathomic): ``step(tensors) -> metrics``, a dict of detached 0-d
-    tensors (``loss``, ``taskloss`` and, with ``multiscale_attention``,
-    ``batchloss``; deformpathomic: ``loss``, ``loss3`` and, with
+def _distillation_loss(cfg, out, label, cw, boundary):
+    """The distilled student's loss against the teacher's ``boundary``
+    tensors: -> (loss, metrics)."""
+    features, atts, logits, *_ = out
+    lt10, lt20, ft10, ft20 = boundary
+    t = float(cfg.temperature)
+    taskloss = _task_loss(cfg, out, label, cw, ("stu10", "stu20"))
+    metrics = {"taskloss": taskloss}
+    loss = taskloss
+    if cfg.distill_logits:
+        dl = (L.distillation_loss(logits["logits_stu10"], lt10, t)
+              + L.distillation_loss(logits["logits_stu20"], lt20, t))
+        metrics["distillloss_logits"] = dl
+    if cfg.distill_feature:
+        df = (L.feature_distillation_loss(features["feature_stu10"], ft10)
+              + L.feature_distillation_loss(features["feature_stu20"], ft20))
+        metrics["distillloss_feature"] = df
+    if cfg.distill_logits and cfg.distill_feature:
+        loss = taskloss + 0.01 * dl + 0.01 * df
+    elif cfg.distill_logits:
+        loss = taskloss + dl
+    elif cfg.distill_feature:
+        loss = taskloss + df
+    if cfg.multiscale_attention:  # logged, not trained on
+        with torch.no_grad():
+            metrics["batchloss"] = L.path_batch_loss(atts["att_stu10"],
+                                                     atts["att_stu20"])
+    return loss, metrics
+
+
+def make_teacher_boundary_fn(teacher):
+    """``boundary(tensors) -> (lt10, lt20, ft10, ft20)``: the frozen
+    ``teacher``'s eval-mode forward without gradients, its two scales'
+    logits ``[B, C]`` and concatenated feature halves ``[B, 256]``."""
+    inputs = MODEL_INPUTS["teacher"]
+
+    @torch.no_grad()
+    def teacher_boundary(tensors: dict) -> tuple:
+        teacher.eval()
+        features, _, logits, *_ = teacher(
+            **{arg: tensors[key] for arg, key in inputs.items()})
+        return (logits["logits_tea10"], logits["logits_tea20"],
+                torch.cat([features["feature1_tea10"],
+                           features["feature2_tea10"]], dim=-1),
+                torch.cat([features["feature1_tea20"],
+                           features["feature2_tea20"]], dim=-1))
+
+    return teacher_boundary
+
+
+def make_distill_cached_step(model, cfg, optimizer, scheduler=None):
+    """The distillation step on precomputed teacher boundary tensors,
+    ``tensors[k]`` for ``k`` in :data:`BOUNDARY_KEYS`; otherwise the
+    uncached step (see the module docstring)."""
+    return _make_step(model, cfg, optimizer, scheduler,
+                      lambda tensors: tuple(tensors[k] for k in BOUNDARY_KEYS))
+
+
+def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None):
+    """The train step of ``cfg.mode`` (teacher, uniteacher, student,
+    deformpathomic, or distillation with the frozen ``teacher``):
+    ``step(tensors) -> metrics``, a dict of detached 0-d tensors (``loss``,
+    ``taskloss`` and, with ``multiscale_attention``, ``batchloss``;
+    distillation adds ``distillloss_logits`` and ``distillloss_feature``
+    as they are on; deformpathomic: ``loss``, ``loss3`` and, with
     ``return_vgrid``, ``batch_sim_loss``); read them with ``float()`` only
     where the host needs the value."""
-    mode = cfg.mode
-    if mode not in MODEL_INPUTS:
+    if cfg.mode not in MODEL_INPUTS:
         raise NotImplementedError(
-            f"mode {mode!r}: the port trains the teacher, the uniteacher, "
-            "the student and deformpathomic; distillation, the multiscale "
-            "models and the baselines come later")
+            f"mode {cfg.mode!r}: the port trains the teacher, the "
+            "uniteacher, the student, deformpathomic and distillation; the "
+            "multiscale models and the baselines come later")
+    if cfg.mode == "distillation":
+        if teacher is None:
+            raise ValueError("mode 'distillation' needs the frozen teacher "
+                             "(teacher=...)")
+        return _make_step(model, cfg, optimizer, scheduler,
+                          make_teacher_boundary_fn(teacher))
+    return _make_step(model, cfg, optimizer, scheduler)
+
+
+def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None):
+    """The step of :func:`make_train_step`; with ``boundary_fn``
+    (``tensors -> teacher boundary``) the distillation step."""
+    mode = cfg.mode
     inputs = MODEL_INPUTS[mode]
     loss_fn = (_deformpathomic_loss if mode == "deformpathomic"
                else _two_scale_loss)
@@ -136,11 +236,16 @@ def make_train_step(model, cfg, optimizer, scheduler=None):
     params = list(model.parameters())
 
     def train_step(tensors: dict) -> dict:
+        boundary = boundary_fn(tensors) if boundary_fn is not None else None
         model.train(train_mode)
         optimizer.zero_grad(set_to_none=True)
         label = tensors["label"]
         out = model(**{arg: tensors[key] for arg, key in inputs.items()})
-        loss, metrics, modulated = loss_fn(model, cfg, out, label, cw)
+        if boundary is not None:
+            loss, metrics = _distillation_loss(cfg, out, label, cw, boundary)
+            modulated = []
+        else:
+            loss, metrics, modulated = loss_fn(model, cfg, out, label, cw)
         loss.backward()
         # a parameter the loss does not reach (the MaxNets' classifiers)
         # gets a zero gradient, so the optimizer still decays it, as optax

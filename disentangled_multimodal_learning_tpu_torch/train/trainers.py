@@ -1,68 +1,115 @@
-"""The training driver of the teacher, the student and deformpathomic
-(counterpart of ``disentangled_multimodal_learning_tpu/train/trainers.py``:
+"""The training driver of the teacher, the student, deformpathomic and
+distillation (counterpart of
+``disentangled_multimodal_learning_tpu/train/trainers.py``:
 ``run_training`` :60-315, ``trainTeachersModel`` :364,
-``trainStudentsModel`` :370, ``trainDeformPathomicModel`` :384,
-``testStudentsModel`` :415, ``testDeformPathomicModel`` :423) on one
+``trainStudentsModel`` :370, ``trainDistillation`` :376,
+``trainDeformPathomicModel`` :384, ``testStudentsModel`` :415,
+``testDistillation`` :419, ``testDeformPathomicModel`` :423) on one
 device.
 
 Per epoch: ``set_epoch`` on the train loader, one train step per batch with
 the scheduler stepped per iteration, the ``eval_every_iters`` cadence
 (evaluation whenever the iteration count crosses a multiple of it, with
-``eval_during_training`` and a test loader), and at the epoch's end the
-plateau watcher on the mean train loss.  After the last epoch, the final
-evaluation through :class:`~.evaluation.Evaluator`.
+``eval_during_training`` and a test loader), at the epoch's end the
+plateau watcher on the mean train loss and, every ``save_every_epochs``
+epochs, the fold's rolling checkpoint ``{mode}_fold_{k}_latest``.  After
+the last epoch, the final evaluation through :class:`~.evaluation.Evaluator`
+and, unless ``checkpoints`` is ``"#"``, a metric-stamped checkpoint
+(``utils/checkpoint.py``).
 
-What the JAX driver does besides, and the port does not yet: meshes and
-sharded steps, ``scan_steps``, and checkpoints and resume (they come with
-the checkpoints and survival evaluation).  A ``checkpoints`` directory other than ``"#"`` raises instead of
-training without saving.
+``resume`` restores the rolling checkpoint (model, optimizer, scheduler
+and step) and starts at epoch ``step // steps_per_epoch``; the dropout
+generator restarts from the run's seed, as JAX restarts its dropout key, so
+with dropout on a resumed fold matches an uninterrupted one only under
+``deterministic_training``.
+
+Distillation trains the student against the frozen ``teacher``: with
+``distill_teacher_cache`` and a loader of known size, through the cached
+step and a :class:`~.distill_cache.TeacherBoundaryCache` on the student's
+device; otherwise through the uncached step.
+
+What the JAX driver does besides, and the port does not: meshes and
+sharded steps, ``scan_steps``, and the orbax checkpoint backend.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
 
+from ..utils.checkpoint import (SUFFIX, metric_stamped_name,
+                                restore_state, save_checkpoint)
+from .distill_cache import TeacherBoundaryCache, loader_dataset_size
 from .evaluation import METRIC_NAMES, Evaluator
 from .optim import (ReduceLROnPlateau, make_optimizer, make_scheduler,
                     set_learning_rate)
-from .steps import batch_to_tensors, make_train_step
+from .steps import (batch_to_tensors, make_distill_cached_step,
+                    make_teacher_boundary_fn, make_train_step)
 
 
-def run_training(cfg, model, loaders, logger=None, model_type="teacher"):
-    """Train ``model`` (on its own device) over ``loaders = (train, test)``;
-    returns ``(model, final_metrics, None)``: the trained model, the
-    metrics of the final evaluation on the combined tag of ``model_type``
-    (``teas``, ``stus`` or ``fused``: ``acc``, ``auc``, ...) with every
-    tag's under ``detail``, the last step's ``train_loss`` and every step's under
-    ``train_losses``, and no checkpoint path."""
-    if cfg.checkpoints not in ("#", ""):
-        raise NotImplementedError(
-            f"checkpoints={cfg.checkpoints!r}: the port does not save "
-            "checkpoints yet (they come with the checkpoints, resume and "
-            "survival evaluation); pass --checkpoints '#'")
+def run_training(cfg, model, loaders, logger=None, model_type="teacher",
+                 teacher=None, state=None):
+    """Train ``model`` (on its own device) over ``loaders = (train, test)``,
+    from the checkpoint payload ``state`` where given (``reload``);
+    returns ``(model, final_metrics, checkpoint_path)``: the trained model;
+    the metrics of the final evaluation on the combined tag of
+    ``model_type`` (``teas``, ``stus`` or ``fused``: ``acc``, ``auc``, ...,
+    or ``cindex`` on survival) with every tag's under ``detail`` and the
+    evaluated outputs under ``logits``, the last step's ``train_loss`` and
+    every step's under ``train_losses``; and the checkpoint's path (None
+    where ``checkpoints`` is ``"#"``).  In distillation mode ``teacher`` is
+    the frozen teacher."""
     train_loader, test_loader = loaders
     device = next(model.parameters()).device
+    mode = cfg.mode
     steps_per_epoch = max(1, len(train_loader))
     plateau = (ReduceLROnPlateau(cfg.plateau_factor, cfg.plateau_patience,
                                  cfg.plateau_threshold)
                if cfg.lr_policy == "plateau" else None)
     optimizer = make_optimizer(cfg, model.parameters())
     scheduler = make_scheduler(cfg, optimizer, steps_per_epoch, plateau)
-    train_step = make_train_step(model, cfg, optimizer, scheduler)
+    step = 0
+    if state is not None:
+        step = restore_state(model, optimizer, scheduler, state)
+    saving = cfg.checkpoints not in ("#", "")
+    latest_name = f"{mode}_fold_{cfg.cur_fold + 1}_latest"
+    latest_path = os.path.join(cfg.checkpoints, latest_name + SUFFIX)
+    start_epoch = 0
+    if cfg.resume and saving and os.path.exists(latest_path):
+        step = restore_state(model, optimizer, scheduler, latest_path)
+        start_epoch = min(step // steps_per_epoch, cfg.epochs)
+        print(f"[resume] {latest_path}: step {step} -> starting at epoch "
+              f"{start_epoch}")
+
+    cache = None
+    n_samples = loader_dataset_size(train_loader)
+    if mode == "distillation" and cfg.distill_teacher_cache and n_samples:
+        cache = TeacherBoundaryCache(make_teacher_boundary_fn(teacher),
+                                     n_samples, device)
+        train_step = make_distill_cached_step(model, cfg, optimizer,
+                                              scheduler)
+    else:
+        train_step = make_train_step(model, cfg, optimizer, scheduler,
+                                     teacher=teacher)
     evaluator = Evaluator(model, cfg, device, model_type)
     headline = evaluator.tags[-1]  # teas / stus / fused
+    score = "cindex" if evaluator.survival else "auc"
     torch.manual_seed(cfg.seed + 1234)  # the dropout draws
     start = time.time()
-    cur_iters = 0
+    cur_iters = start_epoch * steps_per_epoch
     losses = []  # device scalars, read once at the end
 
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         train_loader.set_epoch(epoch)
         epoch_losses = []
         for i, batch in enumerate(train_loader):
-            metrics = train_step(batch_to_tensors(batch, device))
+            tensors = batch_to_tensors(batch, device)
+            if cache is not None:
+                tensors.update(cache.boundary(tensors, batch.indices))
+            metrics = train_step(tensors)
+            step += 1
             losses.append(metrics["loss"])
             prev_iters, cur_iters = cur_iters, cur_iters + 1
             if plateau is not None:
@@ -76,25 +123,46 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher"):
                                              for k, v in metrics.items()},
                                 "test": result})
                 print("\rFold: [%2d/%2d] Epoch: [%2d/%2d] Iter [%4d/%4d] || "
-                      "Time: %4.4f sec || Loss: %.4f || auc_%s %.4f"
+                      "Time: %4.4f sec || Loss: %.4f || %s_%s %.4f"
                       % (cfg.cur_fold, cfg.kfold, epoch, cfg.epochs, i + 1,
                          len(train_loader), time.time() - start,
-                         float(metrics["loss"]), headline,
-                         result[f"auc_{headline}"]),
+                         float(metrics["loss"]), score, headline,
+                         result[f"{score}_{headline}"]),
                       end="", flush=True)
         if plateau is not None and epoch_losses:
             mean_loss = float(torch.stack(epoch_losses).mean())
             set_learning_rate(optimizer, cfg.lr * plateau.step(mean_loss))
+        every = cfg.save_every_epochs
+        if saving and every > 0 and (epoch + 1) % every == 0:
+            save_checkpoint(cfg.checkpoints, latest_name, model, optimizer,
+                            scheduler, step,
+                            extra={"mode": mode, "task": cfg.task_type,
+                                   "fold": cfg.cur_fold, "epoch": epoch + 1})
 
+    if cache is not None:
+        print(f"[distill cache] {cache.hits} hits, {cache.misses} misses")
     final = {}
     if test_loader is not None:
-        detail = evaluate(evaluator, test_loader)
-        final = {n: detail[f"{n}_{headline}"] for n in METRIC_NAMES}
+        evaluator.model.eval()
+        logits, labels = evaluator.logits(test_loader)
+        detail = evaluator.metrics(logits, labels)
+        names = ("cindex",) if evaluator.survival else METRIC_NAMES
+        final = {n: detail[f"{n}_{headline}"] for n in names}
         final["detail"] = detail
+        final["logits"] = logits
     if losses:
         final["train_losses"] = torch.stack(losses).tolist()
         final["train_loss"] = final["train_losses"][-1]
-    return model, final, None
+    path = None
+    if saving:
+        stamp = final if test_loader is not None else dict.fromkeys(
+            ("cindex",) + METRIC_NAMES, 0.0)
+        path = save_checkpoint(
+            cfg.checkpoints, metric_stamped_name(
+                cfg.cur_fold, cfg.epochs - 1, stamp, cfg.task_type, mode=mode),
+            model, optimizer, scheduler, step,
+            extra={"mode": mode, "task": cfg.task_type, "fold": cfg.cur_fold})
+    return model, final, path
 
 
 def evaluate(evaluator, loader) -> dict:
@@ -104,29 +172,45 @@ def evaluate(evaluator, loader) -> dict:
     return evaluator.metrics(*evaluator.logits(loader))
 
 
-def trainTeachersModel(model, dataloader, optimizer, scheduler, logger, args):
+def trainTeachersModel(model, dataloader, optimizer, scheduler, logger, args,
+                       state=None):
     """Reference-named entry (``optimizer`` and ``scheduler`` are built from
-    ``args``, as in JAX)."""
-    return run_training(args, model, dataloader, logger, model_type="teacher")
+    ``args``, as in JAX; ``state``: a checkpoint payload to start from)."""
+    return run_training(args, model, dataloader, logger, model_type="teacher",
+                        state=state)
 
 
-def trainStudentsModel(model, dataloader, optimizer, scheduler, logger, args):
+def trainStudentsModel(model, dataloader, optimizer, scheduler, logger, args,
+                       state=None):
     """Reference-named entry of the student, as :func:`trainTeachersModel`."""
-    return run_training(args, model, dataloader, logger, model_type="student")
+    return run_training(args, model, dataloader, logger, model_type="student",
+                        state=state)
+
+
+def trainDistillation(student_model, teacher_model, dataloader, optimizer,
+                      scheduler, logger, args, student_state=None):
+    """Reference-named entry of distillation: the student trained against
+    ``teacher_model`` (its weights already loaded), from the checkpoint
+    payload ``student_state`` where given."""
+    return run_training(args, student_model, dataloader, logger,
+                        model_type="student", teacher=teacher_model,
+                        state=student_state)
 
 
 def trainDeformPathomicModel(model, dataloader, optimizer, scheduler, logger,
-                             args):
+                             args, state=None):
     """Reference-named entry of deformpathomic, as
     :func:`trainTeachersModel`; the metrics are those of the fused
     logits."""
-    return run_training(args, model, dataloader, logger, model_type="fused")
+    return run_training(args, model, dataloader, logger, model_type="fused",
+                        state=state)
 
 
 def _run_test(model, loader, args, model_type):
     """The evaluator over ``loader`` in eval mode -> ``(metrics, logits)``:
-    ``{f"{metric}_{tag}": value}`` and ``{f"logits_{tag}": [M, C]}``; for
-    the one ``fused`` tag the metrics are flat (``{"acc": ...}``), as JAX
+    ``{f"{metric}_{tag}": value}`` and ``{f"logits_{tag}": [M, C]}`` (and
+    the risks on survival); for the one ``fused`` tag the metrics are flat
+    (``{"acc": ...}`` or ``{"cindex": ...}``), as JAX
     ``_metricdicts_to_flat`` gives them."""
     evaluator = Evaluator(model, args, next(model.parameters()).device,
                           model_type)
@@ -134,7 +218,7 @@ def _run_test(model, loader, args, model_type):
     logits, labels = evaluator.logits(loader)
     metrics = evaluator.metrics(logits, labels)
     if model_type == "fused":
-        metrics = {n: metrics[f"{n}_fused"] for n in METRIC_NAMES}
+        metrics = {k.rsplit("_", 1)[0]: v for k, v in metrics.items()}
     return metrics, logits
 
 
@@ -143,6 +227,11 @@ def testTeachersModel(model, dataloader, args):
 
 
 def testStudentsModel(model, dataloader, args):
+    return _run_test(model, dataloader, args, "student")
+
+
+def testDistillation(model, dataloader, args):
+    """The distilled student's tags (``stu10``, ``stu20``, ``stus``)."""
     return _run_test(model, dataloader, args, "student")
 
 

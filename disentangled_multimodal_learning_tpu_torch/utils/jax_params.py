@@ -1,5 +1,5 @@
-"""Weights into the port: JAX params (as numpy) or a reference-named
-``.pth`` state_dict, loaded with ``strict=True``.
+"""JAX params (as numpy) into the port, loaded with ``strict=True`` (a
+reference-named ``.pth`` state_dict loads through ``utils/checkpoint.py``).
 
 JAX params go through the port's own name map below (a copy of the JAX
 package's numpy-only exporter ``utils/torch_export.py``, so that the port
@@ -174,9 +174,3 @@ def load_jax_params(model: torch.nn.Module, params, mode: str,
     model.load_state_dict(sd, strict=True)
     return model
 
-
-def load_checkpoint(model: torch.nn.Module, path: str):
-    """Load a reference-named ``.pth`` (as ``save_torch_checkpoint`` writes)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(sd, strict=True)
-    return model

@@ -63,9 +63,13 @@ from disentangled_multimodal_learning_tpu_torch.models.factory import (
     define_net, init_weights)
 from disentangled_multimodal_learning_tpu_torch.ops import (
     cluster, cpb, cpb1d, dpc_knn, fused_exact, fused_table)
-from disentangled_multimodal_learning_tpu_torch.train.optim import make_optimizer
+from disentangled_multimodal_learning_tpu_torch.train.optim import (
+    make_optimizer, make_scheduler)
+from disentangled_multimodal_learning_tpu_torch.train.distill_cache import (
+    TeacherBoundaryCache)
 from disentangled_multimodal_learning_tpu_torch.train.steps import (
-    batch_to_tensors, make_train_step)
+    batch_to_tensors, make_distill_cached_step, make_teacher_boundary_fn,
+    make_train_step)
 
 K1_TOL, K2_TOL, FORWARD_TOL = 1e-5, 1e-4, 1e-4
 K1_BWD_TOL, K2_BWD_TOL, GRAD_TOL = 1e-5, 1e-3, 5e-3
@@ -577,6 +581,49 @@ def test_student_forward_on_card_matches_cpu(dev, divisor):
         for k in want:
             err = (got[k].cpu() - want[k]).abs().max().item()
             assert err <= FORWARD_TOL, (k, err)
+
+
+@pytest.mark.cuda
+def test_distillation_steps_on_card_at_the_exact_cpb(dev):
+    """The distillation steps at divisor 0 (fixdim 144, B=2, real widths;
+    the preset's divisor 1 is ``chip_smoke.py``'s phase 3g): the uncached
+    step runs the teacher (K2-fwd 4) and the student (K2-fwd 2, K2-bwd 2,
+    K3-knn 2, K3-parent 2); the cached step runs the teacher on a batch's
+    first sight only, and a replay launches the student's kernels alone."""
+    cfg = Config(mode="distillation", fixdim=144, batch_size=2,
+                 cpb_table_divisor=0).validate()
+    batch = SyntheticBagDataset(size=2, fixdim=144, seed=0).batch([0, 1])
+    batch.indices = np.array([0, 1])
+    x = batch_to_tensors(batch, dev)
+    student_kernels = (2, 0, 2, 2, 2)
+
+    def counts():
+        return (cpb.cpb_bias_transposed.launches, cpb.table_interp.launches,
+                cpb.cpb_bias_transposed_backward.launches,
+                *_dpc_launches())
+
+    def delta(step, tensors):
+        before = counts()
+        loss = step(tensors)["loss"].item()
+        assert math.isfinite(loss)
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    student, teacher = define_net(cfg, dev)
+    opt = make_optimizer(cfg, student.parameters())
+    sched = make_scheduler(cfg, opt, 1)  # the lr (the optimizer's base is 1)
+    step = make_train_step(student, cfg, opt, sched, teacher=teacher)
+    assert delta(step, x) == (4 + 2, 0, 2, 2, 2)
+    cache = TeacherBoundaryCache(make_teacher_boundary_fn(teacher), 2, dev)
+    cached = make_distill_cached_step(student, cfg, opt, sched)
+    for visit in range(2):
+        before = counts()
+        tensors = dict(x, **cache.boundary(x, batch.indices))
+        teacher_kernels = tuple(a - b for a, b in zip(counts(), before))
+        assert teacher_kernels == ((4, 0, 0, 0, 0) if visit == 0
+                                   else (0,) * 5)
+        assert delta(cached, tensors) == student_kernels
+    assert (cache.hits, cache.misses) == (1, 1)
+    assert cache.store["tea_ft10"].device.type == "cuda"
 
 
 def _k4_launches():

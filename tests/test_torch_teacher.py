@@ -183,9 +183,9 @@ def test_inference_refuses_real_data_until_ported():
 
 
 def test_define_net_refuses_unported_modes():
-    for mode, slice_name in [("distillation", "comes with distillation"),
-                             ("multiscale", "the multiscale models"),
-                             ("mcat", "comes with the baselines")]:
+    for mode, slice_name in [("multiscale", "the multiscale models"),
+                             ("mcat", "comes with the baselines"),
+                             ("transmil", "comes with the baselines")]:
         with pytest.raises(NotImplementedError, match=slice_name):
             define_net(Config(mode=mode), "cpu")
 
@@ -261,10 +261,10 @@ def test_config_refuses_later_and_unknown_keys():
     ``define_net`` may read it)."""
     with pytest.raises(NotImplementedError, match="comes with the baselines"):
         Config.from_dict({"init_type": "xavier"})
-    with pytest.raises(NotImplementedError, match="distillation"):
-        Config.from_dict({"temperature": 4.0})
-    with pytest.raises(NotImplementedError, match="checkpoints, resume"):
-        Config.from_dict({"resume": True})
+    with pytest.raises(NotImplementedError, match="real-data loaders"):
+        Config.from_dict({"dataDir": "/data/"})
+    with pytest.raises(NotImplementedError, match="real-data loaders"):
+        Config.from_dict({"coTraining": False})
     with pytest.raises(ValueError, match="unknown config key 'fixdimm'"):
         Config.from_dict({"fixdimm": 64})
     cfg = Config.from_dict({"init_type": "max", "debug": True, "remat": False,

@@ -324,7 +324,8 @@ def test_class_weights_follow_the_task_and_external_eval():
 def test_training_entry_runs_folds_with_the_eval_cadence():
     """The entry trains each synthetic fold with a fresh model and
     evaluates every ``eval_every_iters`` iterations and at the end; it
-    refuses checkpoints and real data instead of skipping them."""
+    refuses real data and the modes not ported yet instead of skipping
+    them."""
     cfg = Config(fixdim=FIXDIM, batch_size=B, synthetic_data=True,
                  synthetic_train_size=4, synthetic_test_size=3, kfold=2,
                  epochs=2, eval_every_iters=3, checkpoints="#",
@@ -343,13 +344,13 @@ def test_training_entry_runs_folds_with_the_eval_cadence():
     # 2 steps per epoch x 2 epochs: the count crosses 3 once per fold
     assert len(logged) == 2
     assert {"loss", "taskloss", "batchloss"} == set(logged[0]["training"])
-    with pytest.raises(NotImplementedError, match="checkpoints, resume"):
-        tmain.main(cfg.replace(checkpoints="./ckpt"), device="cpu")
+    with pytest.raises(NotImplementedError, match="multiscale models"):
+        tmain.main(cfg.replace(mode="multiscale"), device="cpu")
     with pytest.raises(NotImplementedError, match="synthetic_data"):
         tmain.main(cfg.replace(synthetic_data=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoints, resume"):
-        run_training(cfg.replace(checkpoints="x"), define_net(cfg, "cpu"),
-                     (None, None))
+    with pytest.raises(NotImplementedError, match="baselines come later"):
+        run_training(cfg.replace(mode="mcat"), define_net(cfg, "cpu"),
+                     ([], None))
 
 
 def test_training_entry_runs_from_the_command_line():
