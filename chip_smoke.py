@@ -5,7 +5,8 @@
 
 Drives ``disentangled_multimodal_learning_tpu_torch`` (never JAX) through its
 serving entry and its training entry, for the teacher, the student,
-deformpathomic and distillation (and the teacher on the survival task), at
+deformpathomic, distillation and multiscale (and the teacher on the survival
+task and on a demo cohort of real-data files), at
 the full width of ``config/config_mine_diag2021.yaml``
 (fixdim 2500, B=4, dims 128, 8 heads; the student with ``path_cluster_num``
 0.0008, 2 clusters per bag; deformpathomic at ``attn_dim`` 1, where the cls
@@ -174,7 +175,38 @@ with ``return_vgrid``) with seeded random weights:
 6g. times the distillation train step, uncached and cached (a replay from
    the cache timed with it): bags/s, median and p80 of 30 steps, a
    profiled call each (device-busy share); and a cache fill and a replay
-   alone.
+   alone;
+3h. runs the multiscale training entry at the preset (a teacher and a
+   student per magnification; 1 fold, 3 steps, then the final evaluation),
+   its checkpoint in a temporary directory under ``build/``, with exact
+   counts (per step K1-fwd 6, K1-bwd 6, K3-knn 2, K3-parent 2; per eval
+   batch K1-fwd 6, K3 2 + 2) and every loss finite; 1 step at divisor 0
+   (K2-fwd and K2-bwd 6 each, K1 never); the serving entry in multiscale
+   mode, restored from the fold's checkpoint, gives the final evaluation's
+   logits bitwise on all five tags (tea10, tea20, stu10, stu20, stus);
+5h. compares the f32 multiscale forward (five logits within
+   ``LOGITS_TOL``) and one f32 ``deterministic_training`` multiscale step
+   on the card with the CPU (``STEP_LOSS_TOL``, ``GRAD_TOL``,
+   ``ZERO_GRAD_FLOOR``);
+6h. times the multiscale eval forward and train step (bags/s, median and
+   p80; a profiled call each: device-busy share);
+3i. writes the demo cohorts (``data/demo_cohort.py``: TCGA 10 slides of 8
+   patients, IvYGAP 6 with its 20x bags packed, CPTAC 6; 431 gene columns,
+   59 tumor and 361 immune genes; ``[n, 1024]`` f32 bags, n 1,600, 2,500
+   or 3,100; ~0.5 GB) into a temporary directory under ``build/`` and runs
+   the training entry on them (TCGA + IvYGAP co-training, 2 folds, split
+   dumps: the fold sizes printed, no patient in both halves; the teacher's
+   exact counts), fold 0 with ``buckets 1600,2500`` (every batch of one
+   bucket, sides printed, a train batch at side 40 and one at 50, the same
+   counts per step; then K1-fwd bitwise and K1-bwd against float64 at the
+   side-40 shapes), the serving entry
+   with ``external_eval`` on CPTAC (every logit finite), and IvYGAP's 20x
+   batch from the pack and from the ``.npy`` files (bitwise);
+6i. times the host's build of a batch of 4 at the preset (``.npy``, pack,
+   a whole co-training batch) and the wall of one co-training epoch of
+   teacher train steps with and without ``PrefetchLoader``, five of each,
+   alternating (a gain is claimed only where every prefetched epoch beats
+   every plain one).
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
@@ -184,7 +216,8 @@ teacher's also in the opt-in settings (a), (b) and (c), every count set to
 divisor 1 and 0; K3: the student's at the preset; K4: deformpathomic's at
 attn_dim 1, divisor 1; K5: the teacher's in (b); K6: the teacher's in
 (a); K2-nk: the "nk" teacher's train steps; K7: its entry's run; the
-distillation runs of phase 3g add no kernel and change no entry), and K2's
+distillation runs of phase 3g, the multiscale runs of 3h and the
+real-data runs of 3i add no kernel and change no entry), and K2's
 ``max_abs_err`` is the larger of its errors at the 2-D and the 1-D shape.
 Launches made for comparisons and timings are not counted.  K5's times are
 at divisor 4 in f32, K6's at the preset's dropout 0.1, K2-nk's at the
@@ -503,14 +536,16 @@ def rel_err(got, want) -> float:
 
 
 def table_backward_case(cpb, dev, gen, w, bh: int = 32, k: int = 144,
-                        side: int = 50) -> dict:
+                        side: int = 50, kv_bound: float | None = None) -> dict:
     """Phase 2b's K1-bwd inputs, drawn from ``gen`` after the MLP weights
     ``w``: the divisor-1 table, the taps and fractions of ``bh x k`` kv
     points up to 25% past the bound (clipped rows), and a random window
-    cotangent."""
+    cotangent.  ``kv_bound``: the bound of a 12 x 12 deformed grid (side
+    50's) unless given."""
     import torch
 
-    kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
+    if kv_bound is None:
+        kv_bound = cpb.kv_bound_2d(4.0, 12, 12)
     table = cpb.cpb_table(*w, side=side, kv_bound=kv_bound)
     gkv = ((torch.rand(bh, k, 2, generator=gen) * 2 - 1)
            * kv_bound * 1.25).to(dev)
@@ -1253,9 +1288,37 @@ def main() -> int:
     time_distillation(train_preset, batch, dev, card)
     torch.cuda.empty_cache()
 
+    # ---- phases 3h, 5h, 6h: multiscale ----------------------------------
+    with tempfile.TemporaryDirectory(dir="build") as ckpt_dir:
+        run_multiscale_entries(train_preset, dev, card, ckpt_dir)
+    torch.cuda.empty_cache()
+    compare_multiscale_f32(f32, batch, dev)
+    torch.cuda.empty_cache()
+    time_multiscale(preset, train_preset, batch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phases 3i, 6i: real data on a demo cohort ----------------------
+    from disentangled_multimodal_learning_tpu_torch.data.demo_cohort import (
+        write_demo_cohorts)
+
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        t0 = time.perf_counter()
+        write_demo_cohorts(f"{tmp}/data")
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+        print(f"[real data] demo cohorts: {size / 1e9:.3f} GB written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        side40 = run_real_data_entries(f"{tmp}/data", f"{tmp}/ckpt", dev,
+                                       card)
+        torch.cuda.empty_cache()
+        time_real_data(f"{tmp}/data", dev, card)
+    torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": kernel_line(
-        train_counts, dict(k1=k1_err, k2=max(*k2_err.values(), k2_1d["err"]),
-                           k1_bwd=max(bwd["k1"]["err"], k5["k1_bwd_err"]),
+        train_counts, dict(k1=max(k1_err, side40["k1"]),
+                           k2=max(*k2_err.values(), k2_1d["err"]),
+                           k1_bwd=max(bwd["k1"]["err"], k5["k1_bwd_err"],
+                                      side40["k1_bwd"]),
                            k2_bwd=max(bwd["k2"]["err"], k2_1d["bwd_err"]),
                            k3=dpc["err"], k4=k4["err"], k4_bwd=k4["bwd_err"],
                            k5=k5["err"], k5_bwd=k5["bwd_err"], k6=k6["err"],
@@ -1503,11 +1566,12 @@ def time_dpc_kernels(dpc: dict, card: str) -> dict:
 
 
 def run_training_entry(cfg, dev, steps: int, per_step: dict,
-                       per_eval: dict, card: str):
-    """Phases 3b, 3c and 3g: the training entry (``main.main``) for one fold;
-    every count set to 0 just before, read just after, and held to
+                       per_eval: dict, card: str, out: dict | None = None):
+    """Phases 3b, 3c, 3g and 3h: the training entry (``main.main``) for one
+    fold; every count set to 0 just before, read just after, and held to
     ``per_step`` launches per train step and ``per_eval`` per eval batch
-    (0 for every kernel not named)."""
+    (0 for every kernel not named); the fold's final metrics go to
+    ``out["final"]`` where given."""
     import torch
 
     from disentangled_multimodal_learning_tpu_torch import main as train_main
@@ -1536,6 +1600,8 @@ def run_training_entry(cfg, dev, steps: int, per_step: dict,
         raise RuntimeError(f"training entry: bad losses or metrics {final}")
     if n != want:
         raise RuntimeError(f"training entry: launches {n}, want {want}")
+    if out is not None:
+        out["final"] = final
     return n
 
 
@@ -3243,6 +3309,368 @@ def time_distillation(train_preset, batch, dev, card: str, n: int = 30):
           f"p80 {replay[40]:.4f} (hits {cache.hits}, misses {cache.misses})"
           f" | {card}")
     del student, teacher, opt, steps, cached, cache
+
+
+# multiscale (phase 3h): per train step the teacher's and the student's
+# kernels of both scales; per eval batch their forwards
+MULTISCALE_STEP = dict(k1_fwd=6, k1_bwd=6, k3_knn=2, k3_parent=2)
+MULTISCALE_EVAL = dict(k1_fwd=6, k3_knn=2, k3_parent=2)
+MULTISCALE_TAGS = ("tea10", "tea20", "stu10", "stu20", "stus")
+
+
+def run_multiscale_entries(train_preset, dev, card: str,
+                           ckpt_dir: str) -> dict:
+    """Phase 3h at the preset: the multiscale training entry (1 fold, 3
+    steps, the final evaluation of 4 bags) with exact counts per step and
+    eval batch and every loss finite, its checkpoint in ``ckpt_dir``; 1
+    step at divisor 0 (K2 6 + 6, K1 never); the serving entry in
+    multiscale mode, restored from the fold's checkpoint, gives the final
+    evaluation's logits bitwise on all five tags.  Returns the counts of
+    the preset run."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+
+    cfg = train_preset.replace(mode="multiscale", checkpoints=ckpt_dir)
+    run = {}
+    n = run_training_entry(cfg, dev, 3, MULTISCALE_STEP, MULTISCALE_EVAL,
+                           card, out=run)
+    final = run["final"]
+    if set(final["logits"]) != {f"logits_{t}" for t in MULTISCALE_TAGS}:
+        raise RuntimeError(f"multiscale tags {sorted(final['logits'])}")
+    exact = dict(k2_fwd=6, k3_knn=2, k3_parent=2)
+    run_training_entry(cfg.replace(cpb_table_divisor=0, checkpoints="#",
+                                   synthetic_train_size=4),
+                       dev, 1, dict(exact, k2_bwd=6), exact, card)
+    ckpt, = glob.glob(f"{ckpt_dir}/multiscale_fold_1_epoch_1_*.pt")
+    reset_counts()
+    metrics, logits = inference.main(cfg.replace(checkpoints_student=ckpt),
+                                     device=dev)
+    torch.cuda.synchronize()
+    served = counts()
+    same = {k: bool(np.array_equal(v, final["logits"][k]))
+            for k, v in logits.items()}
+    print(f"[multiscale] serving from {ckpt}: launches {served}; logits "
+          f"bitwise equal to the run's final evaluation: {same} | {card}")
+    check_outputs(metrics, logits, 4, n_metrics=7 * 5)
+    if (served != _sum_counts(0, {}, 1, MULTISCALE_EVAL)
+            or len(same) != 5 or not all(same.values())):
+        raise RuntimeError("the served multiscale model disagrees with its "
+                           "final evaluation")
+    return n
+
+
+def compare_multiscale_f32(f32, batch, dev) -> None:
+    """Phase 5h: the f32 multiscale forward on the card against the CPU
+    with the same weights (the five logits within ``LOGITS_TOL``), then
+    one ``deterministic_training`` step (``compare_train_step``)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+
+    m32 = f32.replace(mode="multiscale")
+    with torch.inference_mode():
+        card_out = define_net(m32, dev)(
+            **model_inputs(batch, dev, "multiscale"))[2]
+        cpu_out = define_net(m32, "cpu")(
+            **model_inputs(batch, "cpu", "multiscale"))[2]
+    errs = {k: (card_out[k].cpu() - cpu_out[k]).abs().max().item()
+            for k in cpu_out}
+    print(f"[f32] multiscale card vs CPU logits max_abs_err "
+          f"{max(errs.values()):.3e} (tol {LOGITS_TOL}); per output {errs}")
+    if len(errs) != 5 or not max(errs.values()) <= LOGITS_TOL:
+        raise RuntimeError("f32 multiscale logits on the card disagree with "
+                           "the CPU")
+    del card_out, cpu_out
+    compare_train_step(m32.replace(deterministic_training=True), batch, dev)
+
+
+def time_multiscale(preset, train_preset, batch, dev, card: str) -> None:
+    """Phase 6h: the multiscale eval forward (bags/s, median and p80 of
+    50) and train step (30 steps and a profiled call, ``time_train_steps``)
+    at the preset."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+
+    cfg = preset.replace(mode="multiscale")
+    with torch.inference_mode():
+        model = define_net(cfg, dev)
+        x = model_inputs(batch, dev, "multiscale")
+        ms = ms_samples(lambda: model(**x), 50)
+        med, p80 = median(ms), ms[int(0.8 * len(ms))]
+        print(f"[time] multiscale eval forward B=4 fixdim=2500 "
+              f"{setting(cfg)}: median {med:.3f} ms/batch = "
+              f"{4000.0 / med:.1f} bags/s, p80 {p80:.3f} ms = "
+              f"{4000.0 / p80:.1f} bags/s (50 forwards) | {card}")
+        profile(f"eval forward ({setting(cfg)})", lambda: model(**x))
+        del model
+    time_train_steps((train_preset.replace(mode="multiscale"),), batch, dev,
+                     card)
+
+
+def real_data_cfg(data_dir: str, ckpt_dir: str):
+    """The diag2021 preset on the cohorts under ``data_dir``: 2 folds of
+    1 epoch, checkpoints and split dumps in ``ckpt_dir``."""
+    from disentangled_multimodal_learning_tpu_torch.config import Config
+
+    return Config.diag2021().replace(
+        synthetic_data=False, dataDir=data_dir, kfold=2, epochs=1,
+        checkpoints=ckpt_dir, printDataSplit=True)
+
+
+def run_real_data_entries(data_dir: str, ckpt_dir: str, dev,
+                          card: str) -> None:
+    """Phase 3i on the demo cohorts (``data/demo_cohort.py``) at the preset:
+    (1) the training entry, TCGA + IvYGAP co-training, 2 folds: the fold
+    sizes from the split dumps, no patient in both halves of a fold, and
+    exact teacher counts (K1-fwd and K1-bwd 4 per step, K1-fwd 4 per eval
+    batch); (2) fold 0 with ``buckets 1600,2500`` through the entry's own
+    functions: every batch of one bucket (sides printed), a train batch at
+    each of sides 40 and 50, the same counts per step, and K1-fwd and
+    K1-bwd against their plain versions at side 40's shapes (side 50's are
+    phase 2's); (3) the serving entry with ``external_eval`` on CPTAC's fold
+    0, every logit finite; (4) IvYGAP's 20x batch from its pack and from
+    its ``.npy`` files, bitwise.  Returns the side-40 kernel errors."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+    from disentangled_multimodal_learning_tpu_torch.data.bag_io import (
+        load_bag_batch)
+    from disentangled_multimodal_learning_tpu_torch.data.datasets import (
+        IvYGAP_Dataset)
+    from disentangled_multimodal_learning_tpu_torch.data.cohorts import (
+        read_manifest)
+
+    cfg = real_data_cfg(data_dir, ckpt_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = train_main.main(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts()
+    steps = evals = 0
+    sizes = {}
+    for fold in (0, 1):
+        for cohort in ("tcga", "ivygap"):
+            halves = []
+            for tag in ("train", "test"):
+                path = f"{ckpt_dir}/split_{cohort}_fold{fold}_{tag}.csv"
+                with open(path) as f:
+                    halves.append([r["patient_id"] for r in csv.DictReader(f)])
+            sizes[(fold, cohort)] = tuple(map(len, halves))
+            if set(halves[0]) & set(halves[1]):
+                raise RuntimeError(f"{cohort} fold {fold}: a patient in "
+                                   "both halves")
+        n_test = sum(sizes[(fold, c)][1] for c in ("tcga", "ivygap"))
+        steps += len(results[fold]["train_losses"])
+        evals += -(-n_test // cfg.batch_size)
+    losses = [x for r in results.values() for x in r["train_losses"]]
+    want = _sum_counts(steps, dict(k1_fwd=4, k1_bwd=4), evals,
+                       dict(k1_fwd=4))
+    print(f"[real data] co-training, 2 folds, {setting(cfg)}: fold sizes "
+          f"(train, test) {sizes}; {steps} steps + {evals} eval batches in "
+          f"{wall:.2f} s (set-up and bag reads included); losses {losses}; "
+          f"launches {n} | {card}")
+    if n != want or not steps or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"real-data entry: launches {n}, want {want}, "
+                           f"losses {losses}")
+
+    bucketed = cfg.replace(buckets="1600,2500", cur_fold=0, checkpoints="#",
+                           printDataSplit=False)
+    fold, train_ds, test_ds = next(train_main.fold_datasets(bucketed))
+    # the sizes of the gene lists that write_demo_cohorts writes
+    if train_ds.omic_sizes != dict(input_size_omic=431,
+                                   input_size_omic_tumor=59,
+                                   input_size_omic_immune=361):
+        raise RuntimeError(f"omic sizes {train_ds.omic_sizes}")
+    bucketed = bucketed.replace(**train_ds.omic_sizes)
+    train, test = train_main.make_loaders(bucketed, train_ds, test_ds)
+    train.set_epoch(0)
+    sides = {"train": [(int(b ** 0.5), len(sel) - pad)
+                       for b, sel, pad in train.loader.plan()],
+             "test": [(int(b ** 0.5), len(sel) - pad)
+                      for b, sel, pad in test.plan()]}
+    reset_counts()
+    model, final, _ = train_main.dispatch_training(bucketed, dev,
+                                                   (train, test))
+    torch.cuda.synchronize()
+    n = counts()
+    want = _sum_counts(len(sides["train"]), dict(k1_fwd=4, k1_bwd=4),
+                       len(sides["test"]), dict(k1_fwd=4))
+    print(f"[real data] fold 0, buckets 1600,2500: omic sizes "
+          f"{train_ds.omic_sizes}; batches (side, bags) {sides}; losses {final['train_losses']}; launches {n} | {card}")
+    if (n != want or not all(map(math.isfinite, final["train_losses"]))
+            or {s for s, _ in sides["train"]} != {40, 50}
+            or {s for s, _ in sides["test"]} - {40, 50}):
+        raise RuntimeError(f"bucketed fold: launches {n}, want {want}, "
+                           f"train sides {sides['train']} (want 40 and 50)")
+    errs = check_table_kernels_at_side(model, bucketed.batch_size, 40, dev,
+                                       card)
+    del model
+
+    external = cfg.replace(external_eval=True, checkpoints="#")
+    reset_counts()
+    metrics, logits = inference.main(external, device=dev)
+    torch.cuda.synchronize()
+    n = counts()
+    n_bags = len(next(iter(logits.values())))
+    print(f"[real data] serving on CPTAC fold 0: {n_bags} bags; launches "
+          f"{n}; auc_teas {metrics['auc_teas']} | {card}")
+    check_outputs(metrics, logits, n_bags)
+    if n != expect(k1_fwd=4 * -(-n_bags // 4)):
+        raise RuntimeError(f"CPTAC serving: launches {n}")
+
+    ivy = IvYGAP_Dataset(read_manifest(cfg, "IvYGAP"), cfg)
+    rows = [0, 2, 4, 1]
+    ids = [ivy.wsi_id(i) for i in rows]
+    from_pack = ivy.batch(rows).x_path20
+    from_npy = load_bag_batch([f"{ivy.root}/feats20/{w}.npy" for w in ids],
+                              cfg.fixdim, cfg.input_path_dim)
+    same = np.array_equal(from_pack, from_npy)
+    print(f"[real data] IvYGAP 20x batch {ids}, bag lengths "
+          f"{[ivy.bag_len(i) for i in rows]}: pack (rows "
+          f"{[ivy._pack_for('feats20').rows(w) for w in ids]}) and .npy "
+          f"bitwise equal: {same}")
+    if not same:
+        raise RuntimeError("the pack and the .npy files give other bags")
+    return errs
+
+
+def check_table_kernels_at_side(model, batch_size: int, side: int, dev,
+                                card: str) -> dict:
+    """Phase 3i: K1-fwd (bitwise, within ``K1_TOL``) and K1-bwd (within
+    ``K1_BWD_TOL`` of float64, deterministic) at the shapes a bucket of
+    ``side`` gives the teacher's 2-D attention in ``model``: its deformed
+    grid at that side, its kv bound and ``batch_size x heads`` rows of kv
+    points, up to 25% past the bound.  Returns the largest absolute errors
+    (``k1``, ``k1_bwd``)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.deform_attention \
+        import DeformCrossAttention2D
+    from disentangled_multimodal_learning_tpu_torch.ops import cpb
+
+    attn = next(m for m in model.modules()
+                if isinstance(m, DeformCrossAttention2D))
+    conv = attn.to_offsets[0]
+    with torch.no_grad():
+        gh, gw = attn.to_offsets(torch.zeros(
+            1, conv.in_channels, side, side, device=dev)).shape[-2:]
+    gen = torch.Generator().manual_seed(2)
+    c = table_backward_case(cpb, dev, gen, mlp_weights(1, gen, dev),
+                            batch_size * attn.heads, gh * gw, side,
+                            cpb.kv_bound_2d(attn.offset_scale, gh, gw))
+    table, taps, fracs, dout = (c[n] for n in ("table", "taps", "fracs",
+                                               "dout"))
+    with torch.inference_mode():
+        got = cpb.table_interp(table, taps, fracs, side)
+        want = cpb.table_interp_reference(table, taps, fracs, side)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    same = torch.equal(got, want)
+    print(f"[K1] side {side} (bucket {side * side}): R={taps.shape[0]} "
+          f"({batch_size} x {attn.heads} heads x {gh}x{gw} kv points) "
+          f"tn={table.shape[0]} max_abs_err={err:.3e} (tol {K1_TOL}), "
+          f"bitwise equal: {same} | {card}")
+    if not same or not err <= K1_TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version at side "
+                           f"{side}")
+    return dict(k1=err, k1_bwd=check_table_backward(
+        cpb, "K1-bwd", table, taps, fracs, dout, side, 1, K1_BWD_TOL, card))
+
+
+def time_real_data(data_dir: str, dev, card: str) -> None:
+    """Phase 6i on the demo cohorts at the preset, page cache warm: the
+    host's time to build a batch of 4 (the ``.npy`` bags of one scale, the
+    pack's, and a whole co-training batch: both scales, omics, labels),
+    and the wall of one co-training epoch of teacher train steps with and
+    without ``PrefetchLoader``, five times each, alternating after an
+    epoch not kept, with the verdict: faster only if every prefetched epoch beats every plain one,
+    slower only if every one is beaten, else unresolved."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.data.bag_io import (
+        load_bag_batch)
+    from disentangled_multimodal_learning_tpu_torch.data.cohorts import (
+        read_manifest)
+    from disentangled_multimodal_learning_tpu_torch.data.datasets import (
+        ConcatDataset, IvYGAP_Dataset, TCGA_Dataset)
+    from disentangled_multimodal_learning_tpu_torch.data.loader import (
+        BagLoader, PrefetchLoader)
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+
+    cfg = real_data_cfg(data_dir, "#")
+    ivy = IvYGAP_Dataset(read_manifest(cfg, "IvYGAP"), cfg)
+    both = ConcatDataset([ivy, TCGA_Dataset(read_manifest(cfg, "TCGA"), cfg)])
+    pack = ivy._pack_for("feats20")
+    rows = list(range(4))
+    ids = [ivy.wsi_id(i) for i in rows]
+    npy = [f"{ivy.root}/feats20/{w}.npy" for w in ids]
+
+    def host_ms(fn, n=10):
+        fn()
+        t = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return median(sorted(t))
+
+    shape = (cfg.fixdim, cfg.input_path_dim)
+    print(f"[time] host batch build, 4 bags of [{shape[0]}, {shape[1]}] f32 "
+          f"(page cache warm): .npy "
+          f"{host_ms(lambda: load_bag_batch(npy, *shape)):.3f}"
+          f" ms, pack {host_ms(lambda: pack.get_batch(ids, *shape)):.3f} ms; "
+          f"a whole co-training batch (2 scales, .npy) "
+          f"{host_ms(lambda: both.batch([0, 7, 12, 15])):.3f} ms "
+          f"(median of 10) | {card}")
+    model = define_net(cfg, dev)
+    opt = make_optimizer(cfg, model.parameters())
+    step = make_train_step(model, cfg, opt, make_scheduler(cfg, opt, 1000))
+    walls = []
+    # a first epoch not kept: the step's one-time set-up (allocator,
+    # cuBLAS handles) would go to whichever setting came first
+    for prefetch in (None,) + (False, True) * 5:
+        loader = BagLoader(both, cfg.batch_size, shuffle=True, drop_last=True,
+                           seed=cfg.seed)
+        if prefetch:
+            loader = PrefetchLoader(loader, depth=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in loader:
+            step(batch_to_tensors(batch, dev))
+        torch.cuda.synchronize()
+        if prefetch is not None:
+            walls.append((prefetch, len(loader),
+                           round((time.perf_counter() - t0) * 1e3, 3)))
+    plain = [w for p, _, w in walls if not p]
+    fetched = [w for p, _, w in walls if p]
+    verdict = ("faster" if max(fetched) < min(plain) else
+               "slower" if min(fetched) > max(plain) else "unresolved")
+    print(f"[time] one co-training epoch of {len(both)} bags, teacher train "
+          f"steps at the preset, (prefetch, steps, wall ms): {walls}; "
+          f"median plain {median(sorted(plain)):.3f} ms, prefetch "
+          f"{median(sorted(fetched)):.3f} ms; prefetch {verdict} | {card}")
+    del model, opt, step
 
 
 def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:

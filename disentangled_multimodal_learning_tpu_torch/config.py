@@ -1,5 +1,6 @@
 """Experiment config of the port: the fields the teacher, student,
-deformpathomic and distillation serving and training paths read, under the
+multiscale, deformpathomic and distillation serving and training paths and
+the real-data loaders read, under the
 names and defaults of the JAX ``Config``
 (``disentangled_multimodal_learning_tpu/config.py``), so its YAML presets
 load unchanged.  ``yaml`` is imported only when a YAML file is read;
@@ -41,20 +42,17 @@ IGNORED = {
     "seq_shard_devices": _TPU, "tp_devices": _TPU, "branch_devices": _TPU,
     "pipe_devices": _TPU, "seq_shard_dp": _TPU, "pipe_microbatches": _TPU,
     "nodes": _TPU, "gpus": _TPU, "nr": _TPU, "rank": _TPU,
-    "world_size": _TPU, "workers": _TPU, "dataparallel": _TPU,
+    "world_size": _TPU, "dataparallel": _TPU,
     "visiable_device": _TPU,
-    "debug": _LOG, "log_dir": _LOG, "wandb": _LOG, "printDataSplit": _LOG,
+    "debug": _LOG, "log_dir": _LOG, "wandb": _LOG,
     "cut_fuse_grad": _UNREAD, "image_size": _UNREAD, "return_grad": _UNREAD,
     "survival_interval": _UNREAD, "start_epoch": _UNREAD,
     "label_path": _UNREAD, "dataDir_pyramid": _UNREAD, "pyramid": _UNREAD,
     "dataset": _UNREAD, "combination_type": _UNREAD, "act_type": _UNREAD,
 }
-_DATA = "real-data loaders"
 _BASELINES = "baselines"
 # JAX Config keys a later part of the port reads -> (JAX default, subject)
 LATER = {
-    "buckets": ("", _DATA), "dataDir": ("./data/", _DATA),
-    "coTraining": (True, _DATA),
     "init_type": ("max", _BASELINES), "init_gain": (0.02, _BASELINES),
     "skip": (0, _BASELINES), "use_bilinear": (1, _BASELINES),
     "path_gate": (1, _BASELINES), "omic_gate": (1, _BASELINES),
@@ -123,6 +121,16 @@ class Config:
     fusion_type: str = "concat"
     mmhid: int = 128
     synthetic_data: bool = False
+    # real data (JAX config.py:96-98, :150, :255-258): the cohort root
+    # (data/datasets.py), TCGA + IvYGAP co-training (else TCGA alone;
+    # external_eval trains on CPTAC), comma-separated perfect-square bag
+    # buckets (data/bucketing.py; "" = every bag at fixdim), the prefetch
+    # depth of the train loader (0 = 2), and the per-fold split dumps
+    dataDir: str = "./data/"
+    coTraining: bool = True
+    buckets: str = ""
+    workers: int = 0
+    printDataSplit: bool = False
     synthetic_train_size: int = 64
     synthetic_test_size: int = 32
     seed: int = 42
@@ -258,6 +266,10 @@ class Config:
                 "return_vgrid needs attn_dim 2: at attn_dim 1 the model has "
                 "no vgrid for batch_loss_vgrid (JAX returns None there and "
                 "the loss fails on it)")
+        if self.buckets:
+            from .data.bucketing import validate_buckets
+
+            validate_buckets(str(self.buckets).split(","))
         if self.fusion_type != "concat":
             raise NotImplementedError(
                 f"fusion_type={self.fusion_type!r}: the port fuses the "

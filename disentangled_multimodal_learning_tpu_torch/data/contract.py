@@ -46,3 +46,18 @@ class Batch:
     wsi_id: np.ndarray | None = None  # [B] str
     pad: int = 0
     indices: np.ndarray | None = None  # [B] int
+
+
+def derive_diag2021(idh_wt: bool, codel: bool, cdkn: int, his_g4: bool) -> int:
+    """The WHO-2021 diagnosis of a manifest row with an empty ``Diag``
+    (JAX ``contract.py:70``, reference ``main.py:74-83``): IDH wild type
+    0 (grade-4 GBM); IDH mutant with 1p/19q codeletion 3 (oligo); else
+    CDKN2A/B loss (``cdkn`` -1 or -2) or histology G4 1 (grade-4 astro);
+    else 2 (grade-2/3 astro)."""
+    if idh_wt:
+        return 0
+    if codel:
+        return 3
+    if cdkn in (-1, -2) or his_g4:
+        return 1
+    return 2

@@ -13,9 +13,18 @@ exactly the dataset.  Every batch therefore has the same shape.
 
 Every batch carries its dataset rows in ``batch.indices`` (JAX
 ``loader.py:62``), the keys of the distillation teacher-output cache.
+
+:class:`PrefetchLoader` (JAX ``loader.py:67-132``) builds the batches of a
+loader on a thread, ``depth`` ahead of the consumer.  Unlike JAX's, whose
+producer loses an exception (its ``finally`` posts the end marker and the
+epoch just ends early), it hands the exception to the consumer, which
+raises it.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 
@@ -56,3 +65,68 @@ class BagLoader:
             batch.pad = pad
             batch.indices = idx  # stable per-sample keys
             yield batch
+
+
+class PrefetchLoader:
+    """``loader``'s batches built on a thread, at most ``depth`` ahead.  A
+    consumer that stops early (closes the generator) stops and joins the
+    thread; an exception raised while a batch is built is raised by the
+    consumer."""
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        end = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+            except Exception as e:  # handed to the consumer
+                put(_Failed(e))
+                return
+            put(end)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, _Failed):
+                    raise item.error
+                yield item
+        finally:
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=5)
+
+
+class _Failed:
+    def __init__(self, error: Exception):
+        self.error = error

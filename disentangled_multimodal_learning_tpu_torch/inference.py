@@ -1,14 +1,24 @@
 """Serving entry of the port: evaluate a teacher, student, distilled
-student or deformpathomic checkpoint on the fold-0 test set (counterpart of
-the root ``inference.py`` -> ``testTeachersModel`` / ``testStudentsModel``
-/ ``testDistillation`` -> ``Evaluator.distill_val``,
-``testDeformPathomicModel`` -> ``Evaluator.fused_val``).
+student, multiscale or deformpathomic checkpoint on the fold-0 test set
+(counterpart of the root ``inference.py`` -> ``testTeachersModel`` /
+``testStudentsModel`` / ``testDistillation`` / ``testMultiScaleModel`` ->
+``Evaluator.distill_val``, ``testDeformPathomicModel`` ->
+``Evaluator.fused_val``).
 
     python -m disentangled_multimodal_learning_tpu_torch.inference \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
-        [--mode student | --mode distillation | --mode deformpathomic \\
-        --attn_dim 1] [--checkpoint model.pt | model.pth] \\
-        [--save4visualization true] [--device cpu]
+        [--mode student | --mode distillation | --mode multiscale | \\
+        --mode deformpathomic --attn_dim 1] [--checkpoint model.pt | \\
+        model.pth] [--save4visualization true] [--device cpu]
+    python -m disentangled_multimodal_learning_tpu_torch.inference \\
+        --config config/config_mine_diag2021.yaml --synthetic_data false \\
+        --dataDir D [--coTraining false | --external_eval true] \\
+        [--buckets 1600,2500] --checkpoint model.pt
+
+The fold-0 test set is the synthetic one (seed ``seed + 100``) or the
+cohorts' fold 0 rebuilt from the seed (``data/cohorts.py``; CPTAC's with
+``external_eval``), per bucket with ``buckets``; a ``dataDir`` without the
+cohort raises ``FileNotFoundError`` (JAX falls back to synthetic bags).
 
 It runs on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
 and raises where there is no card.  Without ``--config`` the in-code
@@ -18,7 +28,8 @@ checkpoint (the port's ``.pt`` or a reference-named ``.pth``; else
 other modes, as in JAX); without one they are a seeded random init, with a
 warning.  Distillation evaluates the student of ``(student, teacher)``.
 Prints ``name_tag=value`` for acc, f1, auc, bac, sens, spec and prec of
-tea10, tea20 and teas (stu10, stu20 and stus for the students), or
+tea10, tea20 and teas (stu10, stu20 and stus for the students; all five
+for multiscale), or
 ``cindex_tag=value`` on survival; deformpathomic prints ``name=value`` for
 its fused output.  ``save4visualization`` writes the attention maps of the
 teachers and students to ``attention_fold{k}.npz`` in ``checkpoints``
@@ -31,26 +42,32 @@ import os
 import sys
 
 from .config import Config
+from .data.cohorts import cohort_folds
 from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
+from .main import eval_loader
 from .models.factory import define_net, require_device
 from .train.evaluation import Evaluator, export_dir
 from .train.trainers import (testDeformPathomicModel, testDistillation,
-                             testStudentsModel, testTeachersModel)
+                             testMultiScaleModel, testStudentsModel,
+                             testTeachersModel)
 from .utils.checkpoint import restore_state
 
 _TESTS = {"teacher": testTeachersModel, "uniteacher": testTeachersModel,
           "student": testStudentsModel, "distillation": testDistillation,
+          "multiscale": testMultiScaleModel,
           "deformpathomic": testDeformPathomicModel}
+# the attention maps' owner per mode, for save4visualization
+_MODEL_TYPES = {"teacher": "teacher", "uniteacher": "teacher",
+                "multiscale": "scales"}
 
 
-def build_fold0_test_loader(cfg: Config) -> BagLoader:
-    """The synthetic fold-0 test set of the JAX entry (``seed + 100``)."""
+def build_fold0_test_loader(cfg: Config):
+    """The fold-0 test set of the JAX entry: synthetic (``seed + 100``),
+    or the cohorts' fold 0."""
     if not cfg.synthetic_data:
-        raise NotImplementedError(
-            "the port has no real-data loaders yet (they come with the "
-            "real-data loaders: datasets, splits, packing); pass "
-            "--synthetic_data true")
+        _, _, test_ds = next(cohort_folds(cfg))
+        return eval_loader(cfg, test_ds)
     ds = SyntheticBagDataset(
         size=cfg.synthetic_test_size, fixdim=cfg.fixdim,
         path_dim=cfg.input_path_dim, omic_dim=cfg.input_size_omic,
@@ -67,6 +84,8 @@ def main(cfg: Config, checkpoint: str | None = None, device="cuda",
     here is used as it is (weights already loaded, on ``device``)."""
     device = require_device(device)
     loader = build_fold0_test_loader(cfg)
+    if not cfg.synthetic_data:  # a cohort's gene lists size the encoders
+        cfg = cfg.replace(**loader.dataset.omic_sizes)
     if model is None:
         model = define_net(cfg, device)
         if cfg.mode == "distillation":
@@ -84,8 +103,7 @@ def main(cfg: Config, checkpoint: str | None = None, device="cuda",
     if cfg.save4visualization and cfg.mode != "deformpathomic":
         out_dir = export_dir(cfg)
         os.makedirs(out_dir, exist_ok=True)
-        model_type = ("teacher" if cfg.mode in ("teacher", "uniteacher")
-                      else "student")
+        model_type = _MODEL_TYPES.get(cfg.mode, "student")
         path = Evaluator(model, cfg, device, model_type).export_attention_maps(
             loader, os.path.join(out_dir, f"attention_fold{cfg.cur_fold}.npz"))
         print(f"[inference] attention maps -> {path}")

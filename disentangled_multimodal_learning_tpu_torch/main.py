@@ -1,15 +1,21 @@
 """Training entry of the port: the k-fold training loop of the root
-``main.py`` (synthetic folds, ``main.py:184-192``) -> ``trainTeachersModel``
-(``trainStudentsModel`` in student mode, ``trainDeformPathomicModel`` in
-deformpathomic mode, ``trainDistillation`` in distillation mode) ->
-``run_training`` -> the train step.
+``main.py`` (synthetic folds ``:184-192``; real cohorts ``:173-244``, see
+``data/cohorts.py``) -> ``trainTeachersModel`` (``trainStudentsModel`` in
+student mode, ``trainMultiScaleModel`` in multiscale mode,
+``trainDeformPathomicModel`` in deformpathomic mode, ``trainDistillation``
+in distillation mode) -> ``run_training`` -> the train step.
 
     python -m disentangled_multimodal_learning_tpu_torch.main \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
         [--checkpoints DIR | --checkpoints '#'] [--mode student | \\
-        --mode deformpathomic --attn_dim 1 | --mode distillation \\
-        --checkpoints_teacher DIR/teacher_fold_1_....pt] [--resume true \\
-        --save_every_epochs 1] [--kfold 1] [--epochs 1] [--device cpu]
+        --mode multiscale | --mode deformpathomic --attn_dim 1 | \\
+        --mode distillation --checkpoints_teacher DIR/teacher_fold_1_....pt] \\
+        [--resume true --save_every_epochs 1] [--kfold 1] [--epochs 1] \\
+        [--device cpu]
+    python -m disentangled_multimodal_learning_tpu_torch.main \\
+        --config config/config_mine_diag2021.yaml --synthetic_data false \\
+        --dataDir D [--coTraining false] [--external_eval true] \\
+        [--buckets 1600,2500] [--printDataSplit true] [--workers 4]
 
 Distillation builds ``(student, teacher)`` and restores the teacher from
 ``checkpoints_teacher`` and the student from ``checkpoints_student``, where
@@ -21,10 +27,14 @@ Each fold writes a metric-stamped checkpoint into ``checkpoints`` (``.pt``,
 
 It trains on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
 and raises where there is no card.  Without ``--config`` the in-code
-diag2021 preset is used (no ``yaml`` needed).  Fold ``f`` trains on ``synthetic_train_size`` bags drawn from seed
-``seed + f`` and evaluates on ``synthetic_test_size`` bags from
-``seed + 100 + f``, with a fresh seeded model per fold, as in JAX.  Prints
-the final metrics of each fold.
+diag2021 preset is used (no ``yaml`` needed).  Synthetic fold ``f`` trains
+on ``synthetic_train_size`` bags drawn from seed ``seed + f`` and evaluates
+on ``synthetic_test_size`` bags from ``seed + 100 + f``; a real fold on the
+cohorts' patient-level folds; each with a fresh seeded model, as in JAX.
+The train loader is prefetched on a thread (``workers`` batches ahead, 2 at
+0) and bucketed with ``buckets``, as JAX's ``_make_loaders`` does.  A
+``dataDir`` without the cohort raises ``FileNotFoundError`` (JAX falls back
+to synthetic bags).  Prints the final metrics of each fold.
 """
 
 from __future__ import annotations
@@ -34,14 +44,19 @@ import sys
 import numpy as np
 
 from .config import Config
-from .data.loader import BagLoader
+from .data.bucketing import BucketedBagLoader
+from .data.cohorts import cohort_folds
+from .data.loader import BagLoader, PrefetchLoader
 from .data.synthetic import SyntheticBagDataset
 from .models.factory import define_net, require_device
+from .train.evaluation import export_dir
 from .train.trainers import (trainDeformPathomicModel, trainDistillation,
-                             trainStudentsModel, trainTeachersModel)
+                             trainMultiScaleModel, trainStudentsModel,
+                             trainTeachersModel)
 from .utils.checkpoint import load_checkpoint, restore_state
 
 _TRAINS = {"student": trainStudentsModel,
+           "multiscale": trainMultiScaleModel,
            "deformpathomic": trainDeformPathomicModel}
 
 
@@ -82,26 +97,54 @@ def synthetic_fold_datasets(cfg: Config, fold: int):
                                 seed=cfg.seed + 100 + fold, **kw))
 
 
+def eval_loader(cfg: Config, test_ds):
+    """Sequential eval batches, the last padded; per bucket with
+    ``buckets``."""
+    if cfg.buckets:
+        return BucketedBagLoader(test_ds, cfg.batch_size,
+                                 buckets=cfg.buckets.split(","),
+                                 shuffle=False, drop_last=False,
+                                 seed=cfg.seed)
+    return BagLoader(test_ds, cfg.batch_size)
+
+
 def make_loaders(cfg: Config, train_ds, test_ds):
-    return (BagLoader(train_ds, cfg.batch_size, shuffle=True, drop_last=True,
-                      seed=cfg.seed),
-            BagLoader(test_ds, cfg.batch_size))
+    """``(train, test)`` loaders of a fold (root ``main.py:52-77``)."""
+    if cfg.buckets:
+        train = BucketedBagLoader(train_ds, cfg.batch_size,
+                                  buckets=cfg.buckets.split(","),
+                                  shuffle=True, drop_last=True, seed=cfg.seed)
+    else:
+        train = BagLoader(train_ds, cfg.batch_size, shuffle=True,
+                          drop_last=True, seed=cfg.seed)
+    return (PrefetchLoader(train, depth=max(1, cfg.workers or 2)),
+            eval_loader(cfg, test_ds) if test_ds is not None else None)
+
+
+def fold_datasets(cfg: Config):
+    """Yield ``(fold, train dataset, test dataset)``: synthetic, or the
+    cohorts' folds (with ``printDataSplit``, each fold's rows written to
+    ``checkpoints``, or the working directory where that is ``"#"``)."""
+    if cfg.synthetic_data:
+        for fold in range(cfg.kfold):
+            yield (fold, *synthetic_fold_datasets(cfg, fold))
+        return
+    yield from cohort_folds(cfg, export_dir(cfg) if cfg.printDataSplit
+                            else None)
 
 
 def main(cfg: Config, device="cuda", logger=None) -> dict:
     """Train every fold; returns ``{fold: final metrics}``."""
-    if not cfg.synthetic_data:
-        raise NotImplementedError(
-            "the port has no real-data loaders yet (they come with the "
-            "real-data loaders: datasets, splits, packing); pass "
-            "--synthetic_data true")
     device = require_device(device)
     np.random.seed(cfg.seed)
     results = {}
-    for fold in range(cfg.kfold):
-        cfg = cfg.replace(cur_fold=fold)
-        loaders = make_loaders(cfg, *synthetic_fold_datasets(cfg, fold))
-        _, metrics, ckpt = dispatch_training(cfg, device, loaders, logger)
+    for fold, train_ds, test_ds in fold_datasets(cfg):
+        # a cohort's gene lists size the omic encoders
+        sizes = {} if cfg.synthetic_data else train_ds.omic_sizes
+        fold_cfg = cfg.replace(cur_fold=fold, **sizes)
+        loaders = make_loaders(fold_cfg, train_ds, test_ds)
+        _, metrics, ckpt = dispatch_training(fold_cfg, device, loaders,
+                                             logger)
         results[fold] = metrics
         print(f"\n[fold {fold}] " + " ".join(
             f"{k}={v:.4f}" for k, v in metrics.items()

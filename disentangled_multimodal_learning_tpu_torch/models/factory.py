@@ -20,15 +20,12 @@ import torch
 from torch import nn
 
 from .deform_mil import DeformPathomicNet
-from .teacher_student import StudentsNet, TeachersNet
+from .teacher_student import MultiScaleNet, StudentsNet, TeachersNet
 
 # modes the JAX factory knows, with the subject of the port that brings each
-_LATER = {
-    "multiscale": "the multiscale models",
-    **{m: "the baselines" for m in (
-        "path", "transmil", "omic", "pathomic", "pathomic_original", "mcat",
-        "cmta", "pathomic_fg", "pathomic_ensemble")},
-}
+_LATER = {m: "the baselines" for m in (
+    "path", "transmil", "omic", "pathomic", "pathomic_original", "mcat",
+    "cmta", "pathomic_fg", "pathomic_ensemble")}
 
 
 def full_f32_matmuls() -> None:
@@ -67,7 +64,8 @@ def define_net(cfg, device="cuda", attn_layout: str = "auto"):
     if mode == "distillation":
         return (define_net(cfg.replace(mode="student"), device, attn_layout),
                 define_net(cfg.replace(mode="teacher"), device, attn_layout))
-    if mode not in ("teacher", "uniteacher", "student", "deformpathomic"):
+    if mode not in ("teacher", "uniteacher", "student", "deformpathomic",
+                    "multiscale"):
         raise NotImplementedError(f"model [{mode}] is not implemented")
     device = require_device(device)
     full_f32_matmuls()
@@ -85,6 +83,13 @@ def define_net(cfg, device="cuda", attn_layout: str = "auto"):
             attn_dim=cfg.attn_dim, return_vgrid=cfg.return_vgrid,
             task_type=cfg.task_type,
             degenerate_1d_sampling=cfg.degenerate_1d_sampling, **common)
+    elif mode == "multiscale":
+        model = MultiScaleNet(
+            input_size_omic_tumor=cfg.input_size_omic_tumor,
+            input_size_omic_immune=cfg.input_size_omic_immune,
+            omic_dim=cfg.omic_dim, dropout_rate=cfg.dropout_rate,
+            sample_ratio=cfg.path_cluster_num,
+            combination_type=cfg.combination_type_teas, **common)
     elif mode == "student":
         model = StudentsNet(sample_ratio=cfg.path_cluster_num,
                             combination_type=cfg.combination_type_stus,

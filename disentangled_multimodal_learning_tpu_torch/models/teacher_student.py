@@ -2,10 +2,16 @@
 (counterpart of ``disentangled_multimodal_learning_tpu/models/teacher_student.py``:
 ``ClusterMergeNet`` :53, ``TeacherEncoder`` :80, ``StudentEncoder`` :108,
 ``TeacherNet`` :129, ``StudentNet`` :158, ``TeachersNet`` :180,
-``StudentsNet`` :241, unstacked).
+``StudentsNet`` :241, ``TeacherStudentNet`` :286, ``MultiScaleNet`` :310,
+unstacked).
 
 ``unimodal=True`` gives the uniteacher (queries are ``[path, path]``).
-Outputs are the reference's six structured dicts, keyed as in JAX.  Train
+Outputs are the reference's six structured dicts, keyed as in JAX.
+``MultiScaleNet`` trains a teacher and a student per magnification side by
+side (each scale a ``TeacherStudentNet`` with its own omic encoders); the
+reference's dead ``fusion`` FusionNet has no counterpart (its keys are
+skipped on load, ``utils/checkpoint.py``), and JAX's ``stacked_scales``
+layout comes with the parallel part of the port.  Train
 mode (``model.train()``) turns on the dropouts of the JAX model: AlphaDropout
 in both MaxNets, dropout 0.1 on the deformable attention weights and on the
 TransFusionLayers' MHA weights, and draws the student's DPC tie-break noise
@@ -239,4 +245,85 @@ class StudentsNet(nn.Module):
              "hazards_stus": h_stus},
             {"S_stu10": s10, "S_stu20": s20, "S_stus": s_stus},
             {"risk_stu10": r10, "risk_stu20": r20, "risk_stus": r_stus},
+        )
+
+
+class TeacherStudentNet(nn.Module):
+    """One magnification's teacher and student with their own omic
+    encoders; returns the student's 6-tuple then the teacher's 8-tuple
+    (the reference's return order)."""
+
+    def __init__(self, label_dim: int, input_size_omic_tumor: int,
+                 input_size_omic_immune: int, input_path_dim: int = 1024,
+                 path_dim: int = 128, omic_dim: int = 128,
+                 dropout_rate: float = 0.1, sample_ratio: float = 0.0008,
+                 **attn_kw):
+        super().__init__()
+        self.omic_net_tumor = MaxNet(input_size_omic_tumor, omic_dim,
+                                     dropout_rate, label_dim)
+        self.omic_net_immune = MaxNet(input_size_omic_immune, omic_dim,
+                                      dropout_rate, label_dim)
+        self.student_net = StudentNet(label_dim, input_path_dim, path_dim,
+                                      sample_ratio, **attn_kw)
+        self.teacher_net = TeacherNet(label_dim, input_path_dim, path_dim,
+                                      **attn_kw)
+
+    def forward(self, x_path, x_omic_tumor, x_omic_immune):
+        omic_t, _ = self.omic_net_tumor(x_omic_tumor)
+        omic_i, _ = self.omic_net_immune(x_omic_immune)
+        return (self.student_net(x_path)
+                + self.teacher_net(x_path, [omic_t, omic_i]))
+
+
+class MultiScaleNet(nn.Module):
+    """The joint two-scale teacher and student: a ``TeacherStudentNet`` per
+    magnification; the combined logits are the students' (``stus``)."""
+
+    def __init__(self, label_dim: int, input_size_omic_tumor: int,
+                 input_size_omic_immune: int, input_path_dim: int = 1024,
+                 path_dim: int = 128, omic_dim: int = 128,
+                 dropout_rate: float = 0.1, sample_ratio: float = 0.0008,
+                 combination_type: str = "max_confidence",
+                 stacked_scales: bool = False, **attn_kw):
+        super().__init__()
+        if stacked_scales:
+            raise NotImplementedError(
+                "stacked_scales: the scale-stacked layout is not ported yet; "
+                "it comes with the parallel part of the port")
+        self.combination_type = combination_type
+        kw = dict(label_dim=label_dim,
+                  input_size_omic_tumor=input_size_omic_tumor,
+                  input_size_omic_immune=input_size_omic_immune,
+                  input_path_dim=input_path_dim, path_dim=path_dim,
+                  omic_dim=omic_dim, dropout_rate=dropout_rate,
+                  sample_ratio=sample_ratio, **attn_kw)
+        self.scale10_net = TeacherStudentNet(**kw)
+        self.scale20_net = TeacherStudentNet(**kw)
+
+    def forward(self, x_path10, x_path20, x_omic_tumor, x_omic_immune):
+        (ls10, hs10, ss10, rs10, fs10, as10,
+         lt10, ht10, st10, rt10, f1t10, f2t10, a1t10, a2t10) = (
+            self.scale10_net(x_path10, x_omic_tumor, x_omic_immune))
+        (ls20, hs20, ss20, rs20, fs20, as20,
+         lt20, ht20, st20, rt20, f1t20, f2t20, a1t20, a2t20) = (
+            self.scale20_net(x_path20, x_omic_tumor, x_omic_immune))
+        l_stus = combine_logits(ls10, ls20, self.combination_type)
+        h_stus, s_stus, r_stus = survival_chain(l_stus)
+        return (
+            {"feature1_tea10": f1t10, "feature2_tea10": f2t10,
+             "feature1_tea20": f1t20, "feature2_tea20": f2t20,
+             "feature_stu10": fs10, "feature_stu20": fs20},
+            {"att1_tea10": a1t10, "att2_tea10": a2t10,
+             "att1_tea20": a1t20, "att2_tea20": a2t20,
+             "att_stu10": as10, "att_stu20": as20},
+            {"logits_tea10": lt10, "logits_tea20": lt20,
+             "logits_stu10": ls10, "logits_stu20": ls20,
+             "logits_stus": l_stus},
+            {"hazards_tea10": ht10, "hazards_tea20": ht20,
+             "hazards_stu10": hs10, "hazards_stu20": hs20,
+             "hazards_stus": h_stus},
+            {"S_tea10": st10, "S_tea20": st20, "S_stu10": ss10,
+             "S_stu20": ss20, "S_stus": s_stus},
+            {"risk_tea10": rt10, "risk_tea20": rt20, "risk_stu10": rs10,
+             "risk_stu20": rs20, "risk_stus": r_stus},
         )

@@ -1,5 +1,5 @@
-"""Held-out evaluation of the teacher, the student (plain or distilled) and
-deformpathomic (counterpart of
+"""Held-out evaluation of the teacher, the student (plain or distilled),
+multiscale and deformpathomic (counterpart of
 ``disentangled_multimodal_learning_tpu/train/evaluation.py:41
 Evaluator``, ``distill_val`` :78, ``export_attention_maps`` :110,
 ``fused_val`` :176, ``save_roc_csv`` :219): the deterministic forward over
@@ -32,6 +32,9 @@ METRIC_NAMES = ("acc", "f1", "auc", "bac", "sens", "spec", "prec")
 # fused logits of fused_val)
 TAGS = {"teacher": ("tea10", "tea20", "teas"),
         "student": ("stu10", "stu20", "stus"),
+        # the multiscale model's teachers and students; its headline is the
+        # combined student (JAX evaluation.py:81-86, trainers.py:209-213)
+        "scales": ("tea10", "tea20", "stu10", "stu20", "stus"),
         "fused": ("fused",)}
 _LABEL_COL = {"diag2021": LabelCol.DIAG, "grade": LabelCol.GRADE,
               "subtype": LabelCol.SUBTYPE}
@@ -58,7 +61,7 @@ def export_dir(cfg) -> str:
 class Evaluator:
     """Metrics of ``model`` (a ``cfg.mode`` model; in distillation mode the
     student) on ``device`` over the tags of ``model_type`` (``teacher``,
-    ``student`` or ``fused``)."""
+    ``student``, ``scales`` or ``fused``)."""
 
     def __init__(self, model, cfg, device, model_type: str):
         self.model = model

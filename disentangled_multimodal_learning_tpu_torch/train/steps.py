@@ -1,27 +1,30 @@
-"""The teacher, student, deformpathomic and distillation train steps
-(counterpart of ``disentangled_multimodal_learning_tpu/train/steps.py``:
+"""The teacher, student, multiscale, deformpathomic and distillation train
+steps (counterpart of ``disentangled_multimodal_learning_tpu/train/steps.py``:
 ``TASK_LABEL_COL`` :30, ``batch_to_arrays`` :38, ``_model_kwargs`` :48,
 ``task_class_weights`` :100, the teacher / uniteacher / student /
-distillation / deformpathomic branches of ``make_train_step`` :109-322,
-``make_teacher_boundary_fn`` :325 and ``make_distill_cached_step`` :349).
+distillation / multiscale / deformpathomic branches of ``make_train_step``
+:109-322, ``make_teacher_boundary_fn`` :325 and ``make_distill_cached_step``
+:349).
 
 One step, in order: the train-mode forward (``TeachersNet``,
-``StudentsNet`` or ``DeformPathomicNet``); the loss of the mode (below);
-``loss.backward()``; with ``gradient_modulate``, the modulation of the
-classifier weight gradients (the teachers' two classifiers from their two
-feature halves, the deformpathomic top-level ``classifier`` from the
-detached tumor and immune vectors; JAX modulates no student gradient); the
-optimizer step; the per-iteration scheduler step.  ``deterministic_training``
-runs the forward in eval mode (dropout off, the DPC noise pinned), the JAX
-trajectory-parity setting.
+``StudentsNet``, ``MultiScaleNet`` or ``DeformPathomicNet``); the loss of
+the mode (below); ``loss.backward()``; with ``gradient_modulate``, the
+modulation of the classifier weight gradients (the teachers' two
+classifiers from their two feature halves, the deformpathomic top-level
+``classifier`` from the detached tumor and immune vectors; JAX modulates
+no student gradient); the optimizer step; the per-iteration scheduler
+step.  ``deterministic_training`` runs the forward in eval mode (dropout
+off, the DPC noise pinned), the JAX trajectory-parity setting.
 
 Losses: teacher and student, the two-scale task loss (weighted CE, or the
 survival NLL) plus, with ``multiscale_attention``, the attention
 consistency loss (the teacher's ``omic_domain_scale_loss`` on its four
 maps, the student's ``1000 * path_batch_loss`` on its two), both on the
-pre-dropout maps; deformpathomic, ``loss3`` (the task loss on the fused
-logits) plus, with ``return_vgrid``, ``0.5 * bs_t + 0.5 * bs_i`` of
-``batch_loss_vgrid``.
+pre-dropout maps; multiscale, the task loss of the teacher pair plus that
+of the student pair and, with ``multiscale_attention``, both consistency
+losses (JAX modulates no multiscale gradient); deformpathomic, ``loss3``
+(the task loss on the fused logits) plus, with ``return_vgrid``,
+``0.5 * bs_t + 0.5 * bs_i`` of ``batch_loss_vgrid``.
 
 Distillation trains the student against a frozen teacher's boundary
 tensors (:func:`make_teacher_boundary_fn`: its two scales' logits and
@@ -61,6 +64,7 @@ _STUDENT_INPUTS = {"x_path10": "x_path10", "x_path20": "x_path20"}
 # the forward's inputs per mode (distillation: the student's): model
 # argument -> batch field
 MODEL_INPUTS = {"teacher": _TEACHER_INPUTS, "uniteacher": _TEACHER_INPUTS,
+                "multiscale": _TEACHER_INPUTS,
                 "student": _STUDENT_INPUTS, "distillation": _STUDENT_INPUTS,
                 "deformpathomic": {"x_path": "x_path10", "x_omic": "x_omic",
                                    "x_omic_tumor": "x_omic_tumor",
@@ -122,6 +126,24 @@ def _two_scale_loss(model, cfg, out, label, cw):
          features[f"feature2_{tag}"])
         for net, tag in (("teacher10_net", "tea10"), ("teacher20_net", "tea20"))]
     return loss, metrics, modulated
+
+
+def _multiscale_loss(model, cfg, out, label, cw):
+    """MultiScaleNet: -> (loss, metrics, no modulated classifiers)."""
+    atts = out[1]
+    taskloss = (_task_loss(cfg, out, label, cw, ("tea10", "tea20"))
+                + _task_loss(cfg, out, label, cw, ("stu10", "stu20")))
+    loss = taskloss
+    metrics = {"taskloss": taskloss}
+    if cfg.multiscale_attention:
+        batchloss = (L.omic_domain_scale_loss(
+            atts["att1_tea10"], atts["att1_tea20"],
+            atts["att2_tea10"], atts["att2_tea20"])
+            + 1000.0 * L.path_batch_loss(atts["att_stu10"],
+                                         atts["att_stu20"]))
+        loss = loss + batchloss
+        metrics["batchloss"] = batchloss
+    return loss, metrics, []
 
 
 def _deformpathomic_loss(model, cfg, out, label, cw):
@@ -202,7 +224,8 @@ def make_distill_cached_step(model, cfg, optimizer, scheduler=None):
 
 def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None):
     """The train step of ``cfg.mode`` (teacher, uniteacher, student,
-    deformpathomic, or distillation with the frozen ``teacher``):
+    multiscale, deformpathomic, or distillation with the frozen
+    ``teacher``):
     ``step(tensors) -> metrics``, a dict of detached 0-d tensors (``loss``,
     ``taskloss`` and, with ``multiscale_attention``, ``batchloss``;
     distillation adds ``distillloss_logits`` and ``distillloss_feature``
@@ -212,8 +235,8 @@ def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None):
     if cfg.mode not in MODEL_INPUTS:
         raise NotImplementedError(
             f"mode {cfg.mode!r}: the port trains the teacher, the "
-            "uniteacher, the student, deformpathomic and distillation; the "
-            "multiscale models and the baselines come later")
+            "uniteacher, the student, multiscale, deformpathomic and "
+            "distillation; the baselines come later")
     if cfg.mode == "distillation":
         if teacher is None:
             raise ValueError("mode 'distillation' needs the frozen teacher "
@@ -228,8 +251,8 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None):
     (``tensors -> teacher boundary``) the distillation step."""
     mode = cfg.mode
     inputs = MODEL_INPUTS[mode]
-    loss_fn = (_deformpathomic_loss if mode == "deformpathomic"
-               else _two_scale_loss)
+    loss_fn = {"deformpathomic": _deformpathomic_loss,
+               "multiscale": _multiscale_loss}.get(mode, _two_scale_loss)
     cw = task_class_weights(cfg, cfg.task_type)
     label_col = int(TASK_LABEL_COL[cfg.task_type])
     train_mode = not cfg.deterministic_training

@@ -1,11 +1,13 @@
-"""The training driver of the teacher, the student, deformpathomic and
-distillation (counterpart of
+"""The training driver of the teacher, the student, multiscale,
+deformpathomic and distillation (counterpart of
 ``disentangled_multimodal_learning_tpu/train/trainers.py``:
 ``run_training`` :60-315, ``trainTeachersModel`` :364,
 ``trainStudentsModel`` :370, ``trainDistillation`` :376,
 ``trainDeformPathomicModel`` :384, ``testStudentsModel`` :415,
-``testDistillation`` :419, ``testDeformPathomicModel`` :423) on one
-device.
+``testDistillation`` :419, ``testDeformPathomicModel`` :423,
+``testMultiScaleModel`` :434) on one device.  Multiscale evaluates five
+tags (``tea10``, ``tea20``, ``stu10``, ``stu20``, ``stus``) and stamps its
+checkpoint with the combined student's metrics, as JAX does.
 
 Per epoch: ``set_epoch`` on the train loader, one train step per batch with
 the scheduler stepped per iteration, the ``eval_every_iters`` cadence
@@ -55,7 +57,8 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     from the checkpoint payload ``state`` where given (``reload``);
     returns ``(model, final_metrics, checkpoint_path)``: the trained model;
     the metrics of the final evaluation on the combined tag of
-    ``model_type`` (``teas``, ``stus`` or ``fused``: ``acc``, ``auc``, ...,
+    ``model_type`` (``teas``, ``stus`` (students and ``scales``) or
+    ``fused``: ``acc``, ``auc``, ...,
     or ``cindex`` on survival) with every tag's under ``detail`` and the
     evaluated outputs under ``logits``, the last step's ``train_loss`` and
     every step's under ``train_losses``; and the checkpoint's path (None
@@ -206,6 +209,15 @@ def trainDeformPathomicModel(model, dataloader, optimizer, scheduler, logger,
                         state=state)
 
 
+def trainMultiScaleModel(model, dataloader, optimizer, scheduler, logger,
+                         args, state=None):
+    """The multiscale model's entry, as :func:`trainTeachersModel`; the
+    headline metrics are the combined student's (JAX's ``run_training``
+    with model type ``scales``)."""
+    return run_training(args, model, dataloader, logger, model_type="scales",
+                        state=state)
+
+
 def _run_test(model, loader, args, model_type):
     """The evaluator over ``loader`` in eval mode -> ``(metrics, logits)``:
     ``{f"{metric}_{tag}": value}`` and ``{f"logits_{tag}": [M, C]}`` (and
@@ -237,3 +249,8 @@ def testDistillation(model, dataloader, args):
 
 def testDeformPathomicModel(model, dataloader, args):
     return _run_test(model, dataloader, args, "fused")
+
+
+def testMultiScaleModel(model, dataloader, args):
+    """The five tags of the multiscale model (teachers and students)."""
+    return _run_test(model, dataloader, args, "scales")

@@ -20,6 +20,9 @@ which the port cannot read, and JAX cannot restore the port's optimizer
 state (it can import the ``params``).  :func:`load_checkpoint` also reads a
 bare reference-named state_dict (a ``.pth``, as the reference and JAX's
 ``save_torch_checkpoint`` write it): its payload holds the params only.
+:func:`restore_state` loads strictly but for :data:`IGNORABLE` keys, the
+reference's members that no forward reads (JAX ``utils/torch_import.py``
+``_IGNORABLE``), which it drops where the model has no such key.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ import os
 import torch
 
 SUFFIX = ".pt"
+# key prefixes of reference members the port does not build: the
+# reference MultiScaleNet's FusionNet, never in its forward (model.py:619)
+IGNORABLE = ("fusion.fusion_layer.",)
 
 
 def metric_stamped_name(cur_fold: int, epoch: int, metrics: dict,
@@ -84,7 +90,10 @@ def restore_state(model, optimizer, scheduler, source) -> int:
     payload's step."""
     payload = (load_checkpoint(source) if isinstance(source, (str, os.PathLike))
                else source)
-    model.load_state_dict(payload["params"], strict=True)
+    own = model.state_dict()
+    params = {k: v for k, v in payload["params"].items()
+              if k in own or not k.startswith(IGNORABLE)}
+    model.load_state_dict(params, strict=True)
     if optimizer is not None and payload.get("opt_state") is not None:
         optimizer.load_state_dict(payload["opt_state"])
     if scheduler is not None and payload.get("scheduler") is not None:

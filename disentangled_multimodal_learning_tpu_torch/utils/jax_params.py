@@ -137,7 +137,8 @@ def _deform_mil(p, key, out, attn_dim):
 
 def jax_state_dict(params, mode: str, attn_dim: int = 2) -> dict:
     """A JAX param tree of ``mode`` (``teacher``, ``uniteacher``,
-    ``student`` or ``deformpathomic`` at ``attn_dim``, unstacked) ->
+    ``student``, ``multiscale`` or ``deformpathomic`` at ``attn_dim``,
+    unstacked) ->
     reference-named state_dict of numpy arrays."""
     out: dict = {}
     if mode in ("teacher", "uniteacher"):
@@ -148,6 +149,13 @@ def jax_state_dict(params, mode: str, attn_dim: int = 2) -> dict:
     elif mode == "student":
         _student_net(params["student10_net"], "student10_net", out)
         _student_net(params["student20_net"], "student20_net", out)
+    elif mode == "multiscale":
+        for key in ("scale10_net", "scale20_net"):
+            p = params[key]
+            _maxnet(p["omic_net_tumor"], f"{key}.omic_net_tumor", out)
+            _maxnet(p["omic_net_immune"], f"{key}.omic_net_immune", out)
+            _student_net(p["student_net"], f"{key}.student_net", out)
+            _teacher_net(p["teacher_net"], f"{key}.teacher_net", out)
     elif mode == "deformpathomic":
         _maxnet(params["omic_net_tumor"], "omic_net_tumor", out)
         _maxnet(params["omic_net_immune"], "omic_net_immune", out)
@@ -161,8 +169,8 @@ def jax_state_dict(params, mode: str, attn_dim: int = 2) -> dict:
         out["output_shift"] = np.asarray([-3.0], np.float32)
     else:
         raise ValueError(f"mode {mode!r}: the port loads JAX params of the "
-                         "teacher, uniteacher, student and deformpathomic "
-                         "modes")
+                         "teacher, uniteacher, student, multiscale and "
+                         "deformpathomic modes")
     return out
 
 

@@ -13,6 +13,7 @@ attention maps.
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 import types
@@ -175,16 +176,19 @@ def test_inference_matches_jax_eval_step(monkeypatch, jax_params, tmp_path):
         np.testing.assert_array_equal(from_pth[k], logits[k])
 
 
-def test_inference_refuses_real_data_until_ported():
-    """The port serves synthetic bags only; asked for the real cohort it
-    raises instead of evaluating something else."""
-    with pytest.raises(NotImplementedError, match="synthetic_data"):
-        inference.build_fold0_test_loader(Config(fixdim=64))
+def test_inference_refuses_real_data_until_ported(tmp_path):
+    """Asked for a cohort directory that is not there, the serving entry
+    raises, naming the path, instead of evaluating synthetic bags (JAX
+    falls back to them)."""
+    missing = str(tmp_path / "no_cohorts")
+    for external in (False, True):
+        with pytest.raises(FileNotFoundError, match=re.escape(missing)):
+            inference.build_fold0_test_loader(Config(
+                fixdim=64, dataDir=missing, external_eval=external))
 
 
 def test_define_net_refuses_unported_modes():
-    for mode, slice_name in [("multiscale", "the multiscale models"),
-                             ("mcat", "comes with the baselines"),
+    for mode, slice_name in [("mcat", "comes with the baselines"),
                              ("transmil", "comes with the baselines")]:
         with pytest.raises(NotImplementedError, match=slice_name):
             define_net(Config(mode=mode), "cpu")
@@ -261,15 +265,14 @@ def test_config_refuses_later_and_unknown_keys():
     ``define_net`` may read it)."""
     with pytest.raises(NotImplementedError, match="comes with the baselines"):
         Config.from_dict({"init_type": "xavier"})
-    with pytest.raises(NotImplementedError, match="real-data loaders"):
-        Config.from_dict({"dataDir": "/data/"})
-    with pytest.raises(NotImplementedError, match="real-data loaders"):
-        Config.from_dict({"coTraining": False})
+    with pytest.raises(NotImplementedError, match="comes with the baselines"):
+        Config.from_dict({"skip": 1})
     with pytest.raises(ValueError, match="unknown config key 'fixdimm'"):
         Config.from_dict({"fixdimm": 64})
     cfg = Config.from_dict({"init_type": "max", "debug": True, "remat": False,
-                            "image_size": [224, 224], "fixdim": 64})
-    assert cfg.fixdim == 64
+                            "image_size": [224, 224], "fixdim": 64,
+                            "dataDir": "/data/", "coTraining": False})
+    assert (cfg.fixdim, cfg.dataDir, cfg.coTraining) == (64, "/data/", False)
 
 
 def test_every_jax_config_field_is_ported_or_in_one_table():

@@ -15,6 +15,7 @@ formulas round differently); the trajectory tolerances are in
 """
 
 import os
+import re
 import subprocess
 import sys
 import types
@@ -321,11 +322,12 @@ def test_class_weights_follow_the_task_and_external_eval():
     assert task_class_weights(cfg, "survival") is None
 
 
-def test_training_entry_runs_folds_with_the_eval_cadence():
+def test_training_entry_runs_folds_with_the_eval_cadence(tmp_path):
     """The entry trains each synthetic fold with a fresh model and
     evaluates every ``eval_every_iters`` iterations and at the end; it
-    refuses real data and the modes not ported yet instead of skipping
-    them."""
+    raises for a cohort directory that is not there (instead of falling
+    back to synthetic bags, as JAX does) and for the modes not ported yet
+    instead of skipping them."""
     cfg = Config(fixdim=FIXDIM, batch_size=B, synthetic_data=True,
                  synthetic_train_size=4, synthetic_test_size=3, kfold=2,
                  epochs=2, eval_every_iters=3, checkpoints="#",
@@ -344,10 +346,10 @@ def test_training_entry_runs_folds_with_the_eval_cadence():
     # 2 steps per epoch x 2 epochs: the count crosses 3 once per fold
     assert len(logged) == 2
     assert {"loss", "taskloss", "batchloss"} == set(logged[0]["training"])
-    with pytest.raises(NotImplementedError, match="multiscale models"):
-        tmain.main(cfg.replace(mode="multiscale"), device="cpu")
-    with pytest.raises(NotImplementedError, match="synthetic_data"):
-        tmain.main(cfg.replace(synthetic_data=False), device="cpu")
+    missing = str(tmp_path / "no_cohorts")
+    with pytest.raises(FileNotFoundError, match=re.escape(missing)):
+        tmain.main(cfg.replace(synthetic_data=False, dataDir=missing),
+                   device="cpu")
     with pytest.raises(NotImplementedError, match="baselines come later"):
         run_training(cfg.replace(mode="mcat"), define_net(cfg, "cpu"),
                      ([], None))
