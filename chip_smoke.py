@@ -5,8 +5,8 @@
 
 Drives ``disentangled_multimodal_learning_tpu_torch`` (never JAX) through its
 serving entry and its training entry, for the teacher, the student,
-deformpathomic, distillation and multiscale (and the teacher on the survival
-task and on a demo cohort of real-data files), at
+deformpathomic, distillation, multiscale and the nine baselines (and the
+teacher on the survival task and on a demo cohort of real-data files), at
 the full width of ``config/config_mine_diag2021.yaml``
 (fixdim 2500, B=4, dims 128, 8 heads; the student with ``path_cluster_num``
 0.0008, 2 clusters per bag; deformpathomic at ``attn_dim`` 1, where the cls
@@ -206,7 +206,28 @@ with ``return_vgrid``) with seeded random weights:
    a whole co-training batch) and the wall of one co-training epoch of
    teacher train steps with and without ``PrefetchLoader``, five of each,
    alternating (a gain is claimed only where every prefetched epoch beats
-   every plain one).
+   every plain one);
+3j. runs both entries of every baseline at the preset's widths (``path``,
+   ``transmil``, ``omic``, ``pathomic`` with concat and with ``fusion_type
+   pofusion``, ``pathomic_original``, ``pathomic_fg``,
+   ``pathomic_ensemble``, ``mcat``, ``cmta``: 2 steps and 1 eval batch;
+   ``mcat`` and ``cmta`` also on the survival preset, B 8, 1 step, the
+   c-index): 0 launches of every kernel in every step and evaluation, the
+   checkpoint served bitwise equal to the fold's final evaluation (0
+   launches); then deformpathomic with BilinearFusion (``gradient_modulate``
+   off) at its usual counts (K1-fwd 2 and K1-bwd 2 a step), served
+   bitwise;
+5j. compares each baseline's f32 forward (every output within
+   ``LOGITS_TOL``) and one f32 ``deterministic_training`` step
+   (``compare_train_step``) on the card with the CPU; TransMIL, CMTA and
+   MCAT (``F64_MODES``) also against float64 on the CPU, the card within
+   ``NYSTROM_F64_FACTOR`` times the CPU f32's own error (or within
+   ``LOGITS_TOL`` / ``GRAD_TOL``), forward and step;
+6j. times each baseline's eval forward (50) and train step (30, dropout
+   on): bags/s median and p80, the profiler's device-busy share, and for
+   TransMIL and CMTA the share of the device time in their Nystrom cores
+   (the cores profiled alone at the models' shapes, forward and
+   forward + backward).
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
@@ -216,8 +237,9 @@ teacher's also in the opt-in settings (a), (b) and (c), every count set to
 divisor 1 and 0; K3: the student's at the preset; K4: deformpathomic's at
 attn_dim 1, divisor 1; K5: the teacher's in (b); K6: the teacher's in
 (a); K2-nk: the "nk" teacher's train steps; K7: its entry's run; the
-distillation runs of phase 3g, the multiscale runs of 3h and the
-real-data runs of 3i add no kernel and change no entry), and K2's
+distillation runs of phase 3g, the multiscale runs of 3h, the
+real-data runs of 3i and the baselines of 3j add no kernel and change no
+entry), and K2's
 ``max_abs_err`` is the larger of its errors at the 2-D and the 1-D shape.
 Launches made for comparisons and timings are not counted.  K5's times are
 at divisor 4 in f32, K6's at the preset's dropout 0.1, K2-nk's at the
@@ -295,8 +317,15 @@ K3_TOL_ULPS = 4
 # of the weight gradient on the H100 and 2.7e-5 on the CPU, through K4 and
 # through K2 alike (this step at full width), hence ZERO_GRAD_FLOOR_1D; so
 # does the 2-D attention's with the exact CPB ("nk": 360 k distinct
-# cotangents per batch-head, 1.9e-5 of the weight gradient on the H100)
-ZERO_GRAD_BIASES = ("rel_pos_bias.mlp.2.bias", "cluster_merge.score.bias")
+# cotangents per batch-head, 1.9e-5 of the weight gradient on the H100).
+# The baselines' attention-pooling score biases (ABMIL's attention_1, the
+# gated pooling's attention_c) shift every score of a softmax over the
+# bag, so their gradient is 0 in exact arithmetic too; their f32 residue
+# reached 1.0e-5 of the weight gradient in JAX on the CPU (MCAT's pooling
+# over 4 tokens), hence ZERO_GRAD_FLOOR_1D for them
+POOLING_BIASES = ("attention_1.bias", "attention_c.bias")
+ZERO_GRAD_BIASES = ("rel_pos_bias.mlp.2.bias", "cluster_merge.score.bias",
+                    *POOLING_BIASES)
 ZERO_GRAD_FLOOR, ZERO_GRAD_FLOOR_1D = 1e-5, 1e-4
 # K4: the kernel rounds the two-term lerp op by op as its plain version
 # does, so it should agree bitwise; 1e-6 abs is the stated bound.  K4-bwd
@@ -337,6 +366,25 @@ TABLE1D_SRC = f"{CSRC}/cpb_table_1d.cu"
 STRIDED_SRC = f"{CSRC}/cpb_table_strided.cu"
 FUSED_SRC = f"{CSRC}/fused_table.cu"
 FUSED_EXACT_SRC = f"{CSRC}/fused_exact.cu"
+# phases 3j, 5j and 6j: the baselines, (mode, settings) at the preset
+BASELINES = (("path", {}), ("transmil", {}), ("omic", {}), ("pathomic", {}),
+             ("pathomic", {"fusion_type": "pofusion"}),
+             ("pathomic_original", {}), ("pathomic_fg", {}),
+             ("pathomic_ensemble", {}), ("mcat", {}), ("cmta", {}))
+# the baselines held against float64: TransMIL and CMTA, whose Nystrom
+# pinv (a cubic Newton-Schulz iteration, 6 steps) amplifies f32 rounding
+# (tests/test_ops.py compares it in float64), and MCAT, whose co-attention
+# averages the 2,500 patches for each of its 4 signature queries, so the
+# 4 tokens its path pooling weighs nearly coincide and that pooling's
+# gradients cancel (card against CPU f32: 1.1e-3 rel-L2 on
+# path_attention_head, the score bias 6.0e-4 of its weight's gradient,
+# H100 run).  The card's f32 and the CPU's f32 are each held against a
+# float64 CPU run, the card within twice the CPU f32's own error (or
+# within LOGITS_TOL / GRAD_TOL, should the CPU's be smaller than those);
+# the zero-gradient biases within ZERO_GRAD_FLOOR_1D of their weight's
+# gradient or twice the CPU f32's residue
+F64_MODES = ("transmil", "cmta", "mcat")
+NYSTROM_F64_FACTOR = 2
 # phase 5d's f32 deformpathomic settings (the preset's divisor 1 unless named)
 DEFORMPATHOMIC_F32 = ({"attn_dim": 1}, {"attn_dim": 1, "cpb_table_divisor": 0},
                       {"attn_dim": 2, "return_vgrid": True})
@@ -1314,6 +1362,15 @@ def main() -> int:
         time_real_data(f"{tmp}/data", dev, card)
     torch.cuda.empty_cache()
 
+    # ---- phases 3j, 5j, 6j: the baselines (no kernel on their path) -----
+    with tempfile.TemporaryDirectory(dir="build") as ckpt_dir:
+        run_baseline_entries(train_preset, dev, card, ckpt_dir)
+    torch.cuda.empty_cache()
+    compare_baselines_f32(f32, batch, dev)
+    torch.cuda.empty_cache()
+    time_baselines(preset, train_preset, batch, dev, card)
+    torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": kernel_line(
         train_counts, dict(k1=max(k1_err, side40["k1"]),
                            k2=max(*k2_err.values(), k2_1d["err"]),
@@ -1640,7 +1697,7 @@ def compare_train_step(cfg, batch, dev, layout: str = "auto") -> None:
         got = g_card[name]
         if name.endswith(ZERO_GRAD_BIASES):
             rel = (ZERO_GRAD_FLOOR_1D if ".attn1d." in name or layout == "nk"
-                   else ZERO_GRAD_FLOOR)
+                   or name.endswith(POOLING_BIASES) else ZERO_GRAD_FLOOR)
             scale = g_cpu[name[:-4] + "weight"].abs().max().item()
             ratio = max(got.abs().max().item(), want.abs().max().item()) / scale
             bias_ok &= ratio <= rel
@@ -1751,7 +1808,10 @@ def check_outputs(metrics: dict, logits: dict, n_bags: int,
 
 def setting(cfg) -> str:
     """A config's cell: mode, divisor, bf16 streams, the opt-in table paths
-    when set (and deformpathomic's attn_dim and return_vgrid)."""
+    when set (and deformpathomic's attn_dim and return_vgrid); a
+    baseline's: ``baseline_setting``."""
+    if cfg.mode in dict(BASELINES):
+        return baseline_setting(cfg)
     out = (f"{cfg.mode}, divisor {cfg.cpb_table_divisor}, bf16 streams "
            f"{cfg.attn_bf16_streams}")
     if cfg.fused_table_attention:
@@ -3673,6 +3733,296 @@ def time_real_data(data_dir: str, dev, card: str) -> None:
     del model, opt, step
 
 
+def baseline_configs(train_preset) -> list:
+    """Phase 3j's runs: every baseline at the preset, 2 steps and 1 eval
+    batch (``pathomic`` also with ``fusion_type pofusion``, the only
+    BatchNorm on any path), then MCAT and CMTA on the survival preset (B
+    8, 1 step and 1 eval batch, the c-index)."""
+    from disentangled_multimodal_learning_tpu_torch.config import Config
+
+    surv = Config.from_yaml("config/config_mine_surv.yaml").replace(
+        synthetic_data=True, synthetic_train_size=8, synthetic_test_size=8,
+        kfold=1, epochs=1, checkpoints="#")
+    return ([train_preset.replace(mode=m, synthetic_train_size=2 * 4, **kw)
+             for m, kw in BASELINES]
+            + [surv.replace(mode=m) for m in ("mcat", "cmta")])
+
+
+def baseline_setting(cfg) -> str:
+    out = cfg.mode
+    if cfg.fusion_type != "concat":
+        out += f", fusion {cfg.fusion_type}"
+    return out + f", {cfg.task_type} B {cfg.batch_size}"
+
+
+def _tensors(out) -> list:
+    """The tensors of a model's output, in order (lists walked; ``None``
+    and JAX's placeholder zeros skipped)."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def run_baseline_entries(train_preset, dev, card: str,
+                         ckpt_dir: str) -> None:
+    """Phase 3j: each baseline run of ``baseline_configs`` through the
+    training entry (1 fold, every step and the final evaluation with 0
+    launches of every kernel, every loss and metric finite), its
+    checkpoint in ``ckpt_dir``; the serving entry restores it and gives
+    the final evaluation's outputs bitwise, again with 0 launches.  Then
+    deformpathomic at attn_dim 2 with BilinearFusion (``fusion_type
+    pofusion``; ``gradient_modulate`` off, which needs the concatenated
+    classifier) through both entries with its usual counts (K1-fwd 2 and
+    K1-bwd 2 a step, K1-fwd 2 an eval batch), served bitwise."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+
+    dp = train_preset.replace(mode="deformpathomic", attn_dim=2,
+                              fusion_type="pofusion",
+                              gradient_modulate=False)
+    for cfg in baseline_configs(train_preset) + [dp]:
+        cfg = cfg.replace(checkpoints=ckpt_dir)
+        per_step, per_eval = ((dict(k1_fwd=2, k1_bwd=2), dict(k1_fwd=2))
+                              if cfg.mode == "deformpathomic" else ({}, {}))
+        run = {}
+        steps = cfg.synthetic_train_size // cfg.batch_size
+        run_training_entry(cfg, dev, steps, per_step, per_eval, card, out=run)
+        final = run["final"]
+        ckpt, = glob.glob(f"{ckpt_dir}/{cfg.mode}_fold_1_epoch_1_*.pt")
+        reset_counts()
+        metrics, logits = inference.main(cfg.replace(checkpoints_student=ckpt),
+                                         device=dev)
+        torch.cuda.synchronize()
+        served = counts()
+        os.remove(ckpt)
+        same = {k: bool(np.array_equal(v, final["logits"][k]))
+                for k, v in logits.items()}
+        n_bags = cfg.synthetic_test_size
+        finite = all(np.isfinite(v).all() and v.shape[0] == n_bags
+                     for v in logits.values())
+        print(f"[baselines] {baseline_setting(cfg)}: served from {ckpt}: "
+              f"launches {served}; outputs bitwise equal to the run's final "
+              f"evaluation: {same}; metrics {metrics} | {card}")
+        if (served != _sum_counts(0, {}, -(-n_bags // cfg.batch_size),
+                                  per_eval)
+                or set(logits) != set(final["logits"]) or not finite
+                or not all(same.values())
+                or not all(map(math.isfinite, metrics.values()))):
+            raise RuntimeError(f"{baseline_setting(cfg)}: the served model "
+                               "disagrees with its final evaluation")
+
+
+def compare_baselines_f32(f32, batch, dev) -> None:
+    """Phase 5j: each baseline's f32 forward (eval mode) on the card against
+    the same seeded weights on the CPU, every output within ``LOGITS_TOL``;
+    those of ``F64_MODES`` also against a float64 CPU run (card within
+    ``NYSTROM_F64_FACTOR`` times the CPU f32's own error, or within
+    ``LOGITS_TOL``); then one ``deterministic_training`` step
+    (``compare_baseline_step``)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+
+    for mode, kw in BASELINES:
+        t0 = time.perf_counter()
+        cfg = f32.replace(mode=mode, **kw)
+        with torch.inference_mode():
+            got = _tensors(define_net(cfg, dev)(
+                **model_inputs(batch, dev, mode)))
+            want = _tensors(define_net(cfg, "cpu")(
+                **model_inputs(batch, "cpu", mode)))
+            if mode in F64_MODES:
+                x64 = {k: v.double() for k, v in
+                       model_inputs(batch, "cpu", mode).items()}
+                f64 = _tensors(define_net(cfg, "cpu").double()(**x64))
+        errs = [(a.cpu() - b).abs().max().item() for a, b in zip(got, want)]
+        line = (f"[f32] {baseline_setting(cfg)} card vs CPU: {len(errs)} "
+                f"outputs, max_abs_err {max(errs):.3e} (tol {LOGITS_TOL})")
+        ok = len(got) == len(want) and max(errs) <= LOGITS_TOL
+        if mode in F64_MODES:
+            e_card = max((a.cpu().double() - c).abs().max().item()
+                         for a, c in zip(got, f64))
+            e_cpu = max((b.double() - c).abs().max().item()
+                        for b, c in zip(want, f64))
+            line += (f"; against float64: card {e_card:.3e}, CPU f32 "
+                     f"{e_cpu:.3e} (tol {NYSTROM_F64_FACTOR} x the CPU's or "
+                     f"{LOGITS_TOL})")
+            ok = ok or e_card <= max(NYSTROM_F64_FACTOR * e_cpu, LOGITS_TOL)
+        print(line + f" | {card_line()}")
+        if not ok:
+            raise RuntimeError(f"f32 {mode} outputs on the card disagree with "
+                               "the CPU")
+        compare_baseline_step(cfg.replace(deterministic_training=True), batch,
+                              dev)
+        torch.cuda.empty_cache()
+        print(f"[f32] {baseline_setting(cfg)}: forwards and steps in "
+              f"{time.perf_counter() - t0:.2f} s (CPU runs included)")
+
+
+def compare_baseline_step(cfg, batch, dev) -> None:
+    """Phase 5j: one ``deterministic_training`` f32 step of a baseline from
+    the same seeded weights on the same batch, on the card and on the CPU
+    (``compare_train_step``'s tolerances); for ``F64_MODES`` also in
+    float64 on the CPU, the card's loss and gradients held to it within
+    ``NYSTROM_F64_FACTOR`` times the CPU f32's own errors or within
+    ``TASK_LOSS_TOL`` / ``GRAD_TOL`` (the zero-gradient biases: see
+    ``F64_MODES``)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+
+    if cfg.mode not in F64_MODES:
+        compare_train_step(cfg, batch, dev)
+        return
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        model = define_net(cfg, device).to(dtype)
+        step = make_train_step(model, cfg, make_optimizer(
+            cfg, model.parameters()))
+        x = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch_to_tensors(batch, device).items()}
+        m = step(x)
+        out.append((m["loss"].item(), {
+            n: p.grad.double().cpu() for n, p in model.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu), (l_64, g_64) = out
+
+    def rel(got, want):
+        return ((got - want).norm() / max(want.norm().item(), 1e-30)).item()
+
+    e_loss = (abs(l_card - l_64) / abs(l_64), abs(l_cpu - l_64) / abs(l_64))
+    e_grad = {n: (rel(g_card[n], w), rel(g_cpu[n], w))
+              for n, w in g_64.items() if not n.endswith(ZERO_GRAD_BIASES)}
+    bad = [n for n, (c, h) in e_grad.items()
+           if c > max(NYSTROM_F64_FACTOR * h, GRAD_TOL)]
+    for n in g_64:
+        if n.endswith(ZERO_GRAD_BIASES):
+            scale = g_64[n[:-4] + "weight"].abs().max().item()
+            card, cpu = (g[n].abs().max().item() / scale
+                         for g in (g_card, g_cpu))
+            print(f"[f32 step] {n}: 0 in exact arithmetic; card {card:.2e}, "
+                  f"CPU f32 {cpu:.2e} of its weight's gradient (tol "
+                  f"{ZERO_GRAD_FLOOR_1D} or {NYSTROM_F64_FACTOR} x the CPU's)")
+            if card > max(ZERO_GRAD_FLOOR_1D, NYSTROM_F64_FACTOR * cpu):
+                bad.append(n)
+    worst = sorted(e_grad.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"[f32 step] {baseline_setting(cfg)} against float64 on the CPU: "
+          f"loss card {e_loss[0]:.2e}, CPU f32 {e_loss[1]:.2e} rel (tol "
+          f"{NYSTROM_F64_FACTOR} x the CPU's or {TASK_LOSS_TOL}); "
+          f"{len(e_grad)} gradients, worst rel-L2 (card, CPU f32) {worst} "
+          f"(tol {NYSTROM_F64_FACTOR} x the CPU's or {GRAD_TOL}) "
+          f"| {card_line()}")
+    if bad or e_loss[0] > max(NYSTROM_F64_FACTOR * e_loss[1], TASK_LOSS_TOL):
+        raise RuntimeError(f"the f32 {cfg.mode} step on the card disagrees "
+                           f"with float64: {bad}")
+
+
+def nystrom_core_ms(shapes, dev, train: bool) -> float:
+    """Device-busy ms (profiler) of the Nystrom cores of one forward (with
+    ``train``, forward and backward): ``shapes`` lists ``(calls, B, H, N,
+    D, landmarks)``, each core run on random q, k, v of that shape."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops.nystrom import (
+        nystrom_attention)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    total = 0.0
+    for calls, B, H, N, D, m in shapes:
+        q, k, v = (torch.randn(B, H, N, D, device=dev, generator=gen,
+                               requires_grad=train) for _ in range(3))
+        g = torch.randn(B, H, N, D, device=dev, generator=gen)
+
+        def core():
+            out = nystrom_attention(q * D ** -0.5, k, v, m)
+            if train:
+                torch.autograd.grad(out, (q, k, v), g)
+
+        with torch.inference_mode(not train):
+            busy, _ = profile(f"Nystrom core [{B}, {H}, {N}, {D}], m {m}, "
+                              f"train {train}", core, rows=8)
+        total += calls * busy
+    return total
+
+
+def time_baselines(preset, train_preset, batch, dev, card: str) -> None:
+    """Phase 6j: per baseline at the preset's widths, the eval forward (50
+    calls) and the train step (30 steps, dropout on), bags/s median and
+    p80 (CUDA events, the batch resident on the card), and the profiler's
+    device-busy share of each; for TransMIL and CMTA the share of that
+    device time in their Nystrom cores (the cores timed alone at the
+    model's shapes, ``nystrom_core_ms``)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+
+    x = batch_to_tensors(batch, dev)
+    B, N = batch.x_path10.shape[:2]
+    n_tok = math.ceil(math.sqrt(N)) ** 2 + 1  # square-padded, the cls token
+    core_shapes = {"transmil": [(2, B, 8, n_tok, 64, 256)],
+                   "cmta": [(4, B, 8, n_tok, 32, 128), (4, B, 8, 5, 32, 128)]}
+    for mode, kw in BASELINES:
+        cfg = preset.replace(mode=mode, **kw)
+        model = define_net(cfg, dev)
+        with torch.inference_mode():
+            xi = model_inputs(batch, dev, mode)
+            ms = ms_samples(lambda: model(**xi), 50)
+            busy_e, wall_e = profile(f"eval forward ({baseline_setting(cfg)})",
+                                     lambda: model(**xi), rows=10)
+        del model
+        tcfg = train_preset.replace(mode=mode, **kw)
+        model = define_net(tcfg, dev)
+        opt = make_optimizer(tcfg, model.parameters())
+        step = make_train_step(model, tcfg, opt,
+                               make_scheduler(tcfg, opt, 1000))
+        ms_t = ms_samples(lambda: step(x), 30)
+        busy_t, wall_t = profile(f"train step ({baseline_setting(tcfg)})",
+                                 lambda: step(x), n=3, rows=10)
+        del model, opt, step
+        med, p80 = median(ms), ms[int(0.8 * len(ms))]
+        med_t, p80_t = median(ms_t), ms_t[int(0.8 * len(ms_t))]
+        line = (f"[time] {baseline_setting(cfg)} fixdim {N}: eval forward "
+                f"median {med:.3f} ms = {1000 * B / med:.1f} bags/s, p80 "
+                f"{p80:.3f} ms = {1000 * B / p80:.1f} bags/s, device busy "
+                f"{busy_e:.3f} of {wall_e:.3f} ms ({busy_e / wall_e:.1%}); "
+                f"train step median {med_t:.3f} ms = {1000 * B / med_t:.1f} "
+                f"train bags/s, p80 {p80_t:.3f} ms = {1000 * B / p80_t:.1f}, "
+                f"device busy {busy_t:.3f} of {wall_t:.3f} ms "
+                f"({busy_t / wall_t:.1%})")
+        if mode in core_shapes:
+            core_e = nystrom_core_ms(core_shapes[mode], dev, train=False)
+            core_t = nystrom_core_ms(core_shapes[mode], dev, train=True)
+            line += (f"; Nystrom cores {core_e:.3f} ms = "
+                     f"{core_e / busy_e:.1%} of the forward's device time, "
+                     f"{core_t:.3f} ms = {core_t / busy_t:.1%} of the "
+                     f"step's")
+        print(line + f" | {card}")
+        torch.cuda.empty_cache()
+
+
 def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:
     """``(forward, backward)`` bounds of K7: the forward reads q, k, v,
     grid_q, grid_kv and the weights and writes out and attn, and does K2's
@@ -3697,9 +4047,10 @@ def cpb_param_count(o: int, hid: int = 32) -> int:
     return hid * (2 + 1 + hid + 1) + (hid + 1) * o
 
 
-def profile(label: str, fn, n: int = 5) -> None:
+def profile(label: str, fn, n: int = 5, rows: int = 30) -> tuple:
     """torch.profiler over ``n`` calls of ``fn`` after 3 warm-up calls:
-    the kernel table and the device's busy and idle share."""
+    the kernel table (``rows`` rows) and the device's busy and idle share;
+    returns ``(busy ms, wall ms)`` per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -3715,7 +4066,7 @@ def profile(label: str, fn, n: int = 5) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     avg = prof.key_averages()
-    print(avg.table(sort_by="self_device_time_total", row_limit=30))
+    print(avg.table(sort_by="self_device_time_total", row_limit=rows))
     # device rows only (the op rows repeat their kernels' time)
     busy = sum(e.self_device_time_total for e in avg
                if e.device_type == DeviceType.CUDA
@@ -3723,6 +4074,7 @@ def profile(label: str, fn, n: int = 5) -> None:
     print(f"[profile] per {label} (profiler on): device busy {busy:.3f} ms "
           f"of {wall:.3f} ms wall = {busy / wall:.1%} busy, "
           f"{1 - busy / wall:.1%} idle")
+    return busy, wall
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Experiment config of the port: the fields the teacher, student,
-multiscale, deformpathomic and distillation serving and training paths and
-the real-data loaders read, under the
+multiscale, deformpathomic, distillation and baseline serving and training
+paths and the real-data loaders read, under the
 names and defaults of the JAX ``Config``
 (``disentangled_multimodal_learning_tpu/config.py``), so its YAML presets
 load unchanged.  ``yaml`` is imported only when a YAML file is read;
@@ -39,8 +39,8 @@ IGNORED = {
     "remat": _TPU, "use_pallas": _TPU, "scan_steps": _TPU,
     "mesh_data_axis": _TPU, "compute_dtype": _TPU,
     "checkpoint_backend": "the orbax/pickle choice of the JAX checkpoints",
-    "seq_shard_devices": _TPU, "tp_devices": _TPU, "branch_devices": _TPU,
-    "pipe_devices": _TPU, "seq_shard_dp": _TPU, "pipe_microbatches": _TPU,
+    "tp_devices": _TPU, "branch_devices": _TPU,
+    "pipe_devices": _TPU, "pipe_microbatches": _TPU,
     "nodes": _TPU, "gpus": _TPU, "nr": _TPU, "rank": _TPU,
     "world_size": _TPU, "dataparallel": _TPU,
     "visiable_device": _TPU,
@@ -50,13 +50,10 @@ IGNORED = {
     "label_path": _UNREAD, "dataDir_pyramid": _UNREAD, "pyramid": _UNREAD,
     "dataset": _UNREAD, "combination_type": _UNREAD, "act_type": _UNREAD,
 }
-_BASELINES = "baselines"
+_PARALLEL = "parallel part (TransMIL's token axis sharded over devices)"
 # JAX Config keys a later part of the port reads -> (JAX default, subject)
 LATER = {
-    "init_type": ("max", _BASELINES), "init_gain": (0.02, _BASELINES),
-    "skip": (0, _BASELINES), "use_bilinear": (1, _BASELINES),
-    "path_gate": (1, _BASELINES), "omic_gate": (1, _BASELINES),
-    "path_scale": (1, _BASELINES), "omic_scale": (1, _BASELINES),
+    "seq_shard_devices": (0, _PARALLEL), "seq_shard_dp": (0, _PARALLEL),
 }
 
 
@@ -120,6 +117,20 @@ class Config:
     return_vgrid: bool = False
     fusion_type: str = "concat"
     mmhid: int = 128
+    # the pathomic baselines' BilinearFusion (JAX config.py:154-168): the
+    # skip connection, the bilinear (else linear) gates, each branch's
+    # gate and its width divisor
+    skip: int = 0
+    use_bilinear: int = 1
+    path_gate: int = 1
+    omic_gate: int = 1
+    path_scale: int = 1
+    omic_scale: int = 1
+    # re-initialisation after the seeded init (JAX config.py:190-191,
+    # utils/weight_init.py): max (MaxNet's own init) and none are no-ops;
+    # normal, xavier, kaiming, orthogonal at init_gain
+    init_type: str = "max"
+    init_gain: float = 0.02
     synthetic_data: bool = False
     # real data (JAX config.py:96-98, :150, :255-258): the cohort root
     # (data/datasets.py), TCGA + IvYGAP co-training (else TCGA alone;
@@ -270,11 +281,12 @@ class Config:
             from .data.bucketing import validate_buckets
 
             validate_buckets(str(self.buckets).split(","))
-        if self.fusion_type != "concat":
+        from .utils.weight_init import VALID_INIT_TYPES
+
+        if self.init_type not in VALID_INIT_TYPES:
             raise NotImplementedError(
-                f"fusion_type={self.fusion_type!r}: the port fuses the "
-                "deformpathomic branches by concatenation; BilinearFusion "
-                "(models/fusion.py) comes with the baselines")
+                f"initialization method [{self.init_type}] is not "
+                f"implemented (valid: {', '.join(VALID_INIT_TYPES)})")
         return self
 
     def replace(self, **kw) -> "Config":

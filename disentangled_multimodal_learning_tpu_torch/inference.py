@@ -1,14 +1,17 @@
 """Serving entry of the port: evaluate a teacher, student, distilled
-student, multiscale or deformpathomic checkpoint on the fold-0 test set
-(counterpart of the root ``inference.py`` -> ``testTeachersModel`` /
-``testStudentsModel`` / ``testDistillation`` / ``testMultiScaleModel`` ->
+student, multiscale, deformpathomic or baseline checkpoint on the fold-0
+test set (counterpart of the root ``inference.py`` -> ``testTeachersModel``
+/ ``testStudentsModel`` / ``testDistillation`` / ``testMultiScaleModel`` ->
 ``Evaluator.distill_val``, ``testDeformPathomicModel`` ->
-``Evaluator.fused_val``).
+``Evaluator.fused_val``, ``testBaselineModel`` -> ``fused_val`` for the
+pathomic family, ``simple_val`` for ``path``, ``transmil``, ``omic``,
+``mcat`` and ``cmta``).
 
     python -m disentangled_multimodal_learning_tpu_torch.inference \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
         [--mode student | --mode distillation | --mode multiscale | \\
-        --mode deformpathomic --attn_dim 1] [--checkpoint model.pt | \\
+        --mode deformpathomic --attn_dim 1 | --mode cmta | ...] \\
+        [--checkpoint model.pt | \\
         model.pth] [--save4visualization true] [--device cpu]
     python -m disentangled_multimodal_learning_tpu_torch.inference \\
         --config config/config_mine_diag2021.yaml --synthetic_data false \\
@@ -31,7 +34,9 @@ Prints ``name_tag=value`` for acc, f1, auc, bac, sens, spec and prec of
 tea10, tea20 and teas (stu10, stu20 and stus for the students; all five
 for multiscale), or
 ``cindex_tag=value`` on survival; deformpathomic prints ``name=value`` for
-its fused output.  ``save4visualization`` writes the attention maps of the
+its fused output, a baseline ``name=value`` for its one output (on
+survival ``cindex=value``; ``path``, ``transmil`` and ``omic`` refuse
+survival).  ``save4visualization`` writes the attention maps of the
 teachers and students to ``attention_fold{k}.npz`` in ``checkpoints``
 (root ``inference.py:134-145``).
 """
@@ -47,19 +52,16 @@ from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
 from .main import eval_loader
 from .models.factory import define_net, require_device
-from .train.evaluation import Evaluator, export_dir
-from .train.trainers import (testDeformPathomicModel, testDistillation,
-                             testMultiScaleModel, testStudentsModel,
-                             testTeachersModel)
+from .train.evaluation import Evaluator, export_dir, model_type_of
+from .train.trainers import (testBaselineModel, testDeformPathomicModel,
+                             testDistillation, testMultiScaleModel,
+                             testStudentsModel, testTeachersModel)
 from .utils.checkpoint import restore_state
 
 _TESTS = {"teacher": testTeachersModel, "uniteacher": testTeachersModel,
           "student": testStudentsModel, "distillation": testDistillation,
           "multiscale": testMultiScaleModel,
           "deformpathomic": testDeformPathomicModel}
-# the attention maps' owner per mode, for save4visualization
-_MODEL_TYPES = {"teacher": "teacher", "uniteacher": "teacher",
-                "multiscale": "scales"}
 
 
 def build_fold0_test_loader(cfg: Config):
@@ -99,11 +101,13 @@ def main(cfg: Config, checkpoint: str | None = None, device="cuda",
         else:
             print("[inference] WARNING: no checkpoint given, evaluating a "
                   f"random init (seed {cfg.seed})")
-    metrics, logits = _TESTS[cfg.mode](model, loader, cfg)
-    if cfg.save4visualization and cfg.mode != "deformpathomic":
+    metrics, logits = _TESTS.get(cfg.mode, testBaselineModel)(model, loader,
+                                                              cfg)
+    model_type = model_type_of(cfg.mode)
+    if cfg.save4visualization and model_type in ("teacher", "student",
+                                                 "scales"):
         out_dir = export_dir(cfg)
         os.makedirs(out_dir, exist_ok=True)
-        model_type = _MODEL_TYPES.get(cfg.mode, "student")
         path = Evaluator(model, cfg, device, model_type).export_attention_maps(
             loader, os.path.join(out_dir, f"attention_fold{cfg.cur_fold}.npz"))
         print(f"[inference] attention maps -> {path}")

@@ -3,13 +3,18 @@
 ``data/cohorts.py``) -> ``trainTeachersModel`` (``trainStudentsModel`` in
 student mode, ``trainMultiScaleModel`` in multiscale mode,
 ``trainDeformPathomicModel`` in deformpathomic mode, ``trainDistillation``
-in distillation mode) -> ``run_training`` -> the train step.
+in distillation mode, ``run_training`` itself for a baseline: ``path``,
+``transmil``, ``omic``, ``pathomic``, ``pathomic_original``,
+``pathomic_fg``, ``pathomic_ensemble``, ``mcat``, ``cmta``) ->
+``run_training`` -> the train step.
 
     python -m disentangled_multimodal_learning_tpu_torch.main \\
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
         [--checkpoints DIR | --checkpoints '#'] [--mode student | \\
         --mode multiscale | --mode deformpathomic --attn_dim 1 | \\
-        --mode distillation --checkpoints_teacher DIR/teacher_fold_1_....pt] \\
+        --mode distillation --checkpoints_teacher DIR/teacher_fold_1_....pt \\
+        | --mode transmil | --mode pathomic --fusion_type pofusion \\
+        [--skip 1] | --mode mcat ...] [--init_type xavier --init_gain 0.02] \\
         [--resume true --save_every_epochs 1] [--kfold 1] [--epochs 1] \\
         [--device cpu]
     python -m disentangled_multimodal_learning_tpu_torch.main \\
@@ -48,11 +53,11 @@ from .data.bucketing import BucketedBagLoader
 from .data.cohorts import cohort_folds
 from .data.loader import BagLoader, PrefetchLoader
 from .data.synthetic import SyntheticBagDataset
-from .models.factory import define_net, require_device
-from .train.evaluation import export_dir
-from .train.trainers import (trainDeformPathomicModel, trainDistillation,
-                             trainMultiScaleModel, trainStudentsModel,
-                             trainTeachersModel)
+from .models.factory import BASELINES, define_net, require_device
+from .train.evaluation import export_dir, model_type_of
+from .train.trainers import (run_training, trainDeformPathomicModel,
+                             trainDistillation, trainMultiScaleModel,
+                             trainStudentsModel, trainTeachersModel)
 from .utils.checkpoint import load_checkpoint, restore_state
 
 _TRAINS = {"student": trainStudentsModel,
@@ -80,6 +85,9 @@ def dispatch_training(cfg: Config, device, loaders, logger=None):
     ckpt = (cfg.checkpoints_teacher if cfg.mode in ("teacher", "uniteacher")
             else cfg.checkpoints_student)
     state = load_checkpoint(ckpt) if cfg.reload and _is_set(ckpt) else None
+    if cfg.mode in BASELINES:
+        return run_training(cfg, model, loaders, logger,
+                            model_type=model_type_of(cfg.mode), state=state)
     train = _TRAINS.get(cfg.mode, trainTeachersModel)
     return train(model, loaders, None, None, logger, cfg, state=state)
 

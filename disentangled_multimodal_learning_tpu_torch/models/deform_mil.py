@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from .deform_attention import DeformCrossAttention1D, DeformCrossAttention2D
+from .fusion import BilinearFusion
 from .layers import FusionNet, Pooler, layer_norm
 from .maxnet import MaxNet
 
@@ -114,9 +115,11 @@ class DeformCrossTransMIL(nn.Module):
 
 class DeformPathomicNet(nn.Module):
     """Two MaxNet omic encoders (tumor, immune), two DeformCrossTransMIL
-    branches on the same patches, concat fusion (``Config.validate`` refuses
-    the other ``fusion_type``s) and three classifiers; sigmoid on the three
-    outputs for the survival task.  Returns
+    branches on the same patches, their fusion (``fusion_type``
+    ``"concat"``; any other: :class:`~.fusion.BilinearFusion` of the two
+    vectors to ``mmhid``, JAX ``deform_mil.py:132-138``) and three
+    classifiers; sigmoid on the three outputs for the survival task.
+    Returns
     ``(features, vec_t, vec_i, logits, None, None, None)`` with ``logits``
     ``[tumor, immune, fused]``, and with ``return_vgrid`` ``[tumor, immune,
     fused, omic_t, vgrid_t, omic_i, vgrid_i]`` (reference
@@ -133,7 +136,8 @@ class DeformPathomicNet(nn.Module):
                  degenerate_1d_sampling: bool = False,
                  cpb_table_divisor: int = 0, attn_bf16_streams: bool = False,
                  fused_table_attention: bool = False,
-                 cpb_table_bf16: bool = False, attn_layout: str = "auto"):
+                 cpb_table_bf16: bool = False, attn_layout: str = "auto",
+                 fusion_type: str = "concat", mmhid: int = 128):
         super().__init__()
         self.return_vgrid = return_vgrid
         self.survival = task_type == "survival"
@@ -151,7 +155,13 @@ class DeformPathomicNet(nn.Module):
                   cpb_table_bf16=cpb_table_bf16, attn_layout=attn_layout)
         self.pathomic_net_tumor = DeformCrossTransMIL(**kw)
         self.pathomic_net_immune = DeformCrossTransMIL(**kw)
-        self.classifier = nn.Linear(2 * path_dim, label_dim)
+        if fusion_type == "concat":
+            self.fusion = None
+            self.classifier = nn.Linear(2 * path_dim, label_dim)
+        else:
+            self.fusion = BilinearFusion(dim1=path_dim, dim2=omic_dim,
+                                         mmhid=mmhid)
+            self.classifier = nn.Linear(mmhid, label_dim)
         self.classifier_tumor = nn.Sequential(nn.Linear(path_dim, label_dim))
         self.classifier_immune = nn.Sequential(nn.Linear(path_dim, label_dim))
         self.register_buffer("output_range", torch.tensor([6.0]))
@@ -163,7 +173,8 @@ class DeformPathomicNet(nn.Module):
         out_t = self.pathomic_net_tumor(x_path, omic_t)
         out_i = self.pathomic_net_immune(x_path, omic_i)
         vec_t, vec_i = out_t[0], out_i[0]
-        features = torch.cat([vec_t, vec_i], dim=1)
+        features = (torch.cat([vec_t, vec_i], dim=1) if self.fusion is None
+                    else self.fusion(vec_t, vec_i))
         hazard = self.classifier(features)
         hazard_t = self.classifier_tumor(vec_t)
         hazard_i = self.classifier_immune(vec_i)

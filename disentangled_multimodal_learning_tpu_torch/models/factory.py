@@ -10,6 +10,10 @@ as in JAX (whose backend picks it): :func:`define_net` takes it as the
 keyword ``attn_layout`` ("auto", the port's "kn", or "nk").  JAX's
 ``CPB_KERNEL_VERSION`` has no counterpart: its "v1" and "v5" compute the
 same function, and both are kernel K2-nk in the port.
+
+The baseline modes (``path``, ``transmil``, ``omic``, the pathomic family,
+``mcat`` and ``cmta``) run no kernel of the port: plain torch, as in JAX,
+where they reach no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -19,13 +23,22 @@ import math
 import torch
 from torch import nn
 
+from ..utils.weight_init import apply_init_type
+from .cmta import CMTA
 from .deform_mil import DeformPathomicNet
+from .maxnet import MaxNet
+from .mcat import MCAT_Surv
+from .mil import ABMIL, TransMIL
+from .pathomic import (PathomicNet, PathomicNet_Ensemble, PathomicNet_FG,
+                       PathomicNet_Original)
 from .teacher_student import MultiScaleNet, StudentsNet, TeachersNet
 
-# modes the JAX factory knows, with the subject of the port that brings each
-_LATER = {m: "the baselines" for m in (
-    "path", "transmil", "omic", "pathomic", "pathomic_original", "mcat",
-    "cmta", "pathomic_fg", "pathomic_ensemble")}
+# the baselines: no kernel of the port on their path
+BASELINES = ("path", "transmil", "omic", "pathomic", "pathomic_original",
+             "mcat", "cmta", "pathomic_fg", "pathomic_ensemble")
+# the modes of the JAX factory (``models/factory.py:37-127``)
+MODES = BASELINES + ("deformpathomic", "multiscale", "teacher", "uniteacher",
+                     "student", "distillation")
 
 
 def full_f32_matmuls() -> None:
@@ -58,17 +71,60 @@ def define_net(cfg, device="cuda", attn_layout: str = "auto"):
     mode (eval mode under ``deterministic_training``).  In distillation
     mode, ``(student, teacher)``, both seeded so, on ``device``."""
     mode = cfg.mode
-    if mode in _LATER:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: it comes with {_LATER[mode]}")
     if mode == "distillation":
         return (define_net(cfg.replace(mode="student"), device, attn_layout),
                 define_net(cfg.replace(mode="teacher"), device, attn_layout))
-    if mode not in ("teacher", "uniteacher", "student", "deformpathomic",
-                    "multiscale"):
+    if mode not in MODES:
         raise NotImplementedError(f"model [{mode}] is not implemented")
     device = require_device(device)
     full_f32_matmuls()
+    if mode in BASELINES:
+        model = _baseline(cfg)
+    else:
+        model = _deform_model(cfg, attn_layout)
+    init_weights(model, cfg.seed)
+    apply_init_type(model, cfg.init_type, cfg.init_gain, cfg.seed)
+    return model.to(device).eval()
+
+
+def _baseline(cfg) -> nn.Module:
+    """The baseline of ``cfg.mode``, with the JAX factory's arguments."""
+    mode = cfg.mode
+    common = dict(label_dim=cfg.label_dim)
+    omic = dict(input_size_omic=cfg.input_size_omic,
+                input_path_dim=cfg.input_path_dim, path_dim=cfg.path_dim,
+                omic_dim=cfg.omic_dim, mmhid=cfg.mmhid,
+                dropout_rate=cfg.dropout_rate, **common)
+    if mode == "path":
+        return ABMIL(path_dim=cfg.path_dim, L=cfg.input_path_dim, **common)
+    if mode == "transmil":
+        return TransMIL(path_dim=cfg.path_dim, input_dim=cfg.input_path_dim,
+                        **common)
+    if mode == "omic":
+        return MaxNet(cfg.input_size_omic, cfg.omic_dim, cfg.dropout_rate,
+                      cfg.label_dim)
+    if mode == "pathomic":
+        return PathomicNet(
+            fusion_type=cfg.fusion_type, skip=cfg.skip,
+            use_bilinear=cfg.use_bilinear, path_gate=cfg.path_gate,
+            omic_gate=cfg.omic_gate, path_scale=cfg.path_scale,
+            omic_scale=cfg.omic_scale, **omic)
+    if mode == "pathomic_original":  # JAX passes no gates or scales
+        return PathomicNet_Original(fusion_type=cfg.fusion_type,
+                                    skip=cfg.skip,
+                                    use_bilinear=cfg.use_bilinear, **omic)
+    if mode == "pathomic_fg":
+        return PathomicNet_FG(**omic)
+    if mode == "pathomic_ensemble":
+        return PathomicNet_Ensemble(**omic)
+    if mode == "mcat":
+        return MCAT_Surv(**common)
+    return CMTA(**common)
+
+
+def _deform_model(cfg, attn_layout: str) -> nn.Module:
+    """The teacher, student, multiscale or deformpathomic model."""
+    mode = cfg.mode
     common = dict(label_dim=cfg.label_dim, input_path_dim=cfg.input_path_dim,
                   path_dim=cfg.path_dim,
                   cpb_table_divisor=cfg.cpb_table_divisor,
@@ -82,7 +138,8 @@ def define_net(cfg, device="cuda", attn_layout: str = "auto"):
             omic_dim=cfg.omic_dim, dropout_rate=cfg.dropout_rate,
             attn_dim=cfg.attn_dim, return_vgrid=cfg.return_vgrid,
             task_type=cfg.task_type,
-            degenerate_1d_sampling=cfg.degenerate_1d_sampling, **common)
+            degenerate_1d_sampling=cfg.degenerate_1d_sampling,
+            fusion_type=cfg.fusion_type, mmhid=cfg.mmhid, **common)
     elif mode == "multiscale":
         model = MultiScaleNet(
             input_size_omic_tumor=cfg.input_size_omic_tumor,
@@ -101,28 +158,33 @@ def define_net(cfg, device="cuda", attn_layout: str = "auto"):
             omic_dim=cfg.omic_dim, dropout_rate=cfg.dropout_rate,
             combination_type=cfg.combination_type_teas,
             unimodal=mode == "uniteacher", **common)
-    init_weights(model, cfg.seed)
-    return model.to(device).eval()
+    return model
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> None:
-    """Seeded init: every weight ~ N(0, 1/fan_in) (the scale of flax's
-    lecun_normal and of MaxNet's max_init), the cls tokens ~ N(0, 1) (JAX's
-    ``normal(1.0)``), biases 0, LayerNorms 1/0.  The draws come from one
-    CPU ``torch.Generator``, so a seed gives the same weights on every
-    device."""
+    """Seeded init at JAX's scales (not JAX's draws): every weight ~ N(0,
+    1/fan_in) (flax's lecun_normal, MaxNet's max_init, and the conv
+    filters' 1/fan_in), the cls tokens ~ N(0, 1) (JAX's ``normal(1.0)``;
+    a module's ``init_std`` overrides it: CMTA's 1e-6), the bilinear
+    fusion weights ~ N(0, 0.02), biases 0, LayerNorm and BatchNorm scales
+    1.  The draws come from one CPU ``torch.Generator``, so a seed gives
+    the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
+    modules = dict(model.named_modules())
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        owner, _, leaf = name.rpartition(".")
         if p.dim() == 1:
-            is_ln_scale = leaf == "weight"  # the only 1-D weights are LN scales
-            p.fill_(1.0 if is_ln_scale else 0.0)
+            is_scale = leaf == "weight"  # the only 1-D weights: LN, BN scales
+            p.fill_(1.0 if is_scale else 0.0)
             continue
+        x = torch.randn(p.shape, generator=g)
         if leaf == "in_proj_weight":  # packed q/k/v, each [d, d]
-            fan_in = p.shape[1]
+            x /= math.sqrt(p.shape[1])
         elif leaf == "cls_token":
-            fan_in = 1
+            x *= getattr(modules[owner], "init_std", {}).get(leaf, 1.0)
+        elif leaf.startswith("bilinear_w"):
+            x *= 0.02
         else:
-            fan_in = math.prod(p.shape[1:])
-        p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
+            x /= math.sqrt(math.prod(p.shape[1:]))
+        p.copy_(x)

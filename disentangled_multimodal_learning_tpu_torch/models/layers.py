@@ -8,8 +8,13 @@ default is 1e-5).
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..ops.nystrom import nystrom_attention
 
 LN_EPS = 1e-6
 
@@ -61,6 +66,120 @@ class TransFusionLayer(nn.Module):
                                           need_weights=False)
         x = x1 + attn_out
         return self.pooler(self.norm(x))[:, None, :]
+
+
+class NystromAttention(nn.Module):
+    """Landmark attention layer (``layers.py:127-196``): ``to_qkv`` without
+    bias, q scaled by ``dh**-0.5``, the Nystrom core (``ops/nystrom.py``,
+    6 pinv iterations), the value residual, ``to_out`` and dropout.  The
+    residual is the reference's depthwise ``Conv2d(heads, heads, (33, 1),
+    groups=heads)`` over ``v [B, h, N, dh]`` (JAX repeats each head's
+    filter over the flattened ``[B, N, inner]`` values: the same sums)."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
+                 num_landmarks: int = 256, dropout: float = 0.0):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        self.num_landmarks = num_landmarks
+        inner = heads * dim_head
+        self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
+        self.res_conv = nn.Conv2d(heads, heads, (33, 1), padding=(16, 0),
+                                  groups=heads, bias=False)
+        self.to_out = nn.Linear(inner, dim)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        B, N, _ = x.shape
+        q, k, v = (t.unflatten(-1, (self.heads, self.dim_head)).transpose(1, 2)
+                   for t in self.to_qkv(x).chunk(3, dim=-1))
+        out = nystrom_attention(q * self.dim_head ** -0.5, k, v,
+                                self.num_landmarks)
+        out = out + self.res_conv(v)
+        return self.dropout(self.to_out(out.transpose(1, 2).flatten(2)))
+
+
+class TransLayer(nn.Module):
+    """Pre-norm Nystrom block ``x + attn(LN(x))`` (``layers.py:199-215``):
+    8 heads of ``dim / 8``, ``dim / 2`` landmarks, dropout 0.1."""
+
+    def __init__(self, dim: int = 128):
+        super().__init__()
+        self.norm = layer_norm(dim)
+        self.attn = NystromAttention(dim, dim_head=dim // 8, heads=8,
+                                     num_landmarks=dim // 2, dropout=0.1)
+
+    def forward(self, x):
+        return x + self.attn(self.norm(x))
+
+
+class PPEG(nn.Module):
+    """Pyramid positional encoding (``layers.py:249-271``): the tokens after
+    the cls token, row-major on an ``H x W`` grid, plus depthwise 7/5/3
+    convs (with biases) of themselves; the cls token passes through."""
+
+    def __init__(self, dim: int = 512):
+        super().__init__()
+        self.proj = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.proj1 = nn.Conv2d(dim, dim, 5, padding=2, groups=dim)
+        self.proj2 = nn.Conv2d(dim, dim, 3, padding=1, groups=dim)
+
+    def forward(self, x, H: int, W: int):
+        B, _, C = x.shape
+        img = x[:, 1:].transpose(1, 2).reshape(B, C, H, W)
+        y = img + self.proj(img) + self.proj1(img) + self.proj2(img)
+        return torch.cat([x[:, :1], y.flatten(2).transpose(1, 2)], dim=1)
+
+
+class TorchTransformerEncoderLayer(nn.Module):
+    """Post-norm transformer layer with a ReLU FFN
+    (``layers.py:274-296``), built from parts so that its LayerNorms take
+    flax's eps 1e-6; ``dropout`` on the attention weights, after the
+    attention, inside the FFN and after it."""
+
+    def __init__(self, d_model: int = 256, nhead: int = 8,
+                 dim_feedforward: int = 512, dropout: float = 0.25):
+        super().__init__()
+        self.self_attn = nn.MultiheadAttention(d_model, nhead,
+                                               dropout=dropout,
+                                               batch_first=True)
+        self.norm1 = layer_norm(d_model)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm2 = layer_norm(d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        attn_out, _ = self.self_attn(x, x, x, need_weights=False)
+        x = self.norm1(x + self.dropout(attn_out))
+        y = self.linear2(self.dropout(F.relu(self.linear1(x))))
+        return self.norm2(x + self.dropout(y))
+
+
+class Attn_Net_Gated(nn.Module):
+    """Gated attention scores (``layers.py:299-315``): ``attention_c(tanh(a)
+    * sigmoid(b))``, dropout 0.25 on both gates where ``dropout``; returns
+    ``(scores [B, N, n_classes], x)``."""
+
+    def __init__(self, L: int = 1024, D: int = 256, dropout: bool = False,
+                 n_classes: int = 1):
+        super().__init__()
+        self.attention_a = nn.Linear(L, D)
+        self.attention_b = nn.Linear(L, D)
+        self.attention_c = nn.Linear(D, n_classes)
+        self.drop = nn.Dropout(0.25 if dropout else 0.0)
+
+    def forward(self, x):
+        a = self.drop(torch.tanh(self.attention_a(x)))
+        b = self.drop(torch.sigmoid(self.attention_b(x)))
+        return self.attention_c(a * b), x
+
+
+def square_pad(h):
+    """``[B, N, C]`` -> ``([B, side^2, C], side)``: the bag made square by
+    appending its own first ``side^2 - N`` tokens (``mil.py:75-78``)."""
+    side = int(math.ceil(math.sqrt(h.shape[1])))
+    add = side * side - h.shape[1]
+    return (torch.cat([h, h[:, :add]], dim=1) if add else h), side
 
 
 def combine_logits(logits1, logits2, combination_type: str, weights=None):

@@ -1,17 +1,22 @@
 """Held-out evaluation of the teacher, the student (plain or distilled),
-multiscale and deformpathomic (counterpart of
+multiscale, deformpathomic and the baselines (counterpart of
 ``disentangled_multimodal_learning_tpu/train/evaluation.py:41
 Evaluator``, ``distill_val`` :78, ``export_attention_maps`` :110,
-``fused_val`` :176, ``save_roc_csv`` :219): the deterministic forward over
-a loader, then per tag (deformpathomic: one tag, ``fused``, the fused
-output ``logits[2]``)
+``fused_val`` :176, ``simple_val`` :192, ``save_roc_csv`` :219): the
+deterministic forward over a loader, then per tag (deformpathomic and the
+pathomic family: one tag, ``fused``, the fused output ``logits[2]``;
+``path``, ``transmil``, ``omic``, ``mcat`` and ``cmta``: one tag,
+``simple``, their logits ``out[1]`` (``out[0]`` for MCAT and CMTA))
 
 - on the classification tasks, softmax of the logits on the host and the
   seven metrics, and with ``save4roc`` each tag's scores in
   ``roc_{tag}_fold{k}.csv`` (teacher and student tags, as in JAX);
-- on survival, the c-index of the model's risks (``out[5]``; deformpathomic:
-  ``-sum(cumprod(1 - fused))`` of its hazards) against the censorships and
-  times.
+- on survival, the c-index of the model's risks (``out[5]``; the fused
+  tag: ``-sum(cumprod(1 - fused))``, its output read as hazards; MCAT and
+  CMTA: ``-sum(S)`` of their ``S``) against the censorships and times.
+  ``path``, ``transmil`` and ``omic`` have no survival output (JAX's
+  ``simple_val`` reads ``o[2]``, which is ``None`` for them, and fails),
+  so their evaluator refuses the survival task.
 """
 
 from __future__ import annotations
@@ -29,13 +34,15 @@ from .steps import MODEL_INPUTS
 
 METRIC_NAMES = ("acc", "f1", "auc", "bac", "sens", "spec", "prec")
 # the logits tags evaluated per model type (JAX distill_val :81-86; the
-# fused logits of fused_val)
+# fused logits of fused_val; the logits of simple_val)
 TAGS = {"teacher": ("tea10", "tea20", "teas"),
         "student": ("stu10", "stu20", "stus"),
         # the multiscale model's teachers and students; its headline is the
         # combined student (JAX evaluation.py:81-86, trainers.py:209-213)
         "scales": ("tea10", "tea20", "stu10", "stu20", "stus"),
-        "fused": ("fused",)}
+        "fused": ("fused",), "simple": ("simple",)}
+# the baselines whose simple_val output is o[1] (the others': o[0])
+_LOGITS_AT_1 = ("path", "transmil", "omic")
 _LABEL_COL = {"diag2021": LabelCol.DIAG, "grade": LabelCol.GRADE,
               "subtype": LabelCol.SUBTYPE}
 
@@ -43,6 +50,22 @@ _LABEL_COL = {"diag2021": LabelCol.DIAG, "grade": LabelCol.GRADE,
 def _softmax_np(x):
     e = np.exp(x - x.max(-1, keepdims=True))
     return e / e.sum(-1, keepdims=True)
+
+
+def model_type_of(mode: str) -> str:
+    """The tags a ``mode``'s model is evaluated on (JAX ``Evaluator.__call__``
+    :227-236): ``teacher``, ``student``, ``scales``, ``fused`` or
+    ``simple``."""
+    if mode in ("teacher", "uniteacher"):
+        return "teacher"
+    if mode in ("student", "distillation"):
+        return "student"
+    if mode == "multiscale":
+        return "scales"
+    if mode in ("deformpathomic", "pathomic", "pathomic_original",
+                "pathomic_fg", "pathomic_ensemble"):
+        return "fused"
+    return "simple"
 
 
 def model_inputs(batch, device, mode: str) -> dict:
@@ -61,15 +84,23 @@ def export_dir(cfg) -> str:
 class Evaluator:
     """Metrics of ``model`` (a ``cfg.mode`` model; in distillation mode the
     student) on ``device`` over the tags of ``model_type`` (``teacher``,
-    ``student``, ``scales`` or ``fused``)."""
+    ``student``, ``scales``, ``fused`` or ``simple``)."""
 
     def __init__(self, model, cfg, device, model_type: str):
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
         self.tags = TAGS[model_type]
+        self.model_type = model_type
         self.fused = model_type == "fused"
         self.survival = cfg.task_type == "survival"
+        if model_type == "simple" and self.survival and (
+                cfg.mode in _LOGITS_AT_1):
+            raise NotImplementedError(
+                f"mode {cfg.mode!r} has no survival output to rank by: its "
+                "model returns (features, logits) with no hazards or S, and "
+                "JAX's simple_val, which reads S from o[2] (None there), "
+                "fails on it too")
 
     @torch.inference_mode()
     def step(self, batch) -> dict:
@@ -79,6 +110,11 @@ class Evaluator:
         out = self.model(**model_inputs(batch, self.device, self.cfg.mode))
         if self.fused:
             res = {"logits_fused": out[3][2]}
+        elif self.model_type == "simple":
+            at_1 = self.cfg.mode in _LOGITS_AT_1
+            res = {"logits_simple": out[1] if at_1 else out[0]}
+            if self.survival:
+                res["risk_simple"] = -out[2].sum(dim=1)
         else:
             res = {**out[2], **out[5]} if self.survival else out[2]
         return {k: v.float().cpu().numpy() for k, v in res.items()}
@@ -114,7 +150,8 @@ class Evaluator:
             probs = _softmax_np(logits[f"logits_{t}"])
             vals = compute_avg_metrics(y, probs)
             out.update({f"{n}_{t}": v for n, v in zip(METRIC_NAMES, vals)})
-            if self.cfg.save4roc and not self.fused:
+            if self.cfg.save4roc and self.model_type not in ("fused",
+                                                             "simple"):
                 base = export_dir(self.cfg)
                 os.makedirs(base, exist_ok=True)
                 save_roc_csv(os.path.join(

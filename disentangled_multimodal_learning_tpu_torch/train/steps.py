@@ -1,10 +1,10 @@
-"""The teacher, student, multiscale, deformpathomic and distillation train
-steps (counterpart of ``disentangled_multimodal_learning_tpu/train/steps.py``:
+"""The teacher, student, multiscale, deformpathomic, distillation and
+baseline train steps (counterpart of
+``disentangled_multimodal_learning_tpu/train/steps.py``:
 ``TASK_LABEL_COL`` :30, ``batch_to_arrays`` :38, ``_model_kwargs`` :48,
-``task_class_weights`` :100, the teacher / uniteacher / student /
-distillation / multiscale / deformpathomic branches of ``make_train_step``
-:109-322, ``make_teacher_boundary_fn`` :325 and ``make_distill_cached_step``
-:349).
+``task_class_weights`` :100, ``make_train_step`` :109-322 (the baselines'
+branch :257-273), ``make_teacher_boundary_fn`` :325 and
+``make_distill_cached_step`` :349).
 
 One step, in order: the train-mode forward (``TeachersNet``,
 ``StudentsNet``, ``MultiScaleNet`` or ``DeformPathomicNet``); the loss of
@@ -24,7 +24,15 @@ pre-dropout maps; multiscale, the task loss of the teacher pair plus that
 of the student pair and, with ``multiscale_attention``, both consistency
 losses (JAX modulates no multiscale gradient); deformpathomic, ``loss3``
 (the task loss on the fused logits) plus, with ``return_vgrid``,
-``0.5 * bs_t + 0.5 * bs_i`` of ``batch_loss_vgrid``.
+``0.5 * bs_t + 0.5 * bs_i`` of ``batch_loss_vgrid``; the baselines,
+``taskloss`` alone: for ``mcat`` and ``cmta`` the survival NLL (alpha 0)
+of their hazards and S on survival, else weighted CE of their logits
+``out[0]``; for ``path``, ``transmil`` and ``omic`` weighted CE of
+``out[1]``; for the pathomic family weighted CE of the final logits
+``out[3][2]`` (on the survival task too, against the survival bin, as
+in JAX).  No baseline gradient is modulated (JAX modulates none), and
+their BatchNorm (BilinearFusion) updates its running statistics in train
+mode only, so under ``deterministic_training`` it is frozen, as in JAX.
 
 Distillation trains the student against a frozen teacher's boundary
 tensors (:func:`make_teacher_boundary_fn`: its two scales' logits and
@@ -49,6 +57,7 @@ import numpy as np
 import torch
 
 from ..data.contract import LabelCol
+from ..models.factory import BASELINES
 from . import losses as L
 from .grad_modulate import modulate_kernel_grad
 
@@ -68,7 +77,12 @@ MODEL_INPUTS = {"teacher": _TEACHER_INPUTS, "uniteacher": _TEACHER_INPUTS,
                 "student": _STUDENT_INPUTS, "distillation": _STUDENT_INPUTS,
                 "deformpathomic": {"x_path": "x_path10", "x_omic": "x_omic",
                                    "x_omic_tumor": "x_omic_tumor",
-                                   "x_omic_immune": "x_omic_immune"}}
+                                   "x_omic_immune": "x_omic_immune"},
+                "path": {"x": "x_path10"}, "transmil": {"x": "x_path10"},
+                "omic": {"x_omic": "x_omic"}}
+MODEL_INPUTS.update(dict.fromkeys(
+    ("pathomic", "pathomic_original", "pathomic_fg", "pathomic_ensemble",
+     "mcat", "cmta"), {"x_path": "x_path10", "x_omic": "x_omic"}))
 # the teacher boundary tensors of one batch, in make_teacher_boundary_fn's
 # order: the logits of both scales, then the features of both
 BOUNDARY_KEYS = ("tea_lt10", "tea_lt20", "tea_ft10", "tea_ft20")
@@ -164,6 +178,20 @@ def _deformpathomic_loss(model, cfg, out, label, cw):
     return loss, metrics, [(model.classifier, vec_t, vec_i)]
 
 
+def _baseline_loss(model, cfg, out, label, cw):
+    """A baseline: -> (loss, metrics, no modulated classifiers)."""
+    y = label[:, int(TASK_LABEL_COL[cfg.task_type])]
+    if cfg.mode in ("mcat", "cmta"):
+        logits, hazards, S = out[:3]
+        loss = L.task_loss(cfg.task_type, logits=logits, hazards=hazards,
+                           S=S, label=label, class_weights=cw)
+    elif cfg.mode in ("path", "transmil", "omic"):
+        loss = L.weighted_cross_entropy(out[1], y, cw)
+    else:
+        loss = L.weighted_cross_entropy(out[3][2], y, cw)
+    return loss, {"taskloss": loss}, []
+
+
 def _distillation_loss(cfg, out, label, cw, boundary):
     """The distilled student's loss against the teacher's ``boundary``
     tensors: -> (loss, metrics)."""
@@ -224,19 +252,26 @@ def make_distill_cached_step(model, cfg, optimizer, scheduler=None):
 
 def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None):
     """The train step of ``cfg.mode`` (teacher, uniteacher, student,
-    multiscale, deformpathomic, or distillation with the frozen
+    multiscale, deformpathomic, a baseline, or distillation with the frozen
     ``teacher``):
     ``step(tensors) -> metrics``, a dict of detached 0-d tensors (``loss``,
     ``taskloss`` and, with ``multiscale_attention``, ``batchloss``;
     distillation adds ``distillloss_logits`` and ``distillloss_feature``
     as they are on; deformpathomic: ``loss``, ``loss3`` and, with
-    ``return_vgrid``, ``batch_sim_loss``); read them with ``float()`` only
-    where the host needs the value."""
+    ``return_vgrid``, ``batch_sim_loss``; a baseline: ``loss`` and
+    ``taskloss``); read them with ``float()`` only where the host needs
+    the value."""
     if cfg.mode not in MODEL_INPUTS:
-        raise NotImplementedError(
-            f"mode {cfg.mode!r}: the port trains the teacher, the "
-            "uniteacher, the student, multiscale, deformpathomic and "
-            "distillation; the baselines come later")
+        raise NotImplementedError(f"mode {cfg.mode!r} is not a mode of the "
+                                  "port")
+    if (cfg.mode == "deformpathomic" and cfg.gradient_modulate
+            and cfg.fusion_type != "concat"):
+        raise ValueError(
+            "gradient_modulate splits the deformpathomic classifier's weight "
+            "into a tumor and an immune half, which only fusion_type "
+            "'concat' gives it; with BilinearFusion the classifier reads "
+            "the fused vector (JAX fails there on a shape mismatch in "
+            "modulate_kernel_grad): turn gradient_modulate off")
     if cfg.mode == "distillation":
         if teacher is None:
             raise ValueError("mode 'distillation' needs the frozen teacher "
@@ -253,6 +288,8 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None):
     inputs = MODEL_INPUTS[mode]
     loss_fn = {"deformpathomic": _deformpathomic_loss,
                "multiscale": _multiscale_loss}.get(mode, _two_scale_loss)
+    if mode in BASELINES:
+        loss_fn = _baseline_loss
     cw = task_class_weights(cfg, cfg.task_type)
     label_col = int(TASK_LABEL_COL[cfg.task_type])
     train_mode = not cfg.deterministic_training

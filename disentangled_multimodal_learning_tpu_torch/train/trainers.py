@@ -1,13 +1,16 @@
 """The training driver of the teacher, the student, multiscale,
-deformpathomic and distillation (counterpart of
+deformpathomic, distillation and the baselines (counterpart of
 ``disentangled_multimodal_learning_tpu/train/trainers.py``:
 ``run_training`` :60-315, ``trainTeachersModel`` :364,
 ``trainStudentsModel`` :370, ``trainDistillation`` :376,
 ``trainDeformPathomicModel`` :384, ``testStudentsModel`` :415,
 ``testDistillation`` :419, ``testDeformPathomicModel`` :423,
-``testMultiScaleModel`` :434) on one device.  Multiscale evaluates five
-tags (``tea10``, ``tea20``, ``stu10``, ``stu20``, ``stus``) and stamps its
-checkpoint with the combined student's metrics, as JAX does.
+``testBaselineModel`` :427, ``testMultiScaleModel`` :434) on one device.
+Multiscale evaluates five tags (``tea10``, ``tea20``, ``stu10``,
+``stu20``, ``stus``) and stamps its checkpoint with the combined student's
+metrics, as JAX does; a baseline trains through ``run_training`` itself
+(JAX's generic trainer) on the one tag of its evaluation (``fused`` or
+``simple``, ``evaluation.model_type_of``).
 
 Per epoch: ``set_epoch`` on the train loader, one train step per batch with
 the scheduler stepped per iteration, the ``eval_every_iters`` cadence
@@ -44,7 +47,7 @@ import torch
 from ..utils.checkpoint import (SUFFIX, metric_stamped_name,
                                 restore_state, save_checkpoint)
 from .distill_cache import TeacherBoundaryCache, loader_dataset_size
-from .evaluation import METRIC_NAMES, Evaluator
+from .evaluation import METRIC_NAMES, Evaluator, model_type_of
 from .optim import (ReduceLROnPlateau, make_optimizer, make_scheduler,
                     set_learning_rate)
 from .steps import (batch_to_tensors, make_distill_cached_step,
@@ -57,8 +60,8 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     from the checkpoint payload ``state`` where given (``reload``);
     returns ``(model, final_metrics, checkpoint_path)``: the trained model;
     the metrics of the final evaluation on the combined tag of
-    ``model_type`` (``teas``, ``stus`` (students and ``scales``) or
-    ``fused``: ``acc``, ``auc``, ...,
+    ``model_type`` (``teas``, ``stus`` (students and ``scales``),
+    ``fused`` or ``simple``: ``acc``, ``auc``, ...,
     or ``cindex`` on survival) with every tag's under ``detail`` and the
     evaluated outputs under ``logits``, the last step's ``train_loss`` and
     every step's under ``train_losses``; and the checkpoint's path (None
@@ -97,7 +100,7 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
         train_step = make_train_step(model, cfg, optimizer, scheduler,
                                      teacher=teacher)
     evaluator = Evaluator(model, cfg, device, model_type)
-    headline = evaluator.tags[-1]  # teas / stus / fused
+    headline = evaluator.tags[-1]  # teas / stus / fused / simple
     score = "cindex" if evaluator.survival else "auc"
     torch.manual_seed(cfg.seed + 1234)  # the dropout draws
     start = time.time()
@@ -221,15 +224,15 @@ def trainMultiScaleModel(model, dataloader, optimizer, scheduler, logger,
 def _run_test(model, loader, args, model_type):
     """The evaluator over ``loader`` in eval mode -> ``(metrics, logits)``:
     ``{f"{metric}_{tag}": value}`` and ``{f"logits_{tag}": [M, C]}`` (and
-    the risks on survival); for the one ``fused`` tag the metrics are flat
-    (``{"acc": ...}`` or ``{"cindex": ...}``), as JAX
+    the risks on survival); for the one ``fused`` or ``simple`` tag the
+    metrics are flat (``{"acc": ...}`` or ``{"cindex": ...}``), as JAX
     ``_metricdicts_to_flat`` gives them."""
     evaluator = Evaluator(model, args, next(model.parameters()).device,
                           model_type)
     model.eval()
     logits, labels = evaluator.logits(loader)
     metrics = evaluator.metrics(logits, labels)
-    if model_type == "fused":
+    if model_type in ("fused", "simple"):
         metrics = {k.rsplit("_", 1)[0]: v for k, v in metrics.items()}
     return metrics, logits
 
@@ -249,6 +252,13 @@ def testDistillation(model, dataloader, args):
 
 def testDeformPathomicModel(model, dataloader, args):
     return _run_test(model, dataloader, args, "fused")
+
+
+def testBaselineModel(model, dataloader, args):
+    """A baseline's evaluation: the fused logits of the pathomic family,
+    the logits of ``path``, ``transmil``, ``omic``, ``mcat`` and ``cmta``
+    (JAX's, which the reference imports and never defined)."""
+    return _run_test(model, dataloader, args, model_type_of(args.mode))
 
 
 def testMultiScaleModel(model, dataloader, args):

@@ -9,6 +9,14 @@ has, in the unstacked layout.  The reference's members that its forward
 never uses (StudentNet's ``norm`` and ``pooler1``, the attention of the
 other ``attn_dim`` in ``DeformCrossTransLayer``) have no counterpart in
 the port, so the load stays strict.
+
+The baselines have no reference-name map in JAX (``utils/torch_export.py``
+stops at the deformable modes), so their port modules carry the flax
+module names (``attention_0``, ``path_net.classifier``,
+``fusion.encoder1_bn``, ...): kernels are transposed, conv filters
+reshaped to torch's ``[C, 1, k, k]`` (PPEG) and ``[h, 1, 33, 1]`` (the
+Nystrom ``res_conv``), q/k/v packed into ``in_proj``, and BatchNorm's
+running statistics come from JAX's ``batch_stats`` collection.
 """
 
 from __future__ import annotations
@@ -78,10 +86,127 @@ def _attn1d(p, key, out):
 
 
 def _maxnet(p, key, out):
+    pre = f"{key}." if key else ""
     for i in range(4):
-        _dense(p[f"encoder_{i}"], f"{key}.encoder.{i}.0", out)
+        _dense(p[f"encoder_{i}"], f"{pre}encoder.{i}.0", out)
     if "classifier" in p:
-        _dense(p["classifier"], f"{key}.classifier.0", out)
+        _dense(p["classifier"], f"{pre}classifier.0", out)
+
+
+def _nystrom_layer(p, key, out):
+    _ln(p["norm"], f"{key}.norm", out)
+    a = p["attn"]
+    _dense(a["to_qkv"], f"{key}.attn.to_qkv", out)
+    # [33, 1, 1, h] -> Conv2d(h, h, (33, 1), groups=h) weight [h, 1, 33, 1]
+    out[f"{key}.attn.res_conv.weight"] = _np(a["res_conv"]).transpose(3, 2,
+                                                                       0, 1)
+    _dense(a["to_out"], f"{key}.attn.to_out", out)
+
+
+def _ppeg(p, key, out):
+    for name in ("proj", "proj1", "proj2"):  # HWIO [k, k, 1, C]
+        out[f"{key}.{name}.weight"] = _np(p[name]).transpose(3, 2, 0, 1)
+        out[f"{key}.{name}.bias"] = _np(p[f"{name}_bias"])
+
+
+def _bilinear_fusion(p, bs, key, out):
+    """BilinearFusion; ``bs`` its ``batch_stats`` (None: flax's initial
+    statistics, mean 0 and variance 1)."""
+    for name, sub in p.items():
+        if name.startswith("bilinear_"):
+            out[f"{key}.{name}"] = _np(sub)
+        elif name.endswith("_bn"):
+            _ln(sub, f"{key}.{name}", out)
+            stats = (bs or {}).get(name)
+            n = _np(sub["scale"]).shape[0]
+            out[f"{key}.{name}.running_mean"] = (
+                _np(stats["mean"]) if stats else np.zeros(n, np.float32))
+            out[f"{key}.{name}.running_var"] = (
+                _np(stats["var"]) if stats else np.ones(n, np.float32))
+        else:
+            _dense(sub, f"{key}.{name}", out)
+
+
+def _abmil(p, key, out):
+    pre = f"{key}." if key else ""
+    for name in ("attention_0", "attention_1", "classifier",
+                 "multimodal_projection"):
+        _dense(p[name], pre + name, out)
+
+
+def _transmil(p, out):
+    for name in ("_fc1", "_fc2", "multimodal_projection"):
+        _dense(p[name], name, out)
+    out["cls_token"] = _np(p["cls_token"])
+    _nystrom_layer(p["layer1"], "layer1", out)
+    _ppeg(p["pos_layer"], "pos_layer", out)
+    _nystrom_layer(p["layer2"], "layer2", out)
+    _ln(p["norm"], "norm", out)
+
+
+def _pathomic(p, bs, mode, out):
+    if mode == "pathomic_original":
+        _dense(p["path_net"], "path_net", out)
+        _dense(p["path_classifier"], "path_classifier", out)
+    else:
+        _abmil(p["path_net"], "path_net", out)
+    _maxnet(p["omic_net"], "omic_net", out)
+    if "fusion" in p:
+        _bilinear_fusion(p["fusion"], (bs or {}).get("fusion"), "fusion", out)
+    for name in ("classifier", "ae_down", "ae_up"):
+        if name in p:
+            _dense(p[name], name, out)
+    if "ae_norm" in p:
+        _ln(p["ae_norm"], "ae_norm", out)
+
+
+def _signatures(p, out):
+    for name, sub in p.items():
+        if name.startswith("sig_"):
+            _dense(sub["fc"], f"{name}.fc", out)
+
+
+def _mcat_cmta_head(p, bs, out):
+    _dense(p["wsi_net"], "wsi_net", out)
+    _signatures(p, out)
+    if "mm" in p:
+        _bilinear_fusion(p["mm"], (bs or {}).get("mm"), "mm", out)
+    else:
+        _dense(p["mm_0"], "mm_0", out)
+        _dense(p["mm_1"], "mm_1", out)
+    _dense(p["classifier"], "classifier", out)
+
+
+def _mcat(p, bs, out):
+    _mcat_cmta_head(p, bs, out)
+    _mha(p["coattn"], "coattn", out)
+    for prefix in ("path", "omic"):
+        for i in range(2):
+            t, key = p[f"{prefix}_transformer_{i}"], f"{prefix}_transformer_{i}"
+            _mha(t["self_attn"], f"{key}.self_attn", out)
+            for name in ("norm1", "norm2"):
+                _ln(t[name], f"{key}.{name}", out)
+            for name in ("linear1", "linear2"):
+                _dense(t[name], f"{key}.{name}", out)
+        head = p[f"{prefix}_attention_head"]
+        for name in ("attention_a", "attention_b", "attention_c"):
+            _dense(head[name], f"{prefix}_attention_head.{name}", out)
+        _dense(p[f"{prefix}_rho"], f"{prefix}_rho", out)
+
+
+def _cmta(p, bs, out):
+    _mcat_cmta_head(p, bs, out)
+    for name in ("P_in_G_Att", "G_in_P_Att"):
+        _mha(p[name], name, out)
+    for key in ("pathomics_encoder", "genomics_encoder", "pathomics_decoder",
+                "genomics_decoder"):
+        t = p[key]
+        out[f"{key}.cls_token"] = _np(t["cls_token"])
+        _nystrom_layer(t["layer1"], f"{key}.layer1", out)
+        _nystrom_layer(t["layer2"], f"{key}.layer2", out)
+        _ln(t["norm"], f"{key}.norm", out)
+        if "pos_layer" in t:
+            _ppeg(t["pos_layer"], f"{key}.pos_layer", out)
 
 
 def _transfusion(p, key, out):
@@ -135,11 +260,13 @@ def _deform_mil(p, key, out, attn_dim):
     _dense(p["multimodal_projection"], f"{key}.multimodal_projection", out)
 
 
-def jax_state_dict(params, mode: str, attn_dim: int = 2) -> dict:
+def jax_state_dict(params, mode: str, attn_dim: int = 2,
+                   batch_stats=None) -> dict:
     """A JAX param tree of ``mode`` (``teacher``, ``uniteacher``,
-    ``student``, ``multiscale`` or ``deformpathomic`` at ``attn_dim``,
-    unstacked) ->
-    reference-named state_dict of numpy arrays."""
+    ``student``, ``multiscale``, ``deformpathomic`` at ``attn_dim``,
+    unstacked, or a baseline) and, for a model with BatchNorm
+    (BilinearFusion), its ``batch_stats`` -> reference-named (baselines:
+    flax-named) state_dict of numpy arrays."""
     out: dict = {}
     if mode in ("teacher", "uniteacher"):
         _maxnet(params["omic_net_tumor"], "omic_net_tumor", out)
@@ -161,24 +288,41 @@ def jax_state_dict(params, mode: str, attn_dim: int = 2) -> dict:
         _maxnet(params["omic_net_immune"], "omic_net_immune", out)
         for key in ("pathomic_net_tumor", "pathomic_net_immune"):
             _deform_mil(params[key], key, out, attn_dim)
+        if "fusion" in params:
+            _bilinear_fusion(params["fusion"], (batch_stats or {}).get(
+                "fusion"), "fusion", out)
         _dense(params["classifier"], "classifier", out)
         _dense(params["classifier_tumor"], "classifier_tumor.0", out)
         _dense(params["classifier_immune"], "classifier_immune.0", out)
         # the reference's constant members (models/model.py:509-510)
         out["output_range"] = np.asarray([6.0], np.float32)
         out["output_shift"] = np.asarray([-3.0], np.float32)
+    elif mode == "path":
+        _abmil(params, "", out)
+    elif mode == "transmil":
+        _transmil(params, out)
+    elif mode == "omic":
+        _maxnet(params, "", out)
+    elif mode in ("pathomic", "pathomic_original", "pathomic_fg",
+                  "pathomic_ensemble"):
+        _pathomic(params, batch_stats, mode, out)
+    elif mode == "mcat":
+        _mcat(params, batch_stats, out)
+    elif mode == "cmta":
+        _cmta(params, batch_stats, out)
     else:
         raise ValueError(f"mode {mode!r}: the port loads JAX params of the "
-                         "teacher, uniteacher, student, multiscale and "
-                         "deformpathomic modes")
+                         "teacher, uniteacher, student, multiscale, "
+                         "deformpathomic and baseline modes")
     return out
 
 
 def load_jax_params(model: torch.nn.Module, params, mode: str,
-                    attn_dim: int = 2):
+                    attn_dim: int = 2, batch_stats=None):
     """Load a JAX param tree of ``mode`` (see :func:`jax_state_dict`)."""
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-          for k, v in jax_state_dict(params, mode, attn_dim).items()}
+          for k, v in jax_state_dict(params, mode, attn_dim,
+                                     batch_stats).items()}
     model.load_state_dict(sd, strict=True)
     return model
 

@@ -44,7 +44,9 @@ K7-bwd against float64: dq, dk, dv 2e-5, grid_kv and the weights 1e-3
 (past one chunk of 160 kv points, 1e-3 or twice the f32 plain version's
 own error).
 deformpathomic on the card against the CPU: as the teacher (logits 1e-4,
-task loss 1e-5, loss 5e-4 with the vgrid loss, gradients 5e-3).
+task loss 1e-5, loss 5e-4 with the vgrid loss, gradients 5e-3).  The
+baselines (plain torch, no kernel launched) on the card against the CPU:
+every output within 1e-4.
 """
 
 import math
@@ -1546,3 +1548,44 @@ def test_cuda_tensors_raise_where_the_kernels_cannot_build(dev, monkeypatch,
         fused_exact.fused_exact_attention(c["q"], c["k"], c["v"], c["grid_q"],
                                           c["gkv"], *c["w"])
     assert _exact_launches() == before
+
+
+@pytest.mark.cuda
+def test_baselines_on_card_launch_no_kernel(dev):
+    """Every baseline mode (``pathomic`` also with BilinearFusion) built on
+    the card (fixdim 144, B=2, real widths) runs an f32 eval forward
+    through plain torch: no wrapper of the port's kernels launches, and
+    every output is finite and within 1e-4 of the CPU's with the same
+    weights (TransMIL and CMTA included: their pinv stays within it at
+    this size)."""
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        BASELINES)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+
+    wrappers = [getattr(m, name) for m in (cpb, cpb1d, dpc_knn, fused_exact,
+                                           fused_table)
+                for name in dir(m) if hasattr(getattr(m, name), "launches")]
+    assert len(wrappers) >= 16
+    batch = SyntheticBagDataset(size=2, fixdim=144, seed=0).batch([0, 1])
+    before = [w.launches for w in wrappers]
+    for mode, kw in [(m, {}) for m in BASELINES] + [
+            ("pathomic", {"fusion_type": "pofusion"})]:
+        cfg = Config(mode=mode, fixdim=144, batch_size=2, **kw).validate()
+        with torch.inference_mode():
+            card = define_net(cfg, dev)(**model_inputs(batch, dev, mode))
+            host = define_net(cfg, "cpu")(**model_inputs(batch, "cpu", mode))
+        flat = [(a, b) for a, b in zip(_flat(card), _flat(host))]
+        assert flat, mode
+        for a, b in flat:
+            assert torch.isfinite(a).all(), mode
+            assert (a.cpu() - b).abs().max().item() <= FORWARD_TOL, mode
+    assert [w.launches for w in wrappers] == before
+
+
+def _flat(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return []

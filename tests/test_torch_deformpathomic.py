@@ -265,8 +265,11 @@ def test_batch_loss_vgrid_matches_jax(rng):
 def test_config_refuses_what_the_port_or_jax_cannot_run():
     with pytest.raises(ValueError, match="attn_dim 2"):
         Config(mode="deformpathomic", attn_dim=1, return_vgrid=True).validate()
-    with pytest.raises(NotImplementedError, match="comes with the baselines"):
-        Config(mode="deformpathomic", fusion_type="pofusion").validate()
+    # BilinearFusion (any fusion_type but concat) is ported; the gradient
+    # modulation, which needs the concatenated classifier, is refused with it
+    # (tests/test_torch_baselines.py)
+    assert Config(mode="deformpathomic",
+                  fusion_type="pofusion").validate().fusion_type == "pofusion"
     with pytest.raises(ValueError, match="attn_dim"):
         Config(attn_dim=3).validate()
     cfg = Config.from_args(["--mode", "deformpathomic", "--attn_dim", "1",

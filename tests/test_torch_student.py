@@ -309,7 +309,7 @@ def test_jax_param_name_map_matches_the_jax_exporter(rng, mode):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     with pytest.raises(ValueError, match="student"):
-        jax_params.jax_state_dict(params, "mcat")
+        jax_params.jax_state_dict(params, "bogus")
 
 
 # ------------------------------------------------- trajectories against JAX

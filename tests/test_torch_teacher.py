@@ -188,10 +188,14 @@ def test_inference_refuses_real_data_until_ported(tmp_path):
 
 
 def test_define_net_refuses_unported_modes():
-    for mode, slice_name in [("mcat", "comes with the baselines"),
-                             ("transmil", "comes with the baselines")]:
-        with pytest.raises(NotImplementedError, match=slice_name):
-            define_net(Config(mode=mode), "cpu")
+    """Every mode of the JAX factory is ported (the baselines too): a mode
+    it does not know raises as JAX's does, and the one config the port
+    leaves for its parallel part, TransMIL's token axis sharded over
+    devices, raises naming that part."""
+    with pytest.raises(NotImplementedError, match=r"model \[bogus\]"):
+        define_net(Config(mode="bogus"), "cpu")
+    with pytest.raises(NotImplementedError, match="comes with the parallel"):
+        Config.from_dict({"mode": "transmil", "seq_shard_devices": 2})
 
 
 def test_seeded_init_is_reproducible_and_finite():
@@ -263,13 +267,15 @@ def test_config_refuses_later_and_unknown_keys():
     a key that neither the port nor the JAX ``Config`` knows raises
     ``ValueError`` (JAX would keep it in ``cfg._extra``, where its
     ``define_net`` may read it)."""
-    with pytest.raises(NotImplementedError, match="comes with the baselines"):
-        Config.from_dict({"init_type": "xavier"})
-    with pytest.raises(NotImplementedError, match="comes with the baselines"):
-        Config.from_dict({"skip": 1})
+    with pytest.raises(NotImplementedError, match="comes with the parallel"):
+        Config.from_dict({"seq_shard_devices": 4})
+    with pytest.raises(NotImplementedError, match="comes with the parallel"):
+        Config.from_dict({"seq_shard_dp": 2})
+    assert Config.from_dict({"init_type": "xavier", "skip": 1}).skip == 1
     with pytest.raises(ValueError, match="unknown config key 'fixdimm'"):
         Config.from_dict({"fixdimm": 64})
-    cfg = Config.from_dict({"init_type": "max", "debug": True, "remat": False,
+    cfg = Config.from_dict({"seq_shard_devices": 0, "debug": True,
+                            "remat": False,
                             "image_size": [224, 224], "fixdim": 64,
                             "dataDir": "/data/", "coTraining": False})
     assert (cfg.fixdim, cfg.dataDir, cfg.coTraining) == (64, "/data/", False)

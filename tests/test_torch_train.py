@@ -67,6 +67,18 @@ FIXDIM, B, STEPS = 64, 2, 20
 TOL = 1e-6
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test: under the suite's parallel
+    workers a pool of one thread per core oversubscribes the CPU, and these
+    small models' steps then wait at every op's barrier (as in
+    ``tests/test_torch_data.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -350,8 +362,8 @@ def test_training_entry_runs_folds_with_the_eval_cadence(tmp_path):
     with pytest.raises(FileNotFoundError, match=re.escape(missing)):
         tmain.main(cfg.replace(synthetic_data=False, dataDir=missing),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="baselines come later"):
-        run_training(cfg.replace(mode="mcat"), define_net(cfg, "cpu"),
+    with pytest.raises(NotImplementedError, match="not a mode of the port"):
+        run_training(cfg.replace(mode="bogus"), define_net(cfg, "cpu"),
                      ([], None))
 
 
