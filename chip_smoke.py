@@ -227,7 +227,30 @@ with ``return_vgrid``) with seeded random weights:
    on): bags/s median and p80, the profiler's device-busy share, and for
    TransMIL and CMTA the share of the device time in their Nystrom cores
    (the cores profiled alone at the models' shapes, forward and
-   forward + backward).
+   forward + backward);
+3k. runs the teacher's training entry at the preset with its logging on
+   (``debug`` off, ``log_dir`` in a temporary directory under ``build/``;
+   2 steps, a cadence evaluation, the final one: K1-fwd 16, K1-bwd 8) and
+   reads its JSONL line back (JAX's keys, every value finite); the serving
+   entry restores the fold's checkpoint with ``save4visualization`` (K1-fwd
+   8) and logs its line; ``utils/heatmap.render_export`` renders the npz
+   to 16 RGB PNGs of 400 x 400 (4 slides x 4 maps) and ``summary.csv``;
+   both entries under ``debug`` write no file (every other phase runs
+   under ``debug``);
+3l. the uniteacher's f32 eval forward (K1-fwd 4, logits within
+   ``LOGITS_TOL``) and ``deterministic_training`` step (K1-fwd 4, K1-bwd 4,
+   ``compare_train_step``) on the card against the CPU, and one teacher
+   step each on ``grade`` and ``subtype`` (3 classes) the same way;
+5k. integrated gradients (32 steps) and expected-gradients SHAP (8
+   baselines x 16 steps) of ``pathomic`` and ``mcat`` on a batch of 4 bags
+   at 431 genes, card against the CPU from the same weights within
+   ``IMPORTANCE_TOL`` rel-L2 (MCAT against float64, as in 5j), 0 launches;
+   IG's completeness on pathomic at 256 steps (``COMPLETENESS_TOL``);
+6k. ``utils/profiling.trace`` around 5 teacher train steps: the Chrome
+   trace names K1-fwd's and K1-bwd's kernels 20 times each; the
+   ``StepTimer`` over 30 steps against the CUDA events' median
+   (``STEP_TIMER_TOL``); ablation and permutation importance (1 trial) of
+   pathomic over 8 eval bags, timed.
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
@@ -1038,8 +1061,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3: the serving entry at the preset (divisor 1, bf16) ------
+    # debug: the entries log nothing (phase 3k turns their logging on)
     preset = Config.diag2021().replace(synthetic_data=True,
-                                       synthetic_test_size=3 * 4)
+                                       synthetic_test_size=3 * 4, debug=True)
     reset_counts()
     t0 = time.perf_counter()
     metrics, logits = inference.main(preset, device=dev)
@@ -1068,7 +1092,8 @@ def main() -> int:
     # ---- phase 3b: the training entry at the preset, then divisor 0 ------
     train_preset = Config.diag2021().replace(
         synthetic_data=True, synthetic_train_size=3 * 4,
-        synthetic_test_size=4, kfold=1, epochs=1, checkpoints="#")
+        synthetic_test_size=4, kfold=1, epochs=1, checkpoints="#",
+        debug=True)
     train_counts = {
         "k1": run_training_entry(train_preset, dev, 3,
                                  dict(k1_fwd=4, k1_bwd=4), dict(k1_fwd=4),
@@ -1369,6 +1394,17 @@ def main() -> int:
     compare_baselines_f32(f32, batch, dev)
     torch.cuda.empty_cache()
     time_baselines(preset, train_preset, batch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phases 3k, 3l, 5k, 6k: logging, heatmaps, coverage, importance -
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        run_logging_entries(train_preset, dev, card, tmp)
+    torch.cuda.empty_cache()
+    check_coverage_gaps(f32, batch, dev, card)
+    torch.cuda.empty_cache()
+    compare_importance(f32, dev, card)
+    torch.cuda.empty_cache()
+    time_aux(train_preset, f32, batch, dev, card)
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernel_line(
@@ -3257,7 +3293,8 @@ def run_distillation_entries(train_preset, dev, card: str,
 
     surv = Config.from_yaml("config/config_mine_surv.yaml").replace(
         synthetic_data=True, synthetic_train_size=3 * 8,
-        synthetic_test_size=8, kfold=1, epochs=1, checkpoints=ckpt_dir)
+        synthetic_test_size=8, kfold=1, epochs=1, checkpoints=ckpt_dir,
+        debug=True)
     run_training_entry(surv, dev, 3, dict(k1_fwd=4, k1_bwd=4),
                        dict(k1_fwd=4), card)
     ckpt = glob.glob(f"{ckpt_dir}/teacher_fold_1_epoch_1_cindex_*.pt")
@@ -3485,7 +3522,7 @@ def real_data_cfg(data_dir: str, ckpt_dir: str):
 
     return Config.diag2021().replace(
         synthetic_data=False, dataDir=data_dir, kfold=2, epochs=1,
-        checkpoints=ckpt_dir, printDataSplit=True)
+        checkpoints=ckpt_dir, printDataSplit=True, debug=True)
 
 
 def run_real_data_entries(data_dir: str, ckpt_dir: str, dev,
@@ -3742,7 +3779,7 @@ def baseline_configs(train_preset) -> list:
 
     surv = Config.from_yaml("config/config_mine_surv.yaml").replace(
         synthetic_data=True, synthetic_train_size=8, synthetic_test_size=8,
-        kfold=1, epochs=1, checkpoints="#")
+        kfold=1, epochs=1, checkpoints="#", debug=True)
     return ([train_preset.replace(mode=m, synthetic_train_size=2 * 4, **kw)
              for m, kw in BASELINES]
             + [surv.replace(mode=m) for m in ("mcat", "cmta")])
@@ -4045,6 +4082,483 @@ def k7_bounds(BH: int, N: int, K: int, D: int) -> tuple:
 
 def cpb_param_count(o: int, hid: int = 32) -> int:
     return hid * (2 + 1 + hid + 1) + (hid + 1) * o
+
+
+AUX_EVAL_TAGS = ("tea10", "tea20", "teas")
+# phase 5k: IG and SHAP on the card against the CPU, rel-L2 (f32 both:
+# cuBLAS and the CPU sum in other orders, each step a forward and a
+# backward); IG's completeness gap at 256 steps, relative to |f(x) - f(0)|
+IMPORTANCE_TOL = 1e-4
+COMPLETENESS_TOL = 1e-2
+# a ReLU input within this share of its call's largest |input| of 0 in
+# float64 is a tie f32 rounding may break either way (2^-20, ~8 ulps):
+# MCAT's IG from 0 met one at step 3 of 32, an omic transformer's FFN
+# input at -3.5e-8 in float64 (scale 4.0) and +1.5e-7 on the card, whose
+# gradient there is then 4.6e-3 off (H100 run)
+RELU_TIE = 2.0 ** -20
+# completeness is held on pathomic only: MCAT's seeded biases are 0, so
+# at x_omic = 0 its signature tokens are exactly 0, and their LayerNorm (eps
+# 1e-6) jumps to unit scale between alpha 0 and ~1e-4, inside the first
+# midpoint's interval (CPU, fixdim 64: f(1e-6 x) - f(0) is 0.18 on a logit
+# of 0.12), so sum(IG) misses that jump; its gap is printed
+COMPLETENESS_MODES = ("pathomic",)
+# phase 6k: the StepTimer's per-step time against the CUDA-events median
+STEP_TIMER_TOL = 0.10
+
+
+def _png_size(path: str) -> tuple:
+    """A PNG's (width, height, bit depth, colour type) from its IHDR."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise RuntimeError(f"{path} is not a PNG")
+    w, h, depth, colour = struct.unpack(">IIBB", head[16:26])
+    return w, h, depth, colour
+
+
+def _jsonl_lines(log_dir: str) -> list:
+    """Every line of the run files in ``log_dir``, in order, without their
+    time."""
+    import glob
+
+    return [{k: v for k, v in json.loads(line).items() if k != "t"}
+            for path in sorted(glob.glob(f"{log_dir}/run_*.jsonl"))
+            for line in open(path).read().splitlines()]
+
+
+def _leaf_values(payload) -> list:
+    if isinstance(payload, dict):
+        return [x for v in payload.values() for x in _leaf_values(v)]
+    return [payload]
+
+
+def _keys(payload):
+    """A payload's nested key structure (its leaves None)."""
+    if isinstance(payload, dict):
+        return {k: _keys(v) for k, v in payload.items()}
+    return None
+
+
+def run_logging_entries(train_preset, dev, card: str, tmp: str) -> None:
+    """Phase 3k: the training entry at the preset with its logging on
+    (``debug`` off, ``log_dir`` under ``tmp``): 2 steps, a cadence
+    evaluation after the second (``eval_every_iters`` 2) and the final
+    one, K1-fwd 4 a step and an eval batch, K1-bwd 4 a step; its JSONL
+    line read back with JAX's keys (``training``: loss, taskloss,
+    batchloss; ``test``: per metric the three tags' values), every value
+    finite.  The serving entry restores the fold's checkpoint with
+    ``save4visualization`` (K1-fwd 4 for the metrics and 4 for the maps
+    of its one batch) and logs ``{"inference": ...}``;
+    ``utils/heatmap.render_export`` turns its npz into one 400 x 400 RGB
+    PNG per (slide, map) and ``summary.csv``.  Then both entries under
+    ``debug`` write no file."""
+    import glob
+
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+    from disentangled_multimodal_learning_tpu_torch.utils.heatmap import (
+        render_export)
+
+    log_dir, ckpt_dir = f"{tmp}/logs", f"{tmp}/ckpt"
+    cfg = train_preset.replace(debug=False, log_dir=log_dir,
+                               synthetic_train_size=2 * 4,
+                               eval_every_iters=2, checkpoints=ckpt_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    train_main.main(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_train = counts()
+    want = _sum_counts(2, dict(k1_fwd=4, k1_bwd=4), 2, dict(k1_fwd=4))
+    ckpt, = glob.glob(f"{ckpt_dir}/teacher_fold_1_epoch_1_*.pt")
+    serve = cfg.replace(checkpoints_teacher=ckpt, save4visualization=True)
+    reset_counts()
+    inference.main(serve, device=dev)
+    torch.cuda.synchronize()
+    n_serve = counts()
+    lines = _jsonl_lines(log_dir)
+    metric_keys = {n: {f"{n}_{t}": None for t in AUX_EVAL_TAGS}
+                   for n in ("acc", "f1", "auc", "bac", "sens", "spec",
+                             "prec")}
+    want_keys = [{"training": dict.fromkeys(("loss", "taskloss",
+                                             "batchloss")),
+                  "test": metric_keys},
+                 {"inference": dict.fromkeys(metric_keys)}]
+    values = [x for line in lines for x in _leaf_values(line)]
+    print(f"[logging] training entry, 2 steps + 2 eval batches in "
+          f"{wall:.2f} s: launches {n_train} (want {want}); serving with the "
+          f"maps: launches {n_serve}; {len(lines)} JSONL lines in "
+          f"{log_dir}: {lines} | {card}")
+    if (n_train != want or n_serve != expect(k1_fwd=8)
+            or [_keys(line) for line in lines] != want_keys
+            or not all(isinstance(x, float) and math.isfinite(x)
+                       for x in values)):
+        raise RuntimeError("the entries' logs or launches are not what the "
+                           "run implies")
+    npz = f"{ckpt_dir}/attention_fold0.npz"
+    t0 = time.perf_counter()
+    files = render_export(npz, f"{tmp}/heatmaps")
+    render_s = time.perf_counter() - t0
+    pngs = [f for f in files if f.endswith(".png")]
+    sizes = {_png_size(f) for f in pngs}
+    summary = open(f"{tmp}/heatmaps/summary.csv").read().splitlines()
+    print(f"[heatmap] {npz}: {len(pngs)} PNGs {sorted(sizes)} (width, "
+          f"height, bit depth, colour type) and summary.csv of "
+          f"{len(summary) - 1} rows in {render_s:.3f} s; header "
+          f"{summary[0]}")
+    side = math.isqrt(cfg.fixdim) * 8  # the grid, 8 pixels a patch
+    if (len(pngs) != 4 * 4 or sizes != {(side, side, 8, 2)}
+            or len(summary) != 1 + 4):
+        raise RuntimeError("the heatmaps are not one 400 x 400 RGB PNG per "
+                           "slide and map")
+    quiet = cfg.replace(debug=True, log_dir=f"{tmp}/quiet",
+                        synthetic_train_size=4, checkpoints="#")
+    train_main.main(quiet, device=dev)
+    inference.main(quiet, device=dev)
+    print(f"[logging] under debug: {tmp}/quiet exists: "
+          f"{os.path.exists(f'{tmp}/quiet')}")
+    if os.path.exists(f"{tmp}/quiet"):
+        raise RuntimeError("a debug run wrote a log")
+
+
+def check_coverage_gaps(f32, batch, dev, card: str) -> None:
+    """Phase 3l: the uniteacher's eval forward (K1-fwd 4) and one
+    ``deterministic_training`` step (K1-fwd 4, K1-bwd 4) on the card
+    against the CPU, and one teacher step on the ``grade`` and the
+    ``subtype`` task (3 classes each) against the CPU, each with its
+    counts (f32, the tolerances of phases 5 and 5b)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+
+    uni = f32.replace(mode="uniteacher")
+    reset_counts()
+    with torch.inference_mode():
+        card_out = define_net(uni, dev)(
+            **model_inputs(batch, dev, "uniteacher"))[2]
+        torch.cuda.synchronize()
+        n_fwd = counts()
+        cpu_out = define_net(uni, "cpu")(
+            **model_inputs(batch, "cpu", "uniteacher"))[2]
+    errs = {k: (card_out[k].cpu() - cpu_out[k]).abs().max().item()
+            for k in cpu_out}
+    print(f"[coverage] uniteacher f32 eval forward: launches {n_fwd}; card "
+          f"vs CPU logits max_abs_err {max(errs.values()):.3e} (tol "
+          f"{LOGITS_TOL}); per output {errs} | {card}")
+    if n_fwd != expect(k1_fwd=4) or not max(errs.values()) <= LOGITS_TOL:
+        raise RuntimeError("the uniteacher's forward on the card disagrees "
+                           "with the CPU")
+    for cfg in (uni, f32.replace(task_type="grade").validate(),
+                f32.replace(task_type="subtype").validate()):
+        reset_counts()
+        compare_train_step(cfg.replace(deterministic_training=True), batch,
+                           dev)
+        n = counts()
+        print(f"[coverage] {cfg.mode} on {cfg.task_type} ({cfg.label_dim} "
+              f"classes): the card step's launches {n}")
+        if n != expect(k1_fwd=4, k1_bwd=4):
+            raise RuntimeError(f"{cfg.mode} on {cfg.task_type}: launches {n}")
+
+
+def _importance_case(cfg, device, dtype, batches):
+    """The model of ``cfg`` (seeded) on ``device`` in ``dtype``, the
+    true-class logit function of ``batches[0]`` and its omic input, and the
+    background rows of every batch, in ``dtype``."""
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.utils import importance
+
+    model = define_net(cfg, device).to(dtype).eval()
+    b = batches[0]
+    if dtype == torch.float64:  # the batch's float inputs in float64
+        b = type(b)(**{k: (v.astype(np.float64) if isinstance(v, np.ndarray)
+                           and v.dtype == np.float32 else v)
+                       for k, v in vars(b).items()})
+    logit_fn = importance.true_class_logit_fn(model, cfg, b)
+    x = torch.as_tensor(b.x_omic, device=device)
+    background = np.concatenate([c.x_omic for c in batches]).astype(
+        b.x_omic.dtype)
+    return logit_fn, x, background
+
+
+def _point_gradient(fn, x, x0, alpha: float):
+    """The gradient of ``fn``'s summed logits at ``x0 + alpha (x - x0)``
+    (float64 on the host) and the input of every ReLU the forward applied
+    there (float64 on the host; a torch function mode records them)."""
+    import torch
+
+    class ReluInputs(torch.overrides.TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.inputs = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.nn.functional.relu:
+                self.inputs.append(args[0].detach().double().cpu())
+            return func(*args, **(kwargs or {}))
+
+    xi = (x0 + alpha * (x - x0)).requires_grad_()
+    with ReluInputs() as rec:
+        g, = torch.autograd.grad(fn(xi).sum(), xi)
+    return g.double().cpu(), rec.inputs
+
+
+def _is_relu_tie(card_inputs, ref_inputs) -> bool:
+    """Some ReLU input takes the other sign on the card than in the
+    reference, and every such input of the reference lies within
+    ``RELU_TIE`` of its call's largest |input| (f32 rounding): the card
+    took the other branch of a tie."""
+    flipped = False
+    for zc, zr in zip(card_inputs, ref_inputs, strict=True):
+        flip = (zc > 0) != (zr > 0)
+        if flip.any():
+            if not (zr[flip].abs() <= RELU_TIE * zr.abs().max()).all():
+                return False
+            flipped = True
+    return flipped
+
+
+def _attribution_without_ties(card_case, ref_case, baselines, steps: int):
+    """An attribution (the mean over ``baselines`` of IG at ``steps``
+    midpoints) recomputed point by point on the card and in the reference,
+    leaving out on both sides the points where the card took the other
+    branch of a ReLU tie (``_is_relu_tie``): ``(rel-L2 of the rest, [(
+    baseline, step, that point's gradient rel-L2)])``."""
+    import numpy as np
+    import torch
+
+    (fn_c, x_c), (fn_r, x_r) = card_case, ref_case
+    sums, ties = [0.0, 0.0], []
+    for j, base in enumerate(baselines):
+        b_c = torch.as_tensor(np.ascontiguousarray(base), dtype=x_c.dtype,
+                              device=x_c.device).expand_as(x_c)
+        b_r = torch.as_tensor(np.ascontiguousarray(base), dtype=x_r.dtype,
+                              device=x_r.device).expand_as(x_r)
+        keep = [torch.zeros(x_r.shape, dtype=torch.float64)] * 2
+        for i in range(steps):
+            alpha = (i + 0.5) / steps
+            g_c, z_c = _point_gradient(fn_c, x_c, b_c, alpha)
+            g_r, z_r = _point_gradient(fn_r, x_r, b_r, alpha)
+            if _is_relu_tie(z_c, z_r):
+                ties.append((j, i, ((g_c - g_r).norm()
+                                    / g_r.norm()).item()))
+            else:
+                keep = [keep[0] + g_c, keep[1] + g_r]
+        sums[0] = sums[0] + (x_c - b_c).double().cpu() * keep[0]
+        sums[1] = sums[1] + (x_r - b_r).double().cpu() * keep[1]
+    err = ((sums[0] - sums[1]).norm() / sums[1].norm()).item()
+    return err, ties
+
+
+def compare_importance(f32, dev, card: str) -> None:
+    """Phase 5k: integrated gradients (32 steps) and expected-gradients SHAP
+    (8 baselines drawn from the 8 bags of two batches, 16 steps) of the
+    true-class logit of a batch of 4 bags, ``pathomic`` and ``mcat`` at
+    the preset's widths (431 genes), on the card and on the CPU from the
+    same seeded weights: within ``IMPORTANCE_TOL`` rel-L2; MCAT (its path
+    pooling's gradients cancel) against float64 on the CPU, the card
+    within ``NYSTROM_F64_FACTOR`` times the CPU f32's error or
+    ``IMPORTANCE_TOL``.  An attribution off by more is recomputed point by
+    point on both sides: the points where the card took the other branch
+    of a ReLU tie (``_is_relu_tie``) are named and left out of both, and
+    the rest is held to ``IMPORTANCE_TOL``.  IG's completeness on the card:
+    at 256 steps each bag's attributions sum to f(x) - f(0) within
+    ``COMPLETENESS_TOL`` of the largest such difference (held for
+    ``COMPLETENESS_MODES``, printed for MCAT).  Baseline modes: no kernel
+    launches."""
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch.utils import importance
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    for mode in ("pathomic", "mcat"):
+        cfg = f32.replace(mode=mode, synthetic_test_size=8)
+        batches = list(inference.build_fold0_test_loader(cfg))
+        runs, cases = {}, {}
+        kinds = [(dev, torch.float32), ("cpu", torch.float32)]
+        if mode in F64_MODES:
+            kinds.append(("cpu", torch.float64))
+        reset_counts()
+        for device, dtype in kinds:
+            fn, x, bg = _importance_case(cfg, device, dtype, batches)
+            t0 = time.perf_counter()
+            ig = importance.integrated_gradients(fn, x, steps=32)
+            if device == dev:
+                torch.cuda.synchronize()
+            t_ig = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            shap = importance.expected_gradients_shap(
+                fn, x, bg, n_baselines=8, steps=16, seed=0)
+            t_shap = time.perf_counter() - t0
+            runs[(str(device), dtype)] = (ig, shap)
+            cases[(str(device), dtype)] = (fn, x, bg)
+            print(f"[importance] {mode} on {device} {dtype}: IG 32 steps "
+                  f"{t_ig:.3f} s, SHAP 8 x 16 {t_shap:.3f} s for 4 bags "
+                  f"| {card}")
+            if device == dev:
+                with torch.inference_mode():
+                    gap = (fn(x) - fn(torch.zeros_like(x))).double().cpu()
+                ig256 = importance.integrated_gradients(fn, x, steps=256)
+                completeness = (np.abs(ig256.sum(axis=1) - gap.numpy()).max()
+                                / gap.abs().max().item())
+                completeness32 = (np.abs(ig.sum(axis=1) - gap.numpy()).max()
+                                  / gap.abs().max().item())
+        n = counts()
+        ref_kind = (("cpu", torch.float64) if mode in F64_MODES
+                    else ("cpu", torch.float32))
+        card_f32 = runs[(str(dev), torch.float32)]
+        cpu_f32 = runs[("cpu", torch.float32)]
+        ref = runs[ref_kind]
+        errs = [rel(a, b) for a, b in zip(card_f32, ref)]
+        line = (f"[importance] {mode}: card vs CPU "
+                f"{'float64' if mode in F64_MODES else 'f32'} rel-L2 IG "
+                f"{errs[0]:.3e}, SHAP {errs[1]:.3e}")
+        bounds = [IMPORTANCE_TOL] * 2
+        if mode in F64_MODES:
+            own = [rel(a, b) for a, b in zip(cpu_f32, ref)]
+            line += (f"; CPU f32 vs float64 IG {own[0]:.3e}, SHAP "
+                     f"{own[1]:.3e} (tol {NYSTROM_F64_FACTOR} x the CPU's "
+                     f"or {IMPORTANCE_TOL})")
+            bounds = [max(NYSTROM_F64_FACTOR * o, IMPORTANCE_TOL)
+                      for o in own]
+        else:
+            line += f" (tol {IMPORTANCE_TOL})"
+        ok = True
+        fn_c, x_c, _ = cases[(str(dev), torch.float32)]
+        fn_r, x_r, bg = cases[ref_kind]
+        # SHAP's baselines: expected_gradients_shap's draw at seed 0
+        rows = np.random.default_rng(0).choice(len(bg), size=8,
+                                               replace=False)
+        for k, (name, bases, steps) in enumerate((
+                ("IG", [np.zeros(x_r.shape[1:])], 32),
+                ("SHAP", bg[rows], 16))):
+            if errs[k] <= bounds[k]:
+                continue
+            rest, ties = _attribution_without_ties(
+                (fn_c, x_c), (fn_r, x_r), bases, steps)
+            print(f"[importance] {mode} {name}: {errs[k]:.3e} over its bound "
+                  f"{bounds[k]:.1e}; the card took the other branch of a "
+                  f"ReLU tie (within {RELU_TIE:.1e} of the call's largest "
+                  f"input) at (baseline, step, that point's gradient "
+                  f"rel-L2) {ties}; without those points on either side "
+                  f"{rest:.3e} (tol {IMPORTANCE_TOL}) | {card}")
+            ok &= bool(ties) and rest <= IMPORTANCE_TOL
+        del cases, fn_c, x_c, fn_r, x_r
+        held = mode in COMPLETENESS_MODES
+        print(line + f"; completeness on the card: |sum(IG) - (f(x) - "
+              f"f(0))| / max|f(x) - f(0)| {completeness32:.3e} at 32 steps, "
+              f"{completeness:.3e} at 256 (tol {COMPLETENESS_TOL}"
+              f"{'' if held else ', not held: f jumps at x_omic = 0'}); "
+              f"launches {n} | {card}")
+        if (not ok or (held and not completeness <= COMPLETENESS_TOL)
+                or n != expect() or not np.abs(card_f32[0]).max() > 0):
+            raise RuntimeError(f"{mode}: importance on the card disagrees "
+                               "with the CPU")
+
+
+def time_aux(train_preset, f32, batch, dev, card: str) -> None:
+    """Phase 6k: ``utils/profiling.trace`` around 5 teacher train steps at
+    the preset: its Chrome trace names K1-fwd's kernel and K1-bwd's tile
+    kernel 4 x 5 times each (and the wrappers count 20 each); the
+    ``StepTimer``'s per-step time over 30 steps against the CUDA-events
+    median of the same steps, within ``STEP_TIMER_TOL``; then ablation and
+    permutation importance (``n_trials`` 1) of ``pathomic`` over 8 eval
+    bags (431 genes), timed."""
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors, make_train_step)
+    from disentangled_multimodal_learning_tpu_torch.utils import importance
+    from disentangled_multimodal_learning_tpu_torch.utils.profiling import (
+        StepTimer, trace)
+
+    x = batch_to_tensors(batch, dev)
+    model = define_net(train_preset, dev)
+    opt = make_optimizer(train_preset, model.parameters())
+    step = make_train_step(model, train_preset, opt,
+                           make_scheduler(train_preset, opt, 1000))
+    for _ in range(3):
+        step(x)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        reset_counts()
+        with trace(tmp) as path:
+            for _ in range(5):
+                m = step(x)
+            torch.cuda.synchronize()
+        n = counts()
+        events = json.load(open(path))["traceEvents"]
+        size = os.path.getsize(path)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1_fwd = sum("cpb_table_interp_fwd_kernel" in k for k in kernels)
+    k1_bwd = sum("table_bwd_tile_kernel" in k for k in kernels)
+    print(f"[trace] 5 teacher train steps: {size} B Chrome trace, "
+          f"{len(kernels)} kernel events, K1-fwd {k1_fwd}, K1-bwd (tile "
+          f"kernel) {k1_bwd}; wrapper counts {n} | {card}")
+    if k1_fwd != 20 or k1_bwd != 20 or n != expect(k1_fwd=20, k1_bwd=20):
+        raise RuntimeError("the trace does not name K1-fwd and K1-bwd 20 "
+                           "times each")
+    timer = StepTimer()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(30)]
+    timer.calibrate(x)
+    timer.start()
+    for start, end in ev:
+        start.record()
+        m = step(x)
+        end.record()
+        timer.count()
+    per_step = timer.stop(m) * 1e3
+    ms = sorted(s.elapsed_time(e) for s, e in ev)
+    off = abs(per_step - median(ms)) / median(ms)
+    print(f"[timer] teacher train step B=4 at the preset: StepTimer "
+          f"{per_step:.3f} ms a step (fence roundtrip "
+          f"{timer.roundtrip * 1e3:.4f} ms), CUDA events median "
+          f"{median(ms):.3f} ms, mean {sum(ms) / len(ms):.3f} ms (30 steps);"
+          f" {off:.1%} apart (tol {STEP_TIMER_TOL:.0%}) | {card}")
+    if not off <= STEP_TIMER_TOL:
+        raise RuntimeError("the StepTimer disagrees with CUDA events")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    cfg = f32.replace(mode="pathomic", synthetic_test_size=8)
+    batches = list(inference.build_fold0_test_loader(cfg))
+    model = define_net(cfg, dev)
+    score = importance.make_omic_score_fn(model, cfg, batches)
+    xo = np.concatenate([b.x_omic for b in batches])
+    score(xo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    abl = importance.ablation_feature_importance(score, xo)
+    t_abl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perm = importance.permutation_feature_importance(score, xo, n_trials=1)
+    t_perm = time.perf_counter() - t0
+    print(f"[importance] pathomic, 8 bags x {xo.shape[1]} genes: ablation "
+          f"{t_abl:.3f} s ({xo.shape[1] + 1} scores of 2 eval batches), "
+          f"permutation (1 trial) {t_perm:.3f} s; {np.count_nonzero(abl)} "
+          f"and {np.count_nonzero(perm)} genes move the accuracy | {card}")
+    if not (np.isfinite(abl).all() and np.isfinite(perm).all()):
+        raise RuntimeError("ablation or permutation importance not finite")
 
 
 def profile(label: str, fn, n: int = 5, rows: int = 30) -> tuple:

@@ -32,7 +32,6 @@ TASK_CLASS_WEIGHTS = {
 
 
 _TPU = "a TPU or cluster setting; the port runs on one card"
-_LOG = "logging only (JAX utils/logging.py)"
 _UNREAD = "the JAX package reads it nowhere (a reference CLI key)"
 # JAX Config keys the port ignores on purpose -> why
 IGNORED = {
@@ -44,7 +43,6 @@ IGNORED = {
     "nodes": _TPU, "gpus": _TPU, "nr": _TPU, "rank": _TPU,
     "world_size": _TPU, "dataparallel": _TPU,
     "visiable_device": _TPU,
-    "debug": _LOG, "log_dir": _LOG, "wandb": _LOG,
     "cut_fuse_grad": _UNREAD, "image_size": _UNREAD, "return_grad": _UNREAD,
     "survival_interval": _UNREAD, "start_epoch": _UNREAD,
     "label_path": _UNREAD, "dataDir_pyramid": _UNREAD, "pyramid": _UNREAD,
@@ -185,6 +183,12 @@ class Config:
     distill_feature: bool = True
     temperature: float = 2.0
     distill_teacher_cache: bool = True
+    # run logging (JAX config.py:291, :295-296, utils/logging.py): the
+    # entries log nothing under ``debug``, else to wandb where ``wandb`` is
+    # set and importable, else to a JSONL file in ``log_dir``
+    debug: bool = False
+    log_dir: str = "./logs"
+    wandb: bool = False
 
     @property
     def class_weights(self):
@@ -246,6 +250,10 @@ class Config:
         parser = argparse.ArgumentParser(parents=[pre])
         for f in dataclasses.fields(cls):
             v = getattr(base, f.name)
+            if f.name == "debug":  # a switch, as in JAX config.py:54-59
+                parser.add_argument("--debug", action="store_true", default=v,
+                                    help="debug mode (no logging sink)")
+                continue
             parser.add_argument(f"--{f.name}", default=v,
                                 type=_parse_bool if isinstance(v, bool)
                                 else type(v))

@@ -52,11 +52,13 @@ from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
 from .main import eval_loader
 from .models.factory import define_net, require_device
-from .train.evaluation import Evaluator, export_dir, model_type_of
+from .train.evaluation import (TAGS, Evaluator, export_dir,
+                               headline_metrics, model_type_of)
 from .train.trainers import (testBaselineModel, testDeformPathomicModel,
                              testDistillation, testMultiScaleModel,
                              testStudentsModel, testTeachersModel)
 from .utils.checkpoint import restore_state
+from .utils.logging import Logger
 
 _TESTS = {"teacher": testTeachersModel, "uniteacher": testTeachersModel,
           "student": testStudentsModel, "distillation": testDistillation,
@@ -80,11 +82,15 @@ def build_fold0_test_loader(cfg: Config):
 
 
 def main(cfg: Config, checkpoint: str | None = None, device="cuda",
-         model=None) -> tuple[dict, dict]:
-    """Evaluate and print.  Returns ``({f"{metric}_{tag}": value},
+         model=None, logger=None) -> tuple[dict, dict]:
+    """Evaluate, print and log ``{"inference": metrics}`` to ``logger``
+    (by default a :class:`Logger` of ``cfg``: nothing under ``debug``, else
+    a JSONL file in ``log_dir``).  Returns ``({f"{metric}_{tag}": value},
     {f"logits_{tag}": [M, C]})`` over the M test bags.  A ``model`` given
     here is used as it is (weights already loaded, on ``device``)."""
     device = require_device(device)
+    if logger is None:
+        logger = Logger(cfg)
     loader = build_fold0_test_loader(cfg)
     if not cfg.synthetic_data:  # a cohort's gene lists size the encoders
         cfg = cfg.replace(**loader.dataset.omic_sizes)
@@ -112,6 +118,11 @@ def main(cfg: Config, checkpoint: str | None = None, device="cuda",
             loader, os.path.join(out_dir, f"attention_fold{cfg.cur_fold}.npz"))
         print(f"[inference] attention maps -> {path}")
     print(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    if model_type in ("fused", "simple"):  # flat already
+        logger.log({"inference": metrics})
+    else:
+        logger.log({"inference": headline_metrics(
+            TAGS[model_type], cfg.task_type == "survival", metrics)})
     return metrics, logits
 
 

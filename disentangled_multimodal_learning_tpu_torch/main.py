@@ -59,6 +59,7 @@ from .train.trainers import (run_training, trainDeformPathomicModel,
                              trainDistillation, trainMultiScaleModel,
                              trainStudentsModel, trainTeachersModel)
 from .utils.checkpoint import load_checkpoint, restore_state
+from .utils.logging import Logger
 
 _TRAINS = {"student": trainStudentsModel,
            "multiscale": trainMultiScaleModel,
@@ -142,8 +143,12 @@ def fold_datasets(cfg: Config):
 
 
 def main(cfg: Config, device="cuda", logger=None) -> dict:
-    """Train every fold; returns ``{fold: final metrics}``."""
+    """Train every fold; returns ``{fold: final metrics}``.  Each cadence
+    evaluation goes to ``logger``, by default a :class:`Logger` of ``cfg``
+    (nothing under ``debug``, else a JSONL file in ``log_dir``)."""
     device = require_device(device)
+    if logger is None:
+        logger = Logger(cfg)
     np.random.seed(cfg.seed)
     results = {}
     for fold, train_ds, test_ds in fold_datasets(cfg):

@@ -11,6 +11,9 @@ keyword ``attn_layout`` ("auto", the port's "kn", or "nk").  JAX's
 ``CPB_KERNEL_VERSION`` has no counterpart: its "v1" and "v5" compute the
 same function, and both are kernel K2-nk in the port.
 
+:func:`define_act_layer` and :func:`define_bifusion` are the reference's
+factories, which no mode calls (JAX ``factory.py:152``, ``:169``).
+
 The baseline modes (``path``, ``transmil``, ``omic``, the pathomic family,
 ``mcat`` and ``cmta``) run no kernel of the port: plain torch, as in JAX,
 where they reach no Pallas kernel.
@@ -21,10 +24,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils.weight_init import apply_init_type
 from .cmta import CMTA
+from .fusion import BilinearFusion
 from .deform_mil import DeformPathomicNet
 from .maxnet import MaxNet
 from .mcat import MCAT_Surv
@@ -188,3 +193,29 @@ def init_weights(model: nn.Module, seed: int) -> None:
         else:
             x /= math.sqrt(math.prod(p.shape[1:]))
         p.copy_(x)
+
+
+def define_act_layer(act_type: str = "Tanh"):
+    """The reference's activation by name, as a callable: ``Tanh``,
+    ``ReLU``, ``Sigmoid``, ``LSM`` (log-softmax over dim 1); ``none`` ->
+    None; any other name raises ``NotImplementedError``."""
+    table = {"Tanh": torch.tanh, "ReLU": F.relu, "Sigmoid": torch.sigmoid,
+             "LSM": lambda x: F.log_softmax(x, dim=1), "none": None}
+    if act_type not in table:
+        raise NotImplementedError(f"activation layer [{act_type}] is not "
+                                  "found")
+    return table[act_type]
+
+
+def define_bifusion(fusion_type: str, skip=1, use_bilinear=1, gate1=1,
+                    gate2=1, dim1=32, dim2=32, scale_dim1=1, scale_dim2=1,
+                    mmhid=32, dropout_rate=0.25) -> BilinearFusion:
+    """The reference's fusion factory: ``pofusion`` is a
+    :class:`BilinearFusion` of these arguments; any other type raises
+    ``NotImplementedError``."""
+    if fusion_type != "pofusion":
+        raise NotImplementedError(f"fusion type [{fusion_type}] is not found")
+    return BilinearFusion(skip=skip, use_bilinear=use_bilinear, gate1=gate1,
+                          gate2=gate2, dim1=dim1, dim2=dim2,
+                          scale_dim1=scale_dim1, scale_dim2=scale_dim2,
+                          mmhid=mmhid, dropout_rate=dropout_rate)

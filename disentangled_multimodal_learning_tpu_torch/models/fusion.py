@@ -1,6 +1,7 @@
-"""Gated bilinear Kronecker fusion (counterpart of
-``disentangled_multimodal_learning_tpu/models/fusion.py:23-82``,
-``BilinearFusion``), with the flax BatchNorm of its two encoders."""
+"""Gated bilinear and trilinear Kronecker fusion (counterpart of
+``disentangled_multimodal_learning_tpu/models/fusion.py``:
+``BilinearFusion`` :23-82, with the flax BatchNorm of its two encoders,
+and ``TrilinearFusion`` :85-149, which no factory mode builds)."""
 
 from __future__ import annotations
 
@@ -110,3 +111,77 @@ class BilinearFusion(nn.Module):
         if self.skip:
             out = torch.cat([out, o1, o2], dim=1)
         return self._encoder("encoder2", out)
+
+
+# the two vectors whose bilinear form gates each branch of a variant
+# (JAX fusion.py:118-121; the reference's fusion.py:99-120 and 168-189)
+TRILINEAR_GATE_PAIRS = {"A": {1: (0, 2), 2: (1, 2), 3: (0, 2)},
+                        "B": {1: (0, 2), 2: (1, 0), 3: (0, 2)}}
+
+
+class TrilinearFusion(nn.Module):
+    """Three gated branches (``linear_h``; where the gate is on, a sigmoid
+    of the bilinear form ``bilinear_w [dd, dim_a, dim_b]`` of the
+    variant's pair of raw input vectors, or of ``linear_z`` on their
+    concatenation without ``use_bilinear``; ``linear_o``), the outer
+    product of the three outputs each with a 1 appended, ``encoder1``
+    (Linear, ReLU, dropout), with ``skip`` the three outputs concatenated
+    back, and ``encoder2``.  No BatchNorm.  The branch widths are ``dim /
+    scale_dim``; dropout ``dropout_rate`` on the branch outputs, the
+    product and the encoders' outputs."""
+
+    def __init__(self, variant: str = "A", skip: int = 1,
+                 use_bilinear: int = 1, gate1: int = 1, gate2: int = 1,
+                 gate3: int = 1, dim1: int = 32, dim2: int = 32,
+                 dim3: int = 32, scale_dim1: int = 1, scale_dim2: int = 1,
+                 scale_dim3: int = 1, mmhid: int = 96,
+                 dropout_rate: float = 0.25):
+        super().__init__()
+        self.variant, self.skip = variant, skip
+        self.use_bilinear = use_bilinear
+        self.gates = (gate1, gate2, gate3)
+        self.pairs = TRILINEAR_GATE_PAIRS[variant]
+        dims_og = (dim1, dim2, dim3)
+        dims = (dim1 // scale_dim1, dim2 // scale_dim2, dim3 // scale_dim3)
+        for tag in (1, 2, 3):
+            dd, a, b = dims[tag - 1], *self.pairs[tag]
+            self.add_module(f"linear_h{tag}", nn.Linear(dims_og[tag - 1], dd))
+            if self.gates[tag - 1] and use_bilinear:
+                self.register_parameter(f"bilinear_w{tag}", nn.Parameter(
+                    torch.empty(dd, dims_og[a], dims_og[b])))
+                self.register_parameter(f"bilinear_b{tag}", nn.Parameter(
+                    torch.zeros(dd)))
+            elif self.gates[tag - 1]:
+                self.add_module(f"linear_z{tag}",
+                                nn.Linear(dims_og[a] + dims_og[b], dd))
+            self.add_module(f"linear_o{tag}", nn.Linear(dd, dd))
+        d1, d2, d3 = (d + 1 for d in dims)
+        self.encoder1 = nn.Linear(d1 * d2 * d3, mmhid)
+        self.encoder2 = nn.Linear(mmhid + d1 + d2 + d3 if skip else mmhid,
+                                  mmhid)
+        self.drop = nn.Dropout(dropout_rate)
+
+    def forward(self, vec1, vec2, vec3):
+        vecs = (vec1, vec2, vec3)
+        outs = []
+        for tag in (1, 2, 3):
+            h = F.relu(getattr(self, f"linear_h{tag}")(vecs[tag - 1]))
+            if self.gates[tag - 1]:
+                va, vb = (vecs[i] for i in self.pairs[tag])
+                if self.use_bilinear:
+                    z = (torch.einsum("bi,kij,bj->bk", va,
+                                      getattr(self, f"bilinear_w{tag}"), vb)
+                         + getattr(self, f"bilinear_b{tag}"))
+                else:
+                    z = getattr(self, f"linear_z{tag}")(torch.cat([va, vb],
+                                                                  dim=1))
+                h = torch.sigmoid(z) * h
+            o = self.drop(F.relu(getattr(self, f"linear_o{tag}")(h)))
+            outs.append(torch.cat([o, o.new_ones(o.shape[0], 1)], dim=1))
+        o1, o2, o3 = outs
+        o123 = ((o1[:, :, None] * o2[:, None, :]).flatten(1)[:, :, None]
+                * o3[:, None, :]).flatten(1)
+        out = self.drop(F.relu(self.encoder1(self.drop(o123))))
+        if self.skip:
+            out = torch.cat([out, o1, o2, o3], dim=1)
+        return self.drop(F.relu(self.encoder2(out)))

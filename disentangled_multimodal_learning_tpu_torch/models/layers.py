@@ -71,20 +71,24 @@ class TransFusionLayer(nn.Module):
 class NystromAttention(nn.Module):
     """Landmark attention layer (``layers.py:127-196``): ``to_qkv`` without
     bias, q scaled by ``dh**-0.5``, the Nystrom core (``ops/nystrom.py``,
-    6 pinv iterations), the value residual, ``to_out`` and dropout.  The
+    ``pinv_iterations`` pinv steps, 6), the value residual (unless
+    ``residual`` is off), ``to_out`` and dropout.  The
     residual is the reference's depthwise ``Conv2d(heads, heads, (33, 1),
     groups=heads)`` over ``v [B, h, N, dh]`` (JAX repeats each head's
     filter over the flattened ``[B, N, inner]`` values: the same sums)."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
-                 num_landmarks: int = 256, dropout: float = 0.0):
+                 num_landmarks: int = 256, dropout: float = 0.0,
+                 pinv_iterations: int = 6, residual: bool = True):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.num_landmarks = num_landmarks
+        self.pinv_iterations = pinv_iterations
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
-        self.res_conv = nn.Conv2d(heads, heads, (33, 1), padding=(16, 0),
-                                  groups=heads, bias=False)
+        self.res_conv = (nn.Conv2d(heads, heads, (33, 1), padding=(16, 0),
+                                   groups=heads, bias=False)
+                         if residual else None)
         self.to_out = nn.Linear(inner, dim)
         self.dropout = nn.Dropout(dropout)
 
@@ -93,8 +97,9 @@ class NystromAttention(nn.Module):
         q, k, v = (t.unflatten(-1, (self.heads, self.dim_head)).transpose(1, 2)
                    for t in self.to_qkv(x).chunk(3, dim=-1))
         out = nystrom_attention(q * self.dim_head ** -0.5, k, v,
-                                self.num_landmarks)
-        out = out + self.res_conv(v)
+                                self.num_landmarks, self.pinv_iterations)
+        if self.res_conv is not None:
+            out = out + self.res_conv(v)
         return self.dropout(self.to_out(out.transpose(1, 2).flatten(2)))
 
 
@@ -110,6 +115,69 @@ class TransLayer(nn.Module):
 
     def forward(self, x):
         return x + self.attn(self.norm(x))
+
+
+class CrossAttLayer(nn.Module):
+    """Residual cross-attention block ``x1 + MHA(LN(x1), LN(x2), LN(x2))``
+    (``layers.py:235``; no factory mode builds it), 8 heads, attention
+    dropout 0.1 in train mode."""
+
+    def __init__(self, dim: int = 128):
+        super().__init__()
+        self.norm = layer_norm(dim)
+        self.multihead_attn = nn.MultiheadAttention(dim, 8, dropout=0.1,
+                                                    batch_first=True)
+
+    def forward(self, x1, x2):
+        kv = self.norm(x2)
+        out, _ = self.multihead_attn(self.norm(x1), kv, kv,
+                                     need_weights=False)
+        return x1 + out
+
+
+class FeedForward(nn.Module):
+    """``net_2(dropout(gelu(net_0(x))))``, exact GELU, hidden ``dim *
+    mult`` (``layers.py:348``)."""
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+        super().__init__()
+        self.net_0 = nn.Linear(dim, dim * mult)
+        self.net_2 = nn.Linear(dim * mult, dim)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x):
+        return self.net_2(self.drop(F.gelu(self.net_0(x))))
+
+
+class Nystromformer(nn.Module):
+    """The pre-norm Nystrom transformer stack (``layers.py:363``; no factory
+    mode builds it): ``depth`` times ``x + attn_i(attn_norm_i(x))`` (a
+    :class:`NystromAttention`, its value residual where
+    ``attn_values_residual``) then ``x + ff_i(ff_norm_i(x))`` (a
+    :class:`FeedForward`)."""
+
+    def __init__(self, dim: int, depth: int, dim_head: int = 64,
+                 heads: int = 8, num_landmarks: int = 256,
+                 pinv_iterations: int = 6, attn_values_residual: bool = True,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"attn_norm_{i}", layer_norm(dim))
+            self.add_module(f"attn_{i}", NystromAttention(
+                dim, dim_head=dim_head, heads=heads,
+                num_landmarks=num_landmarks, dropout=attn_dropout,
+                pinv_iterations=pinv_iterations,
+                residual=attn_values_residual))
+            self.add_module(f"ff_norm_{i}", layer_norm(dim))
+            self.add_module(f"ff_{i}", FeedForward(dim, dropout=ff_dropout))
+
+    def forward(self, x):
+        for i in range(self.depth):
+            x = x + getattr(self, f"attn_{i}")(
+                getattr(self, f"attn_norm_{i}")(x))
+            x = x + getattr(self, f"ff_{i}")(getattr(self, f"ff_norm_{i}")(x))
+        return x
 
 
 class PPEG(nn.Module):

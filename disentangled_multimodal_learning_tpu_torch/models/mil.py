@@ -1,8 +1,9 @@
 """Bag-level MIL path encoders (counterpart of
-``disentangled_multimodal_learning_tpu/models/mil.py``: ``ABMIL`` :18 and
-``TransMIL`` :62) over patch-feature bags ``[B, N, 1024]``.  Both return
-``(encoded [B, path_dim], logits [B, label_dim], None)``.  JAX's
-``GatedABMIL`` (no factory mode builds it) is not ported."""
+``disentangled_multimodal_learning_tpu/models/mil.py``: ``ABMIL`` :18,
+``GatedABMIL`` :41 and ``TransMIL`` :62) over patch-feature bags ``[B, N,
+1024]``.  ABMIL and TransMIL return ``(encoded [B, path_dim], logits [B,
+label_dim], None)``; GatedABMIL, which no factory mode builds,
+``(prob, pred)``."""
 
 from __future__ import annotations
 
@@ -31,6 +32,28 @@ class ABMIL(nn.Module):
         a = torch.softmax(a.transpose(1, 2), dim=2)               # [B, K, N]
         m = (a @ x).flatten(1)                                    # [B, K*L]
         return self.multimodal_projection(m), self.classifier(m), None
+
+
+class GatedABMIL(nn.Module):
+    """Gated attention MIL: scores ``attention_weights(tanh(attention_V(x))
+    * sigmoid(attention_U(x)))``, softmax over the bag, the weighted sum of
+    the patches, and a sigmoid classifier; returns ``(prob [B, label_dim],
+    pred [B])``, ``pred`` the argmax of ``prob``."""
+
+    def __init__(self, label_dim: int = 2, L: int = 1024, D: int = 128,
+                 K: int = 1):
+        super().__init__()
+        self.attention_V = nn.Linear(L, D)
+        self.attention_U = nn.Linear(L, D)
+        self.attention_weights = nn.Linear(D, K)
+        self.classifier = nn.Linear(L * K, label_dim)
+
+    def forward(self, x):
+        a = self.attention_weights(torch.tanh(self.attention_V(x))
+                                   * torch.sigmoid(self.attention_U(x)))
+        a = torch.softmax(a.transpose(1, 2), dim=2)               # [B, K, N]
+        prob = torch.sigmoid(self.classifier((a @ x).flatten(1)))
+        return prob, prob.argmax(dim=1)
 
 
 class TransMIL(nn.Module):

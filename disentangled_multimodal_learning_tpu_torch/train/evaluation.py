@@ -68,6 +68,20 @@ def model_type_of(mode: str) -> str:
     return "simple"
 
 
+def headline_metrics(tags, survival: bool, result: dict) -> dict:
+    """JAX's flat metrics (``trainers.py:318-336 _metricdicts_to_flat``)
+    from ``{f"{metric}_{tag}": value}``: the last (headline) tag's seven
+    metrics, or on survival its ``cindex`` followed, where there are
+    several tags, by every tag's ``cindex_{tag}``."""
+    headline = tags[-1]
+    if survival:
+        flat = {"cindex": result[f"cindex_{headline}"]}
+        if len(tags) > 1:
+            flat.update(result)
+        return flat
+    return {n: result[f"{n}_{headline}"] for n in METRIC_NAMES}
+
+
 def model_inputs(batch, device, mode: str) -> dict:
     """Host batch -> the forward kwargs of ``mode``'s model on ``device``."""
     return {arg: torch.from_numpy(np.ascontiguousarray(getattr(batch, key)))

@@ -4,7 +4,11 @@ student, and the vgrid consistency loss of deformpathomic (counterpart of
 ``nll_surv_loss`` :42, ``task_loss`` :89, ``path_batch_loss`` :131,
 ``distillation_loss`` :106, ``feature_distillation_loss`` :117,
 ``diag_variance_loss`` :176, ``omic_domain_scale_loss`` :183,
-``batch_loss_vgrid`` :200).
+``batch_loss_vgrid`` :200), and the reference losses no step calls
+(``compat.py`` and the tests do): ``cox_loss`` :65, ``ce_surv_loss`` :76,
+``kl_loss`` :222, ``cosine_loss`` :235, ``orthogonal_loss`` :240,
+``low_rank_loss`` :249, ``sigmoid_rampup`` :257, ``l1_regularizer`` :269,
+``directional_consistency_loss`` :279.
 
 Label tensors are integer ``[B, 12]`` in the column order of
 ``data/contract.py``.  The attention maps the consistency losses read may be
@@ -13,6 +17,8 @@ contract in f32, as the JAX einsums do with ``preferred_element_type``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -133,3 +139,107 @@ def batch_loss_vgrid(omic, vgrid):
     s = _row_normalized_gram(omic.reshape(n, -1))
     mean_vs = _row_normalized_gram(vgrid.reshape(8, n, -1)).mean(dim=0)
     return ((s - mean_vs) ** 2 / n).sum()
+
+
+def cox_loss(survtime, censor, hazard_pred):
+    """Cox partial likelihood over the batch's ``[B, B]`` risk sets
+    (``survtime_j >= survtime_i``), times ``censor``, as the reference
+    writes it."""
+    theta = hazard_pred.reshape(-1)
+    risk = (survtime[None, :] >= survtime[:, None]).to(theta.dtype)
+    log_risk = torch.log((torch.exp(theta)[None, :] * risk).sum(dim=1))
+    return -((theta - log_risk) * censor).mean()
+
+
+def ce_surv_loss(hazards, S, Y, c, alpha: float = 0.4, eps: float = 1e-7):
+    """The cross-entropy survival loss (CMTA's ``CrossEntropySurvLoss``):
+    ``hazards``/``S [B, K]``, ``Y [B]`` bin, ``c [B]`` censorship."""
+    Y = Y[:, None].long()
+    c = c[:, None].to(hazards.dtype)
+    S_padded = torch.cat([torch.ones_like(c), S], dim=1)
+    s_y = S.gather(1, Y)
+    reg = -(1.0 - c) * (torch.log(S_padded.gather(1, Y) + eps)
+                        + torch.log(hazards.gather(1, Y).clamp_min(eps)))
+    ce_l = (-c * torch.log(s_y.clamp_min(eps))
+            - (1.0 - c) * torch.log((1.0 - s_y).clamp_min(eps)))
+    return ((1.0 - alpha) * ce_l + alpha * reg).mean()
+
+
+def kl_loss(y, y_hat):
+    """Sum-reduced KL(softmax(y) || softmax(y_hat)), ``softmax(y)`` clipped
+    at 1e-12 inside its log."""
+    p = torch.softmax(y, dim=-1)
+    return (p * (torch.log(p.clamp_min(1e-12))
+                 - torch.log_softmax(y_hat, dim=-1))).sum()
+
+
+def _cossim(a, b, dim: int = 1, eps: float = 1e-8):
+    """Cosine similarity with the PRODUCT of the norms clamped at ``eps``
+    (JAX ``losses.py:229-232``; ``F.cosine_similarity`` clamps each
+    norm)."""
+    num = (a * b).sum(dim=dim)
+    den = (torch.linalg.vector_norm(a, dim=dim)
+           * torch.linalg.vector_norm(b, dim=dim))
+    return num / den.clamp_min(eps)
+
+
+def cosine_loss(y, y_hat):
+    """``1 - cos(y, y_hat)`` per row."""
+    return 1.0 - _cossim(y, y_hat)
+
+
+def orthogonal_loss(P, P_hat, G, G_hat, gamma: float = 0.5):
+    """CMTA's orthogonal loss: the reconstructions ``P_hat``, ``G_hat``
+    pulled to the detached originals, and the pairs pushed apart, per
+    row."""
+    pd, gd = P.detach(), G.detach()
+    pos = ((1.0 - _cossim(pd, P_hat).abs())
+           + (1.0 - _cossim(gd, G_hat).abs()))
+    neg = (_cossim(P, G).abs() + _cossim(pd, G_hat).abs()
+           + _cossim(gd, P_hat).abs())
+    return pos + gamma * neg
+
+
+def low_rank_loss(x):
+    """The sum of every singular value but the largest."""
+    return torch.linalg.svdvals(x)[1:].sum()
+
+
+def sigmoid_rampup(current: float, rampup_length: float) -> float:
+    """``exp(-5 (1 - t)^2)`` of ``t = clip(current, 0, length) / length``
+    (1 at length 0)."""
+    if rampup_length == 0:
+        return 1.0
+    current = min(max(float(current), 0.0), float(rampup_length))
+    phase = 1.0 - current / rampup_length
+    return math.exp(-5.0 * phase * phase)
+
+
+def _leaves(params):
+    if isinstance(params, torch.nn.Module):
+        yield from params.parameters()
+    elif isinstance(params, dict):
+        for v in params.values():
+            yield from _leaves(v)
+    elif isinstance(params, (list, tuple)) or hasattr(params, "__next__"):
+        for v in params:
+            yield from _leaves(v)
+    else:
+        yield torch.as_tensor(params)
+
+
+def l1_regularizer(params):
+    """The sum of ``|w|`` over ``params``: a module's parameters, or the
+    tensors of a (nested) dict, list or iterator."""
+    return sum(w.abs().sum() for w in _leaves(params))
+
+
+def directional_consistency_loss(m, eps: float = 1e-6):
+    """``(|mean sign of m[0] - m[1]| - 1)^2`` over the entries whose
+    difference is above ``eps`` (0 when there are none)."""
+    diff = m[0] - m[1]
+    nz = (diff.abs() > eps).to(diff.dtype)
+    n_nz = nz.sum()
+    x = torch.where(n_nz > 0, (torch.sign(diff) * nz).sum()
+                    / n_nz.clamp_min(1.0), torch.zeros_like(n_nz))
+    return (x.abs() - 1.0) ** 2

@@ -2,7 +2,9 @@
 numpy branch of ``compute_avg_metrics``,
 ``disentangled_multimodal_learning_tpu/train/metrics.py:84``, and of
 ``concordance_index_censored`` :127 and ``cindex`` :157; no sklearn, no
-sksurv)."""
+sksurv), with the reference metrics no evaluation calls: ``make_one_hot``
+:164, ``compute_confusion_matrix`` :170, ``compute_avg_metrics_micro``
+:183 and ``cindex_lifelines`` :216 (no lifelines)."""
 
 from __future__ import annotations
 
@@ -128,3 +130,60 @@ def cindex(all_risk_scores, all_censorships, all_event_times) -> float:
     return concordance_index_censored(
         (1 - np.asarray(all_censorships)).astype(bool), all_event_times,
         all_risk_scores)
+
+
+def make_one_hot(data, n: int = 0) -> np.ndarray:
+    """Integer labels ``[M]`` -> int16 one-hot ``[M, n]`` (``n`` 0: the
+    largest label + 1)."""
+    num = n if n else int(np.max(data) + 1)
+    return (np.arange(num) == np.asarray(data)[:, None]).astype(np.int16)
+
+
+def compute_confusion_matrix(ground_truth, activations, labels) -> np.ndarray:
+    """The confusion matrix of the labels against the argmax of
+    ``activations``, rows and columns in the order of ``labels``; a pair
+    with a label outside ``labels`` is not counted."""
+    y = np.asarray(ground_truth).astype(np.int64)
+    pred = np.asarray(activations).argmax(-1)
+    n = len(labels)
+    cm = np.zeros((n, n), dtype=np.int64)
+    index = {int(l): i for i, l in enumerate(labels)}
+    for t, p in zip(y, pred):
+        if int(t) in index and int(p) in index:
+            cm[index[int(t)], index[int(p)]] += 1
+    return cm
+
+
+def compute_avg_metrics_micro(ground_truth, activations):
+    """Micro-averaged (acc, f1, auc, bac, sens, spec, prec): the AUC of the
+    raveled one-hot labels against the raveled probabilities; micro
+    precision, recall and F1 all equal the accuracy; specificity pools TN
+    and FP over the classes; bac is the macro recall over the classes
+    present."""
+    y = np.asarray(ground_truth).astype(np.int64)
+    probs = np.asarray(activations, dtype=np.float64)
+    pred = probs.argmax(-1)
+    n_classes = probs.shape[1]
+    acc = float((pred == y).mean())
+    auc = _auc_binary(make_one_hot(y, n=n_classes).ravel(), probs.ravel())
+    cm = _confusion(y, pred, n_classes)
+    prec = rec = f1 = np.diag(cm).sum() / max(cm.sum(), 1)
+    total = cm.sum()
+    tn_sum = fp_sum = 0
+    for k in range(n_classes):
+        tpk = cm[k, k]
+        fpk = cm[:, k].sum() - tpk
+        fnk = cm[k, :].sum() - tpk
+        tn_sum += total - tpk - fpk - fnk
+        fp_sum += fpk
+    spec = tn_sum / max(tn_sum + fp_sum, 1)
+    bac = float(np.mean([cm[k, k] / cm[k].sum() for k in range(n_classes)
+                         if cm[k].sum()]))
+    return acc, f1, auc, bac, rec, spec, prec
+
+
+def cindex_lifelines(hazards, event_all, survtime_all) -> float:
+    """The reference's ``CIndex_lifeline``: the c-index of ``hazards`` as
+    risks against the events (1 = event) and times."""
+    return concordance_index_censored(np.asarray(event_all).astype(bool),
+                                      survtime_all, np.asarray(hazards))

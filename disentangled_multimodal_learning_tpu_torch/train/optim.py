@@ -178,3 +178,9 @@ class ReduceLROnPlateau:
 def set_learning_rate(optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def current_learning_rate(optimizer) -> float:
+    """The lr of ``optimizer``'s next step: the value ``LambdaLR`` or
+    :func:`set_learning_rate` last wrote."""
+    return float(optimizer.param_groups[0]["lr"])

@@ -47,7 +47,8 @@ import torch
 from ..utils.checkpoint import (SUFFIX, metric_stamped_name,
                                 restore_state, save_checkpoint)
 from .distill_cache import TeacherBoundaryCache, loader_dataset_size
-from .evaluation import METRIC_NAMES, Evaluator, model_type_of
+from .evaluation import (METRIC_NAMES, Evaluator, headline_metrics,
+                         model_type_of)
 from .optim import (ReduceLROnPlateau, make_optimizer, make_scheduler,
                     set_learning_rate)
 from .steps import (batch_to_tensors, make_distill_cached_step,
@@ -125,9 +126,7 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
             if cfg.eval_during_training and test_loader is not None and crossed:
                 result = evaluate(evaluator, test_loader)
                 if logger is not None:
-                    logger.log({"training": {k: float(v)
-                                             for k, v in metrics.items()},
-                                "test": result})
+                    logger.log(eval_payload(evaluator, metrics, result))
                 print("\rFold: [%2d/%2d] Epoch: [%2d/%2d] Iter [%4d/%4d] || "
                       "Time: %4.4f sec || Loss: %.4f || %s_%s %.4f"
                       % (cfg.cur_fold, cfg.kfold, epoch, cfg.epochs, i + 1,
@@ -176,6 +175,23 @@ def evaluate(evaluator, loader) -> dict:
     step puts the model back in its train mode)."""
     evaluator.model.eval()
     return evaluator.metrics(*evaluator.logits(loader))
+
+
+def eval_payload(evaluator, train_metrics: dict, result: dict) -> dict:
+    """What a cadence evaluation logs, in the shape of JAX ``_log_eval``
+    (``trainers.py:346-357``): ``"training"``, every train metric as a
+    float; ``"test"``, the headline metrics (``headline_metrics``), where a
+    model type with several tags (teacher, student, scales) on a
+    classification task has per-metric dicts of every tag's values in
+    their place (``{"acc": {"acc_tea10": ...}}``: JAX's detail dicts
+    overwrite its flat floats)."""
+    tags = evaluator.tags
+    test = headline_metrics(tags, evaluator.survival, result)
+    if len(tags) > 1 and not evaluator.survival:
+        test = {n: {f"{n}_{t}": result[f"{n}_{t}"] for t in tags}
+                for n in test}
+    return {"training": {k: float(v) for k, v in train_metrics.items()},
+            "test": test}
 
 
 def trainTeachersModel(model, dataloader, optimizer, scheduler, logger, args,

@@ -17,6 +17,9 @@ module names (``attention_0``, ``path_net.classifier``,
 reshaped to torch's ``[C, 1, k, k]`` (PPEG) and ``[h, 1, 33, 1]`` (the
 Nystrom ``res_conv``), q/k/v packed into ``in_proj``, and BatchNorm's
 running statistics come from JAX's ``batch_stats`` collection.
+:func:`jax_module_state_dict` does the same for the modules no mode builds
+(``GatedABMIL``, ``TrilinearFusion``, ``FeedForward``, ``CrossAttLayer``,
+``Nystromformer``).
 """
 
 from __future__ import annotations
@@ -95,12 +98,16 @@ def _maxnet(p, key, out):
 
 def _nystrom_layer(p, key, out):
     _ln(p["norm"], f"{key}.norm", out)
-    a = p["attn"]
-    _dense(a["to_qkv"], f"{key}.attn.to_qkv", out)
-    # [33, 1, 1, h] -> Conv2d(h, h, (33, 1), groups=h) weight [h, 1, 33, 1]
-    out[f"{key}.attn.res_conv.weight"] = _np(a["res_conv"]).transpose(3, 2,
-                                                                       0, 1)
-    _dense(a["to_out"], f"{key}.attn.to_out", out)
+    _nystrom_attention(p["attn"], f"{key}.attn", out)
+
+
+def _nystrom_attention(a, key, out):
+    _dense(a["to_qkv"], f"{key}.to_qkv", out)
+    if "res_conv" in a:
+        # [33, 1, 1, h] -> Conv2d(h, h, (33, 1), groups=h) weight [h, 1, 33, 1]
+        out[f"{key}.res_conv.weight"] = _np(a["res_conv"]).transpose(3, 2,
+                                                                      0, 1)
+    _dense(a["to_out"], f"{key}.to_out", out)
 
 
 def _ppeg(p, key, out):
@@ -112,19 +119,20 @@ def _ppeg(p, key, out):
 def _bilinear_fusion(p, bs, key, out):
     """BilinearFusion; ``bs`` its ``batch_stats`` (None: flax's initial
     statistics, mean 0 and variance 1)."""
+    pre = f"{key}." if key else ""
     for name, sub in p.items():
         if name.startswith("bilinear_"):
-            out[f"{key}.{name}"] = _np(sub)
+            out[pre + name] = _np(sub)
         elif name.endswith("_bn"):
-            _ln(sub, f"{key}.{name}", out)
+            _ln(sub, pre + name, out)
             stats = (bs or {}).get(name)
             n = _np(sub["scale"]).shape[0]
-            out[f"{key}.{name}.running_mean"] = (
+            out[f"{pre}{name}.running_mean"] = (
                 _np(stats["mean"]) if stats else np.zeros(n, np.float32))
-            out[f"{key}.{name}.running_var"] = (
+            out[f"{pre}{name}.running_var"] = (
                 _np(stats["var"]) if stats else np.ones(n, np.float32))
         else:
-            _dense(sub, f"{key}.{name}", out)
+            _dense(sub, pre + name, out)
 
 
 def _abmil(p, key, out):
@@ -258,6 +266,61 @@ def _deform_mil(p, key, out, attn_dim):
     _ln(p["norm"], f"{key}.norm", out)
     _dense(p["_fc2"], f"{key}._fc2", out)
     _dense(p["multimodal_projection"], f"{key}.multimodal_projection", out)
+
+
+def _dense_children(p, out, pre=""):
+    for name, sub in p.items():
+        _dense(sub, pre + name, out)
+
+
+def _feed_forward(p, key, out):
+    _dense_children(p, out, f"{key}." if key else "")
+
+
+def _cross_att(p, out):
+    _ln(p["norm"], "norm", out)
+    _mha(p["multihead_attn"], "multihead_attn", out)
+
+
+def _nystromformer(p, out):
+    for name, sub in p.items():
+        if "norm" in name:
+            _ln(sub, name, out)
+        elif name.startswith("attn_"):
+            _nystrom_attention(sub, name, out)
+        else:
+            _feed_forward(sub, name, out)
+
+
+def _trilinear_fusion(p, out):
+    for name, sub in p.items():
+        if name.startswith("bilinear_"):
+            out[name] = _np(sub)
+        else:
+            _dense(sub, name, out)
+
+
+_MODULES = {"GatedABMIL": lambda p, bs, out: _dense_children(p, out),
+            "TrilinearFusion": lambda p, bs, out: _trilinear_fusion(p, out),
+            "BilinearFusion": lambda p, bs, out: _bilinear_fusion(p, bs, "",
+                                                                  out),
+            "FeedForward": lambda p, bs, out: _feed_forward(p, "", out),
+            "CrossAttLayer": lambda p, bs, out: _cross_att(p, out),
+            "Nystromformer": lambda p, bs, out: _nystromformer(p, out)}
+
+
+def jax_module_state_dict(params, module: str, batch_stats=None) -> dict:
+    """The params of one JAX module (``GatedABMIL``, ``TrilinearFusion``,
+    ``FeedForward``, ``CrossAttLayer`` and ``Nystromformer``, which no mode
+    builds, or a ``BilinearFusion`` with its ``batch_stats``) -> the
+    state_dict of the port's module of that name (flax names, as the
+    baselines'), as numpy arrays."""
+    if module not in _MODULES:
+        raise ValueError(f"module {module!r}: the port maps JAX params of "
+                         f"{', '.join(_MODULES)}")
+    out: dict = {}
+    _MODULES[module](params, batch_stats, out)
+    return out
 
 
 def jax_state_dict(params, mode: str, attn_dim: int = 2,

@@ -421,7 +421,7 @@ def test_baseline_fold_through_both_entries(tmp_path, mode, task, kw):
     included) and serves: its outputs bitwise equal to the fold's final
     evaluation."""
     cfg = Config(mode=mode, task_type=task, fixdim=16, batch_size=B,
-                 synthetic_data=True, synthetic_train_size=4,
+                 synthetic_data=True, debug=True, synthetic_train_size=4,
                  synthetic_test_size=3, kfold=1, epochs=1,
                  checkpoints=str(tmp_path), **kw).validate()
     final = tmain.main(cfg, device="cpu")[0]

@@ -78,6 +78,16 @@ _JAX_NETS = {
         task_type=task)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test (the suite's workers would
+    oversubscribe the CPU otherwise)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -98,7 +108,7 @@ def jax_kn(monkeypatch):
 
 def _cfg(mode="teacher", **kw):
     return Config(mode=mode, fixdim=FIXDIM, batch_size=B,
-                  cpb_table_divisor=1, synthetic_data=True,
+                  cpb_table_divisor=1, synthetic_data=True, debug=True,
                   **kw).validate()
 
 
@@ -382,7 +392,7 @@ def test_survival_entries_run_from_the_command_line_without_jax(tmp_path):
         "tiny = ['--config', sys.argv[1], '--synthetic_data', 'true',"
         " '--fixdim', '64', '--batch_size', '2', '--synthetic_train_size',"
         " '2', '--synthetic_test_size', '4', '--kfold', '1', '--epochs', '1',"
-        " '--device', 'cpu', '--checkpoints', d]\n"
+        " '--device', 'cpu', '--checkpoints', d, '--debug']\n"
         "sys.argv = ['main'] + tiny\n"
         f"runpy.run_module('{port}.main', run_name='__main__')\n"
         "ckpt, = glob.glob(d + '/teacher_fold_1_epoch_1_cindex_*.pt')\n"

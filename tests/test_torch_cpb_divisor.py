@@ -56,6 +56,16 @@ FWD_ATOL, FWD_RTOL, GRAD_TOL, BF16_TOL = 2e-6, 1e-5, 3e-5, 1e-4
 NAMES = ("grid_kv", "w1", "b1", "w2", "b2", "w3", "b3")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test (the suite's workers would
+    oversubscribe the CPU otherwise)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mlp(rng):
     h = cpb.HID
     w = [rng.normal(size=(2, h)) / np.sqrt(2), rng.normal(size=(h,)) * 0.1,

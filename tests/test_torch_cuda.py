@@ -393,7 +393,8 @@ def test_inference_entry_on_card_with_bf16_streams(dev):
     streams are bf16 on the card."""
     cfg = Config.diag2021().replace(fixdim=144, batch_size=2,
                                     synthetic_data=True,
-                                    synthetic_test_size=3).validate()
+                                    synthetic_test_size=3,
+                                    debug=True).validate()
     before = _launches()
     metrics, logits = inference.main(cfg, device=dev)
     assert tuple(a - b for a, b in zip(_launches(), before)) == (8, 0)

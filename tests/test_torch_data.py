@@ -72,7 +72,7 @@ def _cfgs(tmp_path, **kw):
     """The port's and JAX's configs on the tiny cohort."""
     kw = dict(fixdim=FIXDIM, input_path_dim=DIM, dataDir=str(tmp_path),
               batch_size=2, **kw)
-    return Config(**kw).validate(), jconfig.Config(**kw)
+    return Config(debug=True, **kw).validate(), jconfig.Config(**kw)
 
 
 def _same_batch(got, want):

@@ -69,6 +69,16 @@ FIXDIM, B, STEPS = 64, 2, 20
 MODULE_TOL, LOGITS_TOL = 1e-5, 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test (the suite's workers would
+    oversubscribe the CPU otherwise)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -313,7 +323,8 @@ def test_deformpathomic_entries_run_on_the_cpu_when_asked(monkeypatch):
                      attn_dim=attn_dim, return_vgrid=rv, cpb_table_divisor=1,
                      synthetic_data=True, synthetic_train_size=4,
                      synthetic_test_size=3, kfold=1, epochs=2,
-                     eval_every_iters=3, checkpoints="#").validate()
+                     eval_every_iters=3, checkpoints="#",
+                     debug=True).validate()
         metrics, logits = inference.main(cfg, device="cpu")
         assert set(metrics) == names and logits["logits_fused"].shape == (3, 4)
         logged = []
@@ -340,7 +351,7 @@ def test_deformpathomic_entries_run_from_the_command_line_without_jax():
         "tiny = ['--config', sys.argv[1], '--mode', 'deformpathomic',"
         " '--attn_dim', '1', '--synthetic_data', 'true', '--fixdim', '64',"
         " '--batch_size', '2', '--synthetic_test_size', '2',"
-        " '--device', 'cpu']\n"
+        " '--device', 'cpu', '--debug']\n"
         "sys.argv = ['inference'] + tiny\n"
         f"runpy.run_module('{port}.inference', run_name='__main__')\n"
         "sys.argv = ['main'] + tiny + ['--checkpoints', '#',"

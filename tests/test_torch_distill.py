@@ -75,6 +75,16 @@ LOGITS_TOL = 1e-4
 ZERO_GRAD_BIASES = ("rel_pos_bias.mlp.2.bias", "cluster_merge.score.bias")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test (the suite's workers would
+    oversubscribe the CPU otherwise)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -392,7 +402,7 @@ def test_distillation_entries_run_from_the_command_line_without_jax(
         "tiny = ['--config', sys.argv[1], '--synthetic_data', 'true',"
         " '--fixdim', '64', '--batch_size', '2', '--synthetic_train_size',"
         " '2', '--synthetic_test_size', '2', '--kfold', '1',"
-        " '--device', 'cpu', '--checkpoints', d]\n"
+        " '--device', 'cpu', '--checkpoints', d, '--debug']\n"
         "sys.argv = ['main'] + tiny\n"
         f"runpy.run_module('{port}.main', run_name='__main__')\n"
         "teacher, = glob.glob(d + '/teacher_fold_1_epoch_10_*.pt')\n"

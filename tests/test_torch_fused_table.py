@@ -60,6 +60,16 @@ OUT_TOL, ATTN_TOL, GRAD_TOL, GKV_TOL = 2e-5, 2e-6, 2e-5, 1e-4
 NAMES = ("q", "k", "v", "grid_kv", "w1", "b1", "w2", "b2", "w3", "b3")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test (the suite's workers would
+    oversubscribe the CPU otherwise)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mlp(rng):
     h = cpb.HID
     w = [rng.normal(size=(2, h)) / np.sqrt(2), rng.normal(size=(h,)) * 0.1,

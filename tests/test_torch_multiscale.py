@@ -280,7 +280,7 @@ def test_multiscale_entries_run_one_fold_and_serve_its_checkpoint(tmp_path):
     gives the final evaluation's logits bitwise."""
     cfg = _cfg(1, synthetic_data=True, synthetic_train_size=4,
                synthetic_test_size=3, kfold=1, epochs=1,
-               checkpoints=str(tmp_path))
+               checkpoints=str(tmp_path), debug=True)
     final = tmain.main(cfg, device="cpu")[0]
     assert set(final["detail"]) == {f"{n}_{t}" for n in (
         "acc", "f1", "auc", "bac", "sens", "spec", "prec") for t in TAGS}
@@ -306,7 +306,7 @@ def test_multiscale_entry_runs_from_the_command_line_without_jax(tmp_path):
         " '--synthetic_data', 'true', '--fixdim', '64', '--batch_size', '2',"
         " '--synthetic_train_size', '2', '--synthetic_test_size', '2',"
         " '--kfold', '1', '--epochs', '1', '--device', 'cpu',"
-        " '--checkpoints', '#']\n"
+        " '--checkpoints', '#', '--debug']\n"
         "runpy.run_module('disentangled_multimodal_learning_tpu_torch.main',"
         " run_name='__main__')\n"
         "print('HEAVY', [m for m in ('jax', 'jaxlib', 'flax', 'pandas')"

@@ -70,6 +70,16 @@ LOGITS_TOL, ATTN_TOL = 1e-4, 1e-5
 ZERO_GRAD_BIASES = ("rel_pos_bias.mlp.2.bias", "cluster_merge.score.bias")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test (the suite's workers would
+    oversubscribe the CPU otherwise)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -212,7 +222,7 @@ def test_student_inference_matches_jax_eval_step(monkeypatch, jax_noise,
             want.setdefault(k, []).append(np.asarray(v)[:B - batch.pad])
     cfg = Config(mode="student", fixdim=FIXDIM, batch_size=B,
                  synthetic_data=True, synthetic_test_size=3,
-                 cpb_table_divisor=1).validate()
+                 cpb_table_divisor=1, debug=True).validate()
     model = jax_params.load_jax_params(define_net(cfg, "cpu"),
                                        jax_student_params, "student")
     metrics, logits = inference.main(cfg, device="cpu", model=model)
@@ -253,7 +263,7 @@ def test_student_entries_run_from_the_command_line_without_jax():
         "import runpy, sys\n"
         "tiny = ['--config', sys.argv[1], '--mode', 'student',"
         " '--synthetic_data', 'true', '--fixdim', '64', '--batch_size', '2',"
-        " '--synthetic_test_size', '2', '--device', 'cpu']\n"
+        " '--synthetic_test_size', '2', '--device', 'cpu', '--debug']\n"
         "sys.argv = ['inference'] + tiny\n"
         f"runpy.run_module('{port}.inference', run_name='__main__')\n"
         "sys.argv = ['main'] + tiny + ['--checkpoints', '#',"

@@ -154,7 +154,7 @@ def test_inference_matches_jax_eval_step(monkeypatch, jax_params, tmp_path):
     y = np.concatenate(labels)[:, 5]
 
     cfg, model = _port("teacher", 1, jax_params[False])
-    cfg = cfg.replace(synthetic_data=True, synthetic_test_size=3)
+    cfg = cfg.replace(synthetic_data=True, synthetic_test_size=3, debug=True)
     metrics, logits = inference.main(cfg, device="cpu", model=model)
     assert set(logits) == set(want)
     for k in want:
@@ -348,7 +348,7 @@ def test_port_runs_without_jax_or_flax():
         f"    importlib.import_module('{port}.' + m)\n"
         "tiny = ['--config', sys.argv[1], '--synthetic_data', 'true',"
         " '--fixdim', '64', '--batch_size', '2', '--synthetic_test_size', '3',"
-        " '--device', 'cpu']\n"
+        " '--device', 'cpu', '--debug']\n"
         "sys.argv = ['inference'] + tiny\n"
         f"runpy.run_module('{port}.inference', run_name='__main__')\n"
         "sys.argv = ['main'] + tiny + ['--checkpoints', '#',"

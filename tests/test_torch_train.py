@@ -343,7 +343,7 @@ def test_training_entry_runs_folds_with_the_eval_cadence(tmp_path):
     cfg = Config(fixdim=FIXDIM, batch_size=B, synthetic_data=True,
                  synthetic_train_size=4, synthetic_test_size=3, kfold=2,
                  epochs=2, eval_every_iters=3, checkpoints="#",
-                 cpb_table_divisor=1).validate()
+                 cpb_table_divisor=1, debug=True).validate()
     logged = []
     logger = types.SimpleNamespace(log=logged.append)
     results = tmain.main(cfg, device="cpu", logger=logger)
@@ -373,7 +373,7 @@ def test_training_entry_runs_from_the_command_line():
          "--synthetic_data", "true", "--checkpoints", "#", "--fixdim", "64",
          "--batch_size", "2", "--synthetic_train_size", "2",
          "--synthetic_test_size", "2", "--kfold", "1", "--epochs", "1",
-         "--device", "cpu"],
+         "--device", "cpu", "--debug"],
         capture_output=True, text=True, cwd=REPO, timeout=300,
         env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert proc.returncode == 0, proc.stderr
