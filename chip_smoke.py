@@ -206,7 +206,10 @@ with ``return_vgrid``) with seeded random weights:
    a whole co-training batch) and the wall of one co-training epoch of
    teacher train steps with and without ``PrefetchLoader``, five of each,
    alternating (a gain is claimed only where every prefetched epoch beats
-   every plain one);
+   every plain one); builds a co-training batch of 4 with the threaded C++
+   reader (``data/native_io.py``) and with numpy (``DMLT_NO_NATIVE``),
+   bitwise equal, 8 bags read each way, both host times beside the host's
+   CPU;
 3j. runs both entries of every baseline at the preset's widths (``path``,
    ``transmil``, ``omic``, ``pathomic`` with concat and with ``fusion_type
    pofusion``, ``pathomic_original``, ``pathomic_fg``,
@@ -250,7 +253,29 @@ with ``return_vgrid``) with seeded random weights:
    trace names K1-fwd's and K1-bwd's kernels 20 times each; the
    ``StepTimer`` over 30 steps against the CUDA events' median
    (``STEP_TIMER_TOL``); ablation and permutation importance (1 trial) of
-   pathomic over 8 eval bags, timed.
+   pathomic over 8 eval bags, timed;
+3m. the training entry at the preset in a ``torch.distributed`` group of
+   one rank under NCCL (a ``chip_smoke.py --rank`` subprocess with the
+   ``DMLT_COORDINATOR`` / ``DMLT_NUM_PROCESSES`` / ``DMLT_PROCESS_ID``
+   rendezvous; 3 steps and an eval batch, K1-fwd 4 and K1-bwd 4 a step),
+   then in that subprocess one ``deterministic_training`` preset step in a
+   group of one rank against the same step without a group, run three
+   times: the metrics bitwise, the gradients bitwise or, as the plain step
+   does not repeat bitwise on the card (``grid_sample``'s backward adds
+   with atomics), within ``REPEAT_FACTOR`` times the plain runs' largest
+   spread;
+5m. two ranks on the one card under gloo (NCCL refuses two ranks on one
+   device; the kernels are built before the spawn, so each rank loads the
+   library), on phase 5's f32 batch under ``deterministic_training``:
+   data parallelism on the teacher, TransMIL's token axis (2,501 tokens
+   padded to 2,560, 256 landmarks, 1,280 tokens a rank), tensor
+   parallelism on the teacher at divisor 1 and 0 (4 heads a rank), the
+   scale branches on multiscale and distillation as a 2-stage pipeline of
+   2 microbatches: each step against the single-process step on the card
+   from the same weights (``compare_train_step``'s tolerances; the updated
+   model's eval logits within ``LOGITS_TOL``), the ranks' parameters
+   bitwise equal, every rank's launches exact and printed (no time: two
+   ranks sharing a card measure no scaling).
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
@@ -262,7 +287,7 @@ attn_dim 1, divisor 1; K5: the teacher's in (b); K6: the teacher's in
 (a); K2-nk: the "nk" teacher's train steps; K7: its entry's run; the
 distillation runs of phase 3g, the multiscale runs of 3h, the
 real-data runs of 3i and the baselines of 3j add no kernel and change no
-entry), and K2's
+entry; the per-rank counts of 3m and 5m are on their own lines), and K2's
 ``max_abs_err`` is the larger of its errors at the 2-D and the 1-D shape.
 Launches made for comparisons and timings are not counted.  K5's times are
 at divisor 4 in f32, K6's at the preset's dropout 0.1, K2-nk's at the
@@ -284,6 +309,7 @@ non-zero without a result line when there is no CUDA device.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import math
@@ -296,6 +322,10 @@ import time
 K1_TOL = 1e-5
 K2_TOL = 1e-4
 LOGITS_TOL = 1e-4
+# phase 3m: the card's train step does not repeat bitwise (atomics in
+# grid_sample's backward): the step in a group of one rank is held within
+# this factor of the plain step's largest run-to-run spread
+REPEAT_FACTOR = 4
 # backward kernels, norm-relative against float64 plain versions on the
 # card.  K1: the shift cotangents are per-row sums of 2.5 k terms that
 # cancel (measured 2.9e-6 on the H100, the f32 plain version 4.1e-6);
@@ -907,21 +937,28 @@ def table_bwd_ptxas(log: str) -> list[tuple[str, str]]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(lib: str) -> str:
+    """``cuobjdump -sass`` of the library ``lib``, dumped once a run (one
+    dump takes ~17 s, and three phases read it)."""
+    from pathlib import Path
+
+    from disentangled_multimodal_learning_tpu_torch.ops import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+
+
 def sass_counts(lib, keys, instances=None) -> list[str]:
     """Per instance of the kernels whose names hold one of ``keys`` in the
     library ``lib`` (named by ``instances`` where given): its tensor-core
     (HMMA), f32 FMA (FFMA), spill store (STL) and spill load (LDL)
     instructions, from ``cuobjdump -sass``."""
     import re
-    from pathlib import Path
 
-    from disentangled_multimodal_learning_tpu_torch.ops import build
-
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
     found = []
-    for line in sass.splitlines():
+    for line in _sass(str(lib)).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             key = next((k for k in keys if k in m.group(1)), None)
@@ -1405,6 +1442,12 @@ def main() -> int:
     compare_importance(f32, dev, card)
     torch.cuda.empty_cache()
     time_aux(train_preset, f32, batch, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phases 3m, 5m: training over process groups ---------------------
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        check_group_of_one(train_preset, batch, dev, tmp, card)
+        check_parallel_layouts(f32, batch, dev, tmp, card)
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernel_line(
@@ -3545,7 +3588,7 @@ def run_real_data_entries(data_dir: str, ckpt_dir: str, dev,
 
     from disentangled_multimodal_learning_tpu_torch import inference
     from disentangled_multimodal_learning_tpu_torch import main as train_main
-    from disentangled_multimodal_learning_tpu_torch.data.bag_io import (
+    from disentangled_multimodal_learning_tpu_torch.data.native_io import (
         load_bag_batch)
     from disentangled_multimodal_learning_tpu_torch.data.datasets import (
         IvYGAP_Dataset)
@@ -3700,7 +3743,7 @@ def time_real_data(data_dir: str, dev, card: str) -> None:
     slower only if every one is beaten, else unresolved."""
     import torch
 
-    from disentangled_multimodal_learning_tpu_torch.data.bag_io import (
+    from disentangled_multimodal_learning_tpu_torch.data.native_io import (
         load_bag_batch)
     from disentangled_multimodal_learning_tpu_torch.data.cohorts import (
         read_manifest)
@@ -3740,6 +3783,7 @@ def time_real_data(data_dir: str, dev, card: str) -> None:
           f"a whole co-training batch (2 scales, .npy) "
           f"{host_ms(lambda: both.batch([0, 7, 12, 15])):.3f} ms "
           f"(median of 10) | {card}")
+    compare_native_reader(cfg, both, host_ms, card)
     model = define_net(cfg, dev)
     opt = make_optimizer(cfg, model.parameters())
     step = make_train_step(model, cfg, opt, make_scheduler(cfg, opt, 1000))
@@ -3768,6 +3812,50 @@ def time_real_data(data_dir: str, dev, card: str) -> None:
           f"median plain {median(sorted(plain)):.3f} ms, prefetch "
           f"{median(sorted(fetched)):.3f} ms; prefetch {verdict} | {card}")
     del model, opt, step
+
+
+def compare_native_reader(cfg, both, host_ms, card: str) -> None:
+    """Phase 6i's reader check: a co-training batch of 4 (IvYGAP's 20x bags
+    from its pack, the rest from ``.npy`` files) built by the threaded C++
+    reader and by numpy (``DMLT_NO_NATIVE``, fresh datasets, so that no
+    pack stays mapped natively), bitwise equal, with both host times."""
+    import numpy as np
+
+    from disentangled_multimodal_learning_tpu_torch.data import native_io
+    from disentangled_multimodal_learning_tpu_torch.data.cohorts import (
+        read_manifest)
+    from disentangled_multimodal_learning_tpu_torch.data.datasets import (
+        ConcatDataset, IvYGAP_Dataset, TCGA_Dataset)
+
+    rows = [0, 7, 12, 15]
+    native_io.reads.update(native=0, numpy=0)
+    native = both.batch(rows)
+    reads = dict(native_io.reads)
+    native_ms = host_ms(lambda: both.batch(rows))
+    os.environ["DMLT_NO_NATIVE"] = "1"
+    try:
+        plain_ds = ConcatDataset([
+            IvYGAP_Dataset(read_manifest(cfg, "IvYGAP"), cfg),
+            TCGA_Dataset(read_manifest(cfg, "TCGA"), cfg)])
+        native_io.reads.update(native=0, numpy=0)
+        plain = plain_ds.batch(rows)
+        numpy_reads = dict(native_io.reads)
+        numpy_ms = host_ms(lambda: plain_ds.batch(rows))
+    finally:
+        del os.environ["DMLT_NO_NATIVE"]
+    fields = ("x_path10", "x_path20", "x_omic", "x_omic_tumor",
+              "x_omic_immune", "label")
+    equal = all(np.array_equal(getattr(native, f), getattr(plain, f))
+                for f in fields)
+    print(f"[time] a co-training batch of 4 at the preset (2 scales; "
+          f"IvYGAP's 20x from its pack): the threaded C++ reader "
+          f"{native_ms:.3f} ms (reads {reads}), numpy {numpy_ms:.3f} ms "
+          f"(reads {numpy_reads}), host ms, median of 10, page cache warm; "
+          f"bitwise equal: {equal} | host {host_cpu()} | {card}")
+    if (not equal or reads != {"native": 8, "numpy": 0}
+            or numpy_reads != {"native": 0, "numpy": 8}):
+        raise RuntimeError("the native reader's batch differs from numpy's, "
+                           "or a path read what it should not")
 
 
 def baseline_configs(train_preset) -> list:
@@ -4561,6 +4649,353 @@ def time_aux(train_preset, f32, batch, dev, card: str) -> None:
         raise RuntimeError("ablation or permutation importance not finite")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _save_batch(batch, path: str) -> None:
+    import numpy as np
+
+    np.savez(path, **{k: getattr(batch, k) for k in (
+        "x_path10", "x_path20", "x_omic", "x_omic_tumor", "x_omic_immune",
+        "label")})
+
+
+def _load_batch(path: str):
+    import numpy as np
+
+    from disentangled_multimodal_learning_tpu_torch.data.contract import Batch
+
+    z = np.load(path)
+    return Batch(**{k: z[k] for k in z.files})
+
+
+def _run_ranks(spec: dict, tmp: str, env: dict | None = None,
+               timeout: float = 600) -> list:
+    """``chip_smoke.py --rank`` for each rank of ``spec`` (its output
+    printed, indented); returns the ranks' results."""
+    path = os.path.join(tmp, f"{spec['phase']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", path, str(r)],
+        env={**os.environ, **(env or {}), "DMLT_PROCESS_ID": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(spec["world"])]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print("\n".join(f"  [rank {r}] {line}" for line in log.splitlines()
+                        if line.startswith("[")))
+        if p.returncode != 0:
+            raise RuntimeError(f"{spec['phase']}: rank {r} failed:\n"
+                               + log[-4000:])
+    import torch
+
+    return [torch.load(os.path.join(tmp, f"{spec['phase']}.rank{r}.pt"))
+            for r in range(spec["world"])]
+
+
+def _step_outputs(cfg, weights, batch, dev, layout=None) -> dict:
+    """One train step of ``cfg`` from the state_dicts ``weights`` (the
+    model's, and distillation's teacher's) on ``batch``: its metrics, every
+    gradient (float64, CPU), the launches of the step, and the updated
+    model's eval logits of the batch (``{}`` where ``layout`` makes this a
+    rank other than 0)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors)
+    from disentangled_multimodal_learning_tpu_torch.train.trainers import (
+        make_step)
+
+    model, teacher = define_net(cfg, dev), None
+    if cfg.mode == "distillation":
+        model, teacher = model
+        teacher.load_state_dict(weights["teacher"])
+    model.load_state_dict(weights["model"])
+    opt = make_optimizer(cfg, model.parameters())
+    step, _ = make_step(cfg, model, opt, make_scheduler(cfg, opt, 1),
+                        teacher, layout)
+    tensors = batch_to_tensors(batch, dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    reset_counts()
+    metrics = step(tensors)
+    sync()
+    n = counts()
+    logits = {}
+    if layout is None or layout.rank == 0:
+        model.eval()
+        with torch.inference_mode():
+            out = model(**model_inputs(batch, dev, "student"
+                                       if cfg.mode == "distillation"
+                                       else cfg.mode))
+        logits = out[2] if isinstance(out[2], dict) else {"logits": out[1]}
+        logits = {k: v.float().cpu() for k, v in logits.items()}
+    return {"metrics": {k: v.item() for k, v in metrics.items()},
+            "grads": {k: p.grad.double().cpu()
+                      for k, p in model.named_parameters()},
+            "params": {k: v.cpu() for k, v in model.state_dict().items()},
+            "launches": n, "logits": logits}
+
+
+def parallel_worker(spec_path: str, rank: int) -> int:
+    """A rank of phase 3m (the training entry in a group of one rank under
+    NCCL, then a preset step in such a group against the plain step) or of
+    phase 5m (two gloo ranks on the one card, each layout's step from the
+    spec's weights on its batch)."""
+    import torch
+    import torch.distributed as dist
+
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+    from disentangled_multimodal_learning_tpu_torch.config import Config
+    from disentangled_multimodal_learning_tpu_torch.parallel import mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    tmp = os.path.dirname(spec_path)
+    batch = _load_batch(spec["batch"])
+    dev = torch.device(spec["device"], 0)
+    out = {}
+    if spec["phase"] == "3m":
+        cfg = Config(**spec["cfg"])
+        # the training entry: it joins the DMLT_* group (NCCL on the card)
+        # and leaves it
+        reset_counts()
+        results = train_main.main(cfg.replace(deterministic_training=False),
+                                  device=dev)
+        out["entry"] = {"launches": counts(),
+                        "losses": results[0]["train_losses"]}
+        weights = {"model": torch.load(spec["weights"]["model"])}
+        out["plain"] = [_step_outputs(cfg, weights, batch, dev)
+                        for _ in range(3)]
+        os.environ["DMLT_COORDINATOR"] = spec["second_coordinator"]
+        dev = mesh.init_process_group(1, dev)
+        layout = mesh.choose_layout(cfg)
+        out["group"] = _step_outputs(cfg, weights, batch, dev, layout)
+        out["backend"] = dist.get_backend()
+        mesh.leave_process_group()
+    else:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method="file://" + spec["store"],
+                                rank=rank, world_size=spec["world"])
+        for name, cfg_dict in spec["cases"].items():
+            cfg = Config(**cfg_dict)
+            weights = {k: torch.load(v)
+                       for k, v in spec["weights"][name].items()}
+            layout = mesh.choose_layout(cfg, has_teacher="teacher" in weights)
+            out[name] = _step_outputs(cfg, weights, batch, dev, layout)
+            out[name]["layout"] = (layout.kind, layout.dp, layout.inner)
+            print(f"[5m] {name}: {layout.kind} layout, data {layout.dp} x "
+                  f"{layout.inner}; rank {rank} launches "
+                  f"{ {k: v for k, v in out[name]['launches'].items() if v} }")
+            torch.cuda.empty_cache()
+        mesh.leave_process_group()
+    torch.save(out, os.path.join(tmp, f"{spec['phase']}.rank{rank}.pt"))
+    return 0
+
+
+def _grad_errors(got: dict, want: dict, layout_1d: bool = False) -> tuple:
+    """``(rel-L2 per gradient, whether the zero-gradient biases are below
+    their floor)`` as ``compare_train_step`` holds them."""
+    errs, ok = {}, True
+    for name, w in want.items():
+        g = got[name]
+        if name.endswith(ZERO_GRAD_BIASES):
+            floor = (ZERO_GRAD_FLOOR_1D if ".attn1d." in name or layout_1d
+                     or name.endswith(POOLING_BIASES) else ZERO_GRAD_FLOOR)
+            scale = want[name[:-4] + "weight"].abs().max().item()
+            ok &= max(g.abs().max().item(), w.abs().max().item()) <= (
+                floor * scale)
+            continue
+        errs[name] = ((g - w).norm() / max(w.norm().item(), 1e-30)).item()
+    return errs, ok
+
+
+def check_group_of_one(train_preset, batch, dev, tmp: str, card: str) -> None:
+    """Phase 3m: the training entry at the preset in a process group of
+    one rank under NCCL (a subprocess with the ``DMLT_*`` rendezvous; 3
+    steps and an eval batch, K1-fwd 4 and K1-bwd 4 a step, the eval K1-fwd
+    4); then in that subprocess one ``deterministic_training`` preset step
+    in a group of one rank (its only collective the gradient's all-reduce)
+    against the same step without a group, run three times: the metrics
+    (the forward) bitwise; the gradients and parameters bitwise, or, since
+    the plain step does not repeat bitwise on the card (``F.grid_sample``'s
+    backward adds with atomics), the group's step within
+    ``REPEAT_FACTOR`` times the plain runs' largest spread of each other
+    (from its closest plain run; the spread is a few ulps of the largest
+    gradient entries and varies from run to run, hence the factor)."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+
+    cfg = train_preset.replace(deterministic_training=True)
+    weights = os.path.join(tmp, "3m.model.pt")
+    torch.save(define_net(cfg, "cpu").state_dict(), weights)
+    _save_batch(batch, os.path.join(tmp, "3m.batch.npz"))
+    spec = {"phase": "3m", "world": 1, "device": torch.device(dev).type,
+            "cfg": {f: getattr(cfg, f) for f in cfg.__dataclass_fields__},
+            "weights": {"model": weights},
+            "batch": os.path.join(tmp, "3m.batch.npz"),
+            "second_coordinator": f"127.0.0.1:{_free_port()}"}
+    t0 = time.perf_counter()
+    (res,) = _run_ranks(spec, tmp, env={
+        "DMLT_COORDINATOR": f"127.0.0.1:{_free_port()}",
+        "DMLT_NUM_PROCESSES": "1"})
+    wall = time.perf_counter() - t0
+    steps = train_preset.synthetic_train_size // train_preset.batch_size
+    want = _sum_counts(steps, dict(k1_fwd=4, k1_bwd=4), 1, dict(k1_fwd=4))
+    n = res["entry"]["launches"]
+    print(f"[3m] training entry in a group of one rank ({res['backend']}): "
+          f"{steps} steps, losses {res['entry']['losses']}, launches {n} "
+          f"(the subprocess's whole phase {wall:.1f} s) | {card}")
+    if n != want or not all(map(math.isfinite, res["entry"]["losses"])):
+        raise RuntimeError(f"3m: launches {n}, want {want}")
+    plain, b = res["plain"], res["group"]
+    if b["launches"] != expect(k1_fwd=4, k1_bwd=4) or any(
+            b["metrics"] != a["metrics"] for a in plain):
+        raise RuntimeError(f"3m: the group's step {b['metrics']} "
+                           f"{b['launches']} vs the plain "
+                           f"{[a['metrics'] for a in plain]}")
+
+    def diff(x, y):
+        return max((x["grads"][k] - y["grads"][k]).abs().max().item()
+                   for k in x["grads"])
+
+    spread = max(diff(x, y) for i, x in enumerate(plain)
+                 for y in plain[i + 1:])
+    d_group = min(diff(b, a) for a in plain)
+    bitwise = d_group == 0 and any(
+        all(torch.equal(b["params"][k], v) for k, v in a["params"].items())
+        for a in plain)
+    print(f"[3m] one deterministic_training preset step in the group vs "
+          f"without (3 runs): metrics bitwise equal {b['metrics']}; "
+          f"gradients and parameters bitwise equal to a plain run: "
+          f"{bitwise} (the group's step to its closest plain run "
+          f"{d_group:.3e}, the plain runs' largest spread {spread:.3e}, tol "
+          f"{REPEAT_FACTOR} x the spread) | {card}")
+    if not (bitwise or d_group <= REPEAT_FACTOR * spread):
+        raise RuntimeError("3m: the step in a group of one rank differs "
+                           "from the step without a group")
+
+
+# phase 5m: each layout as changes to phase 5's f32 preset (two gloo ranks
+# on the one card), and each rank's launches in its step (pipe: stage 0 the
+# teacher's forward of 2 microbatches, stage 1 the student's)
+PARALLEL_LAYOUTS = {
+    "dp": (dict(), dict(k1_fwd=4, k1_bwd=4)),
+    "seq": (dict(mode="transmil", seq_shard_devices=2), dict()),
+    "tp": (dict(tp_devices=2), dict(k1_fwd=4, k1_bwd=4)),
+    "tp_divisor0": (dict(tp_devices=2, cpb_table_divisor=0),
+                    dict(k2_fwd=4, k2_bwd=4)),
+    "branch": (dict(mode="multiscale", branch_devices=2),
+               dict(k1_fwd=3, k1_bwd=3, k3_knn=1, k3_parent=1)),
+    "pipe": (dict(mode="distillation", pipe_devices=2, pipe_microbatches=2,
+                  distill_teacher_cache=False),
+             (dict(k1_fwd=8), dict(k1_fwd=4, k1_bwd=4, k3_knn=4,
+                                   k3_parent=4))),
+}
+
+
+def check_parallel_layouts(f32, batch, dev, tmp: str, card: str) -> None:
+    """Phase 5m: two ranks on the one card under gloo (the kernels built
+    before, so neither rebuilds them), the preset's batch of 4 bags in f32
+    under ``deterministic_training``: data parallelism on the teacher,
+    TransMIL's token axis over 2 ranks (2,501 tokens padded to 2,560, 256
+    landmarks: 1,280 tokens, 128 whole segments a rank), tensor parallelism
+    on the teacher at divisor 1 and 0 (4 heads a rank), the scale branches
+    on multiscale, and distillation as a pipeline of 2 microbatches.  Each
+    step against the single-process step on the card from the same weights
+    (``compare_train_step``'s tolerances on the losses and the gradients,
+    the updated model's eval logits within ``LOGITS_TOL``), every rank's
+    launches exact; the ranks' parameters bitwise equal.  No time is
+    printed: two ranks sharing one card measure no scaling."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+
+    base = f32.replace(deterministic_training=True, nodes=2)
+    spec = {"phase": "5m", "world": 2, "store": os.path.join(tmp, "store"),
+            "device": torch.device(dev).type,
+            "batch": os.path.join(tmp, "5m.batch.npz"), "cases": {},
+            "weights": {}}
+    _save_batch(batch, spec["batch"])
+    for name, (changes, _) in PARALLEL_LAYOUTS.items():
+        cfg = base.replace(**changes)
+        spec["cases"][name] = {f: getattr(cfg, f)
+                               for f in cfg.__dataclass_fields__}
+        nets = define_net(cfg, "cpu")
+        nets = dict(zip(("model", "teacher"), nets if isinstance(nets, tuple)
+                        else (nets,)))
+        spec["weights"][name] = {}
+        for role, net in nets.items():
+            path = os.path.join(tmp, f"5m.{name}.{role}.pt")
+            torch.save(net.state_dict(), path)
+            spec["weights"][name][role] = path
+    t0 = time.perf_counter()
+    ranks = _run_ranks(spec, tmp)
+    wall = time.perf_counter() - t0
+    for name, (changes, per_rank) in PARALLEL_LAYOUTS.items():
+        cfg = base.replace(**changes)
+        weights = {k: torch.load(v) for k, v in spec["weights"][name].items()}
+        want = _step_outputs(cfg, weights, batch, dev)
+        got = [r[name] for r in ranks]
+        wants = per_rank if isinstance(per_rank, tuple) else (per_rank,) * 2
+        launches = [g["launches"] for g in got]
+        skip = ("batchloss",) if name == "pipe" else ()
+        metrics = {k: v for k, v in want["metrics"].items() if k not in skip}
+        task = "taskloss"
+        loss_err = abs(got[0]["metrics"]["loss"] - metrics["loss"]) / abs(
+            metrics["loss"])
+        task_err = abs(got[0]["metrics"][task] - metrics[task]) / abs(
+            metrics[task])
+        errs, bias_ok = _grad_errors(got[0]["grads"], want["grads"])
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:2]
+        logit_err = max((got[0]["logits"][k] - v).abs().max().item()
+                        for k, v in want["logits"].items())
+        same = all(torch.equal(got[1]["params"][k], v)
+                   for k, v in got[0]["params"].items())
+        print(f"[5m] {name} ({got[0]['layout'][0]} layout, 2 gloo ranks on "
+              f"one card): task loss rel {task_err:.2e} (tol "
+              f"{TASK_LOSS_TOL}), loss rel {loss_err:.2e} (tol "
+              f"{STEP_LOSS_TOL}), {len(errs)} gradients, worst rel-L2 "
+              f"{worst} (tol {GRAD_TOL}), zero-gradient biases below their "
+              f"floor: {bias_ok}; updated model's logits max_abs_err "
+              f"{logit_err:.3e} (tol {LOGITS_TOL}); ranks' parameters "
+              f"bitwise equal: {same}; launches per rank "
+              f"{[{k: v for k, v in n.items() if v} for n in launches]} | "
+              f"{card}")
+        if (set(got[0]["metrics"]) != set(metrics)
+                or not task_err <= TASK_LOSS_TOL
+                or not loss_err <= STEP_LOSS_TOL or not bias_ok
+                or not all(e <= GRAD_TOL for e in errs.values())
+                or not logit_err <= LOGITS_TOL or not same
+                or launches != [expect(**w) for w in wants]):
+            raise RuntimeError(f"5m: the {name} layout's step disagrees with "
+                               "the single-process step")
+    print(f"[5m] six layouts' steps on 2 ranks in {wall:.1f} s (the ranks' "
+          f"start, set-up and first calls included; no speed figure) | "
+          f"{card}")
+
+
 def profile(label: str, fn, n: int = 5, rows: int = 30) -> tuple:
     """torch.profiler over ``n`` calls of ``fn`` after 3 warm-up calls:
     the kernel table (``rows`` rows) and the device's busy and idle share;
@@ -4592,4 +5027,6 @@ def profile(label: str, fn, n: int = 5, rows: int = 30) -> tuple:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # a rank of phase 3m or 5m
+        sys.exit(parallel_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Experiment config of the port: the fields the teacher, student,
 multiscale, deformpathomic, distillation and baseline serving and training
-paths and the real-data loaders read, under the
+paths, the real-data loaders and the parallel layouts read, under the
 names and defaults of the JAX ``Config``
 (``disentangled_multimodal_learning_tpu/config.py``), so its YAML presets
 load unchanged.  ``yaml`` is imported only when a YAML file is read;
@@ -10,9 +10,10 @@ without it.
 Every other key of the JAX ``Config`` sits in one of two tables:
 :data:`IGNORED` (keys the port ignores on purpose, each with its reason) and
 :data:`LATER` (keys a later part of the port reads, each with its JAX
-default and that part's subject).  :meth:`Config.from_dict` raises
-``NotImplementedError`` for a LATER key set to anything but its JAX default,
-and ``ValueError`` for a key in neither table: JAX keeps such keys in
+default and that part's subject; empty since the parallel part).
+:meth:`Config.from_dict` raises ``NotImplementedError`` for a LATER key
+set to anything but its JAX default, and ``ValueError`` for a key in
+neither table: JAX keeps such keys in
 ``cfg._extra`` and may read them (``define_net`` does, through ``getattr``),
 so dropping one could change what runs."""
 
@@ -31,28 +32,26 @@ TASK_CLASS_WEIGHTS = {
 }
 
 
-_TPU = "a TPU or cluster setting; the port runs on one card"
+_TPU = "a TPU setting of the JAX package"
 _UNREAD = "the JAX package reads it nowhere (a reference CLI key)"
+_CLUSTER = ("the JAX package reads it nowhere (a reference cluster key; the "
+            "process group comes from nodes and the DMLT_* environment)")
 # JAX Config keys the port ignores on purpose -> why
 IGNORED = {
     "remat": _TPU, "use_pallas": _TPU, "scan_steps": _TPU,
     "mesh_data_axis": _TPU, "compute_dtype": _TPU,
     "checkpoint_backend": "the orbax/pickle choice of the JAX checkpoints",
-    "tp_devices": _TPU, "branch_devices": _TPU,
-    "pipe_devices": _TPU, "pipe_microbatches": _TPU,
-    "nodes": _TPU, "gpus": _TPU, "nr": _TPU, "rank": _TPU,
-    "world_size": _TPU, "dataparallel": _TPU,
-    "visiable_device": _TPU,
+    "gpus": _CLUSTER, "nr": _CLUSTER, "rank": _CLUSTER,
+    "world_size": _CLUSTER, "dataparallel": _CLUSTER,
+    "visiable_device": _CLUSTER,
     "cut_fuse_grad": _UNREAD, "image_size": _UNREAD, "return_grad": _UNREAD,
     "survival_interval": _UNREAD, "start_epoch": _UNREAD,
     "label_path": _UNREAD, "dataDir_pyramid": _UNREAD, "pyramid": _UNREAD,
     "dataset": _UNREAD, "combination_type": _UNREAD, "act_type": _UNREAD,
 }
-_PARALLEL = "parallel part (TransMIL's token axis sharded over devices)"
-# JAX Config keys a later part of the port reads -> (JAX default, subject)
-LATER = {
-    "seq_shard_devices": (0, _PARALLEL), "seq_shard_dp": (0, _PARALLEL),
-}
+# JAX Config keys a later part of the port reads -> (JAX default, subject):
+# none since the parallel part
+LATER: dict = {}
 
 
 def yaml_config_hook(config_file: str) -> dict:
@@ -189,6 +188,20 @@ class Config:
     debug: bool = False
     log_dir: str = "./logs"
     wandb: bool = False
+    # training over several processes (JAX config.py:113-145; the port's
+    # parallel/): the process group joins with nodes > 1 (or a
+    # DMLT_COORDINATOR rendezvous); tensor parallelism over the 2-D
+    # attention's heads, the two magnifications on their own ranks, the
+    # distillation pipeline with its microbatches, TransMIL's token axis
+    # over seq_shard_devices ranks (seq_shard_dp data groups of them); else
+    # data parallelism over every rank (train/trainers.py)
+    nodes: int = 1
+    tp_devices: int = 0
+    branch_devices: int = 0
+    pipe_devices: int = 0
+    pipe_microbatches: int = 2
+    seq_shard_devices: int = 0
+    seq_shard_dp: int = 0
 
     @property
     def class_weights(self):

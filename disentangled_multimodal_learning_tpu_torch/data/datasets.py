@@ -20,7 +20,8 @@ dataset exposes its omic sizes as ``omic_sizes`` (the config fields
 config; unlike the reference's ctor it leaves the config it is given as it
 is.  An empty ``Diag`` takes the WHO-2021 rule (``contract.derive_diag2021``).  A
 bag is zero-padded or truncated to ``fixdim`` rows (``pad_to``: a bucket's
-side squared, ``data/bucketing.py``).
+side squared, ``data/bucketing.py``), by the threaded C++ reader
+(``data/native_io.py``) from the pack or the ``.npy`` files.
 
 JAX quirk kept: an ``IDH`` string that is neither "WT" nor a number (for
 example "Mutant") reads as wild type, as ``int(float("Mutant"))`` fails and
@@ -33,8 +34,8 @@ import os
 
 import numpy as np
 
-from .bag_io import read_bags
 from .contract import NUM_LABEL_COLUMNS, Batch, LabelCol, derive_diag2021
+from .native_io import read_bags
 from .packing import PackFile
 
 CLINICAL_COLS = (

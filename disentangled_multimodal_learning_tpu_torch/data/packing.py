@@ -24,8 +24,9 @@ as the datasets look for it::
     python -m disentangled_multimodal_learning_tpu_torch.data.packing \\
         <dataDir>/<COHORT>/feats10 <dataDir>/<COHORT>/feats10.dmltpack
 
-The reader is ``np.memmap`` only: JAX's threaded C++ reader
-(``native/dmlt_io.cpp``) is not ported.
+The reader maps the file once: the threaded C++ reader
+(``data/native_io.py``, as JAX's ``PackFile`` uses it, ``packing.py:
+148-155``), or ``np.memmap`` under ``DMLT_NO_NATIVE`` (the same bytes).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import struct
 import sys
 
 import numpy as np
+
+from . import native_io
 
 MAGIC = b"DMLTPCK1"
 HEADER_FMT = "<8sQQQQQ"  # magic, n_bags, feat_dim, index_off, names_off, payload_off
@@ -94,9 +97,9 @@ def pack_bags(npy_dir: str, out_path: str, feat_dim: int | None = None) -> int:
 
 
 class PackFile:
-    """A ``.dmltpack`` read through ``np.memmap``: ``rows(name)`` (the true
-    length, -1 when absent) and ``get`` / ``get_batch`` zero-padded or
-    truncated to ``fixdim`` rows."""
+    """A ``.dmltpack``: ``rows(name)`` (the true length, -1 when absent) and
+    ``get`` / ``get_batch`` zero-padded or truncated to ``fixdim`` rows,
+    read by the C++ reader (``native``) or through ``np.memmap``."""
 
     def __init__(self, path: str):
         self.path = path
@@ -116,6 +119,16 @@ class PackFile:
             start = names_off + int(noff)
             name = bytes(self._mm[start:start + int(nlen)]).decode()
             self.index[name] = (int(doff), int(rows))
+        self._handle = native_io.pack_open(path)
+
+    @property
+    def native(self) -> bool:
+        return self._handle is not None
+
+    def close(self) -> None:
+        if self._handle is not None:
+            native_io.pack_close(self._handle)
+            self._handle = None
 
     def rows(self, name: str) -> int:
         return self.index.get(name, (0, -1))[1]
@@ -134,6 +147,11 @@ class PackFile:
         for bag, name in zip(out, names):
             if bag.shape[1] != self.feat_dim or name not in self.index:
                 raise KeyError(name)
+        if self._handle is not None:
+            native_io.pack_read(self._handle, names, out)
+            return
+        native_io.reads["numpy"] += len(out)
+        for bag, name in zip(out, names):
             doff, rows = self.index[name]
             n = min(rows, bag.shape[0])
             bag[:n] = np.frombuffer(

@@ -24,9 +24,12 @@ cohorts' fold 0 rebuilt from the seed (``data/cohorts.py``; CPTAC's with
 cohort raises ``FileNotFoundError`` (JAX falls back to synthetic bags).
 
 It runs on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
-and raises where there is no card.  Without ``--config`` the in-code
-diag2021 preset is used (no ``yaml`` needed).  The weights come from the
-checkpoint (the port's ``.pt`` or a reference-named ``.pth``; else
+and raises where there is no card.  With ``nodes > 1`` (or a
+``DMLT_COORDINATOR`` rendezvous) it joins the process group as the
+training entry does (``parallel/mesh.py``); rank 0 evaluates, prints and
+logs, and the other ranks return empty results.  Without ``--config``
+the in-code diag2021 preset is used (no ``yaml`` needed).  The weights
+come from the checkpoint (the port's ``.pt`` or a reference-named ``.pth``; else
 ``checkpoints_teacher`` for the teachers, ``checkpoints_student`` for the
 other modes, as in JAX); without one they are a seeded random init, with a
 warning.  Distillation evaluates the student of ``(student, teacher)``.
@@ -52,6 +55,7 @@ from .data.loader import BagLoader
 from .data.synthetic import SyntheticBagDataset
 from .main import eval_loader
 from .models.factory import define_net, require_device
+from .parallel import mesh
 from .train.evaluation import (TAGS, Evaluator, export_dir,
                                headline_metrics, model_type_of)
 from .train.trainers import (testBaselineModel, testDeformPathomicModel,
@@ -88,7 +92,20 @@ def main(cfg: Config, checkpoint: str | None = None, device="cuda",
     a JSONL file in ``log_dir``).  Returns ``({f"{metric}_{tag}": value},
     {f"logits_{tag}": [M, C]})`` over the M test bags.  A ``model`` given
     here is used as it is (weights already loaded, on ``device``)."""
-    device = require_device(device)
+    joined = mesh.wants_process_group(cfg) and not mesh.in_group()
+    if joined:
+        device = mesh.init_process_group(cfg.nodes, device)
+    try:
+        if mesh.world_rank()[1] != 0:
+            return {}, {}
+        return _evaluate(cfg, checkpoint, require_device(device), model,
+                         logger)
+    finally:
+        if joined:
+            mesh.leave_process_group()
+
+
+def _evaluate(cfg: Config, checkpoint, device, model, logger):
     if logger is None:
         logger = Logger(cfg)
     loader = build_fold0_test_loader(cfg)

@@ -21,6 +21,11 @@ in distillation mode, ``run_training`` itself for a baseline: ``path``,
         --config config/config_mine_diag2021.yaml --synthetic_data false \\
         --dataDir D [--coTraining false] [--external_eval true] \\
         [--buckets 1600,2500] [--printDataSplit true] [--workers 4]
+    DMLT_COORDINATOR=127.0.0.1:29500 DMLT_NUM_PROCESSES=2 \\
+        DMLT_PROCESS_ID=<r> python -m \\
+        disentangled_multimodal_learning_tpu_torch.main ... --nodes 2 \\
+        [--tp_devices 2 | --branch_devices 2 | --mode distillation \\
+        --pipe_devices 2 ... | --mode transmil --seq_shard_devices 2]
 
 Distillation builds ``(student, teacher)`` and restores the teacher from
 ``checkpoints_teacher`` and the student from ``checkpoints_student``, where
@@ -32,7 +37,12 @@ Each fold writes a metric-stamped checkpoint into ``checkpoints`` (``.pt``,
 
 It trains on the card (``cuda``) unless ``--device cpu`` asks for the CPU,
 and raises where there is no card.  Without ``--config`` the in-code
-diag2021 preset is used (no ``yaml`` needed).  Synthetic fold ``f`` trains
+diag2021 preset is used (no ``yaml`` needed).  With ``nodes > 1`` (or a
+``DMLT_COORDINATOR`` rendezvous) each process is one rank of a process
+group (root ``main.py:146-170``; ``parallel/mesh.py``): on the card
+``cuda:<rank % local cards>`` under NCCL, on the CPU gloo; each fold
+trains in the layout ``run_training`` chooses, rank 0 alone evaluates,
+logs, saves and prints.  Synthetic fold ``f`` trains
 on ``synthetic_train_size`` bags drawn from seed ``seed + f`` and evaluates
 on ``synthetic_test_size`` bags from ``seed + 100 + f``; a real fold on the
 cohorts' patient-level folds; each with a fresh seeded model, as in JAX.
@@ -54,6 +64,7 @@ from .data.cohorts import cohort_folds
 from .data.loader import BagLoader, PrefetchLoader
 from .data.synthetic import SyntheticBagDataset
 from .models.factory import BASELINES, define_net, require_device
+from .parallel import mesh
 from .train.evaluation import export_dir, model_type_of
 from .train.trainers import (run_training, trainDeformPathomicModel,
                              trainDistillation, trainMultiScaleModel,
@@ -145,13 +156,27 @@ def fold_datasets(cfg: Config):
 def main(cfg: Config, device="cuda", logger=None) -> dict:
     """Train every fold; returns ``{fold: final metrics}``.  Each cadence
     evaluation goes to ``logger``, by default a :class:`Logger` of ``cfg``
-    (nothing under ``debug``, else a JSONL file in ``log_dir``)."""
-    device = require_device(device)
+    (nothing under ``debug``, else a JSONL file in ``log_dir``; on rank 0
+    alone in a process group, which this joins with ``nodes > 1``)."""
+    joined = mesh.wants_process_group(cfg) and not mesh.in_group()
+    if joined:
+        device = mesh.init_process_group(cfg.nodes, device)
+    try:
+        return _train_folds(cfg, require_device(device), logger)
+    finally:
+        if joined:
+            mesh.leave_process_group()
+
+
+def _train_folds(cfg: Config, device, logger) -> dict:
+    lead = mesh.world_rank()[1] == 0
     if logger is None:
-        logger = Logger(cfg)
+        logger = Logger(cfg if lead else cfg.replace(debug=True))
     np.random.seed(cfg.seed)
     results = {}
-    for fold, train_ds, test_ds in fold_datasets(cfg):
+    # rank 0 alone writes the split dumps
+    for fold, train_ds, test_ds in fold_datasets(
+            cfg if lead else cfg.replace(printDataSplit=False)):
         # a cohort's gene lists size the omic encoders
         sizes = {} if cfg.synthetic_data else train_ds.omic_sizes
         fold_cfg = cfg.replace(cur_fold=fold, **sizes)
@@ -159,9 +184,10 @@ def main(cfg: Config, device="cuda", logger=None) -> dict:
         _, metrics, ckpt = dispatch_training(fold_cfg, device, loaders,
                                              logger)
         results[fold] = metrics
-        print(f"\n[fold {fold}] " + " ".join(
-            f"{k}={v:.4f}" for k, v in metrics.items()
-            if isinstance(v, float)) + f"  ckpt={ckpt}")
+        if lead:
+            print(f"\n[fold {fold}] " + " ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items()
+                if isinstance(v, float)) + f"  ckpt={ckpt}")
     return results
 
 

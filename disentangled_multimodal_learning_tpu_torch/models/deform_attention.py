@@ -50,6 +50,7 @@ from torch import nn
 from ..ops import cpb as cpb_ops
 from ..ops import cpb1d as cpb1d_ops
 from ..ops import fused_table as fused_ops
+from ..parallel import mesh
 
 
 ATTN_LAYOUTS = ("nk", "kn", "auto")
@@ -87,7 +88,9 @@ class PointwiseConv(nn.Module):
     ``[..., in] -> [..., out]``.  Holds the reference's Conv2d weight
     ``[out, in/groups, 1, 1]`` (Conv1d ``[out, in/groups, 1]`` with
     ``conv1d``); computes as a (block-diagonal) matmul, so the tokens never
-    go through NCHW."""
+    go through NCHW.  ``groups=(first, count)`` applies only those groups
+    of a grouped conv to an input ``[..., count * in/groups]`` holding only
+    their channels (a rank's share under tensor parallelism)."""
 
     def __init__(self, in_features: int, out_features: int, groups: int = 1,
                  bias: bool = False, conv1d: bool = False):
@@ -98,14 +101,18 @@ class PointwiseConv(nn.Module):
             torch.empty(out_features, in_features // groups, *kernel))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
-    def forward(self, x, dtype: torch.dtype | None = None):
+    def forward(self, x, dtype: torch.dtype | None = None, groups=None):
         w = self.weight.flatten(1)
+        g = self.groups
+        if groups is not None:
+            first, g = groups
+            w = w.unflatten(0, (self.groups, -1))[first:first + g].flatten(
+                0, 1)
         if dtype is not None:
             x, w = x.to(dtype), w.to(dtype)
         if self.groups == 1:
             y = F.linear(x, w)
         else:
-            g = self.groups
             y = torch.einsum("...gi,goi->...go", x.unflatten(-1, (g, -1)),
                              w.unflatten(0, (g, -1))).flatten(-2)
         y = y.float()
@@ -161,13 +168,17 @@ class CPB(nn.Module):
                 cpb_ops.table_shifts(grid_kv, side=side, kv_bound=kv_bound))
 
     def forward(self, grid_q, grid_kv, *, side: int, table_divisor: int,
-                kv_bound: float, out_dtype=torch.float32, layout: str = "kn"):
+                kv_bound: float, out_dtype=torch.float32, layout: str = "kn",
+                groups: int | None = None):
         """``grid_q [N, P]``, ``grid_kv [B*G, K, P]`` -> ``[B, H, K, N]``
         (``[B, H, N, K]`` in "nk"; ``side`` is the 2-D grid's side, the 1-D
         table needs none); the 2-D table stores ``out_dtype``, every other
-        path f32."""
+        path f32.  ``groups``: the offset groups ``grid_kv`` holds (a
+        rank's share under tensor parallelism; default all), whose heads
+        the result has."""
         bg, k, P = grid_kv.shape
-        b = bg // self.offset_groups
+        groups = groups or self.offset_groups
+        b = bg // groups
         n = grid_q.shape[0]
         w = self.weights()
         table = layout == "kn" and table_divisor > 0  # JAX: "kn" only
@@ -188,7 +199,8 @@ class CPB(nn.Module):
             bias = exact(grid_q, grid_kv, *w)
         # head = g * (heads/groups) + o, as in the JAX module (:317-321)
         plane = (n, k) if layout == "nk" else (k, n)
-        return bias.reshape(b, self.heads, *plane)
+        return bias.reshape(b, groups * (self.heads // self.offset_groups),
+                            *plane)
 
 
 def normalized_grid(h: int, w: int, device=None):
@@ -255,17 +267,41 @@ class DeformCrossAttention2D(nn.Module):
         self.rel_pos_bias = CPB(dim // 4, heads, offset_groups)
         self.to_out = PointwiseConv(inner, dim, bias=True)
 
+    def head_shard(self):
+        """``(group, first group, groups)`` of this rank in a running
+        tensor-parallel step (``parallel/tp_shard.py``), else None."""
+        group = mesh.inner_group("model")
+        if group is None:
+            return None
+        n, t = mesh.group_size(group), mesh.group_rank(group)
+        G = self.offset_groups
+        if self.heads != G or G % n:
+            raise ValueError(
+                f"tensor parallelism splits the {G} offset groups (each one "
+                f"head) over {n} ranks: needs heads == offset_groups "
+                f"(here {self.heads}) and {G} % {n} == 0")
+        return group, t * (G // n), G // n
+
     def forward(self, x1, x2, return_vgrid: bool = False):
         B, N, C = x1.shape
         side = math.isqrt(N)
         if side * side != N:
             raise ValueError(f"token count {N} must be a perfect square")
         G, H, dh = self.offset_groups, self.heads, self.dim_head
+        # under tensor parallelism this rank's groups g0 .. g0 + G - 1
+        shard = self.head_shard()
+        sel = shard[1:] if shard else None
+        if shard:
+            g0, G = sel
+            H = G * self.heads // self.offset_groups
         low = self.attn_bf16_streams and x1.is_cuda
         cdt = torch.bfloat16 if low else None  # matmul operand dtype
         sdt = torch.bfloat16 if low else torch.float32  # sim / attn streams
 
-        q = self.to_q(x1, cdt)                                   # [B, N, inner]
+        if shard:  # this rank's groups' input channels
+            x1 = x1.unflatten(-1, (self.offset_groups, -1))[
+                ..., g0:g0 + G, :].flatten(-2)
+        q = self.to_q(x1, cdt, sel)                          # [B, N, inner]
         # offsets: the depthwise conv is shared by the G groups, so the
         # groups fold into the batch ([B*G, od, side, side])
         qg = q.reshape(B, side, side, G, -1).permute(0, 3, 4, 1, 2)
@@ -281,14 +317,17 @@ class DeformCrossAttention2D(nn.Module):
                            vgrid[:, 1] * (2.0 / max(gh - 1, 1)) - 1.0],
                           dim=-1)                                # [B*G,gh,gw,2]
 
-        x2g = x2.reshape(B, side, side, G, -1).permute(0, 3, 4, 1, 2)
+        x2g = x2.reshape(B, side, side, self.offset_groups, -1)
+        if shard:
+            x2g = x2g[:, :, :, g0:g0 + G]
+        x2g = x2g.permute(0, 3, 4, 1, 2)
         kv = F.grid_sample(x2g.reshape(B * G, -1, side, side), pts,
                            mode="bilinear", padding_mode="zeros",
                            align_corners=False)                  # [B*G,cg,gh,gw]
         K = gh * gw
-        kv = kv.reshape(B, G, -1, K).permute(0, 3, 1, 2).reshape(B, K, C)
-        k = self.to_k(kv, cdt)
-        v = self.to_v(kv, cdt)
+        kv = kv.reshape(B, G, -1, K).permute(0, 3, 1, 2).reshape(B, K, -1)
+        k = self.to_k(kv, cdt, sel)
+        v = self.to_v(kv, cdt, sel)
 
         def split(t):
             return t.reshape(B, -1, H, dh).transpose(1, 2)       # [B,H,L,dh]
@@ -302,14 +341,12 @@ class DeformCrossAttention2D(nn.Module):
         if self.layout == "nk":
             bias = self.rel_pos_bias(grid_q, pts.reshape(B * G, K, 2),
                                      side=side, table_divisor=divisor,
-                                     kv_bound=kv_bound, layout="nk")
+                                     kv_bound=kv_bound, layout="nk", groups=G)
             sim = _f32_matmul(qh, kh.transpose(-1, -2), opd)
             attn = torch.softmax(sim + bias, dim=-1)             # [B,H,N,K]
             dropped = F.dropout(attn, self.dropout, self.training)
             out = _f32_matmul(dropped, vh, opd)
-            out = out.transpose(1, 2).reshape(B, N, H * dh)
-            return self.to_out(out), (vgrid if return_vgrid else attn)
-        if self.fused_table_attention and divisor == 1 and H == G:
+        elif self.fused_table_attention and divisor == 1 and H == G:
             table, shifts = self.rel_pos_bias.table_parts(
                 pts.reshape(B * G, K, 2), side=side, kv_bound=kv_bound)
             rate = self.dropout if self.training else 0.0
@@ -319,22 +356,33 @@ class DeformCrossAttention2D(nn.Module):
             out, attn = fused_ops.fused_table_attention(
                 qh.reshape(B * H, N, dh), kh.reshape(B * H, K, dh),
                 vh.reshape(B * H, K, dh), table, shifts, side, seed, rate)
-            out = out.reshape(B, H, N, dh).transpose(1, 2).reshape(B, N, H * dh)
-            return (self.to_out(out),
-                    vgrid if return_vgrid else attn.reshape(B, H, K, N))
-        bias = self.rel_pos_bias(
-            grid_q, pts.reshape(B * G, K, 2), side=side, table_divisor=divisor,
-            kv_bound=kv_bound,
-            out_dtype=(torch.bfloat16 if self.cpb_table_bf16 and x1.is_cuda
-                       else torch.float32))
-        sim = torch.matmul(kh.to(opd), qh.to(opd).transpose(-1, -2)).to(sdt)
-        sim = sim + bias.to(sdt)                                 # [B,H,K,N]
-        attn = torch.softmax(sim.float(), dim=-2).to(sdt)
-        dropped = F.dropout(attn, self.dropout, self.training)
-        out = torch.matmul(dropped.transpose(-1, -2).to(opd),
-                           vh.to(opd)).float()
+            out = out.reshape(B, H, N, dh)
+            attn = attn.reshape(B, H, K, N)
+        else:
+            bias = self.rel_pos_bias(
+                grid_q, pts.reshape(B * G, K, 2), side=side,
+                table_divisor=divisor, kv_bound=kv_bound,
+                out_dtype=(torch.bfloat16 if self.cpb_table_bf16
+                           and x1.is_cuda else torch.float32), groups=G)
+            sim = torch.matmul(kh.to(opd),
+                               qh.to(opd).transpose(-1, -2)).to(sdt)
+            sim = sim + bias.to(sdt)                             # [B,H,K,N]
+            attn = torch.softmax(sim.float(), dim=-2).to(sdt)
+            dropped = F.dropout(attn, self.dropout, self.training)
+            out = torch.matmul(dropped.transpose(-1, -2).to(opd),
+                               vh.to(opd)).float()
         out = out.transpose(1, 2).reshape(B, N, H * dh)
-        return self.to_out(out), (vgrid if return_vgrid else attn)
+        if shard is None:
+            return self.to_out(out), (vgrid if return_vgrid else attn)
+        # this rank's heads' rows of to_out, summed over the ranks; the
+        # maps (or the vgrids) of every head gathered for the losses
+        group = shard[0]
+        w = self.to_out.weight.flatten(1)[:, g0 * dh * H // G:][:, :H * dh]
+        y = mesh.sum_over(F.linear(out, w), group) + self.to_out.bias
+        if return_vgrid:
+            full = mesh.gather_over(vgrid.unflatten(0, (B, G)), 1, group)
+            return y, full.flatten(0, 1)
+        return y, mesh.gather_over(attn, 1, group)
 
 
 class DeformCrossAttention1D(nn.Module):

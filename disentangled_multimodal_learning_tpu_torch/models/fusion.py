@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 class FlaxBatchNorm1d(nn.Module):
     """BatchNorm over ``[B, C]`` as flax keeps it, not as torch does: in
@@ -17,7 +19,10 @@ class FlaxBatchNorm1d(nn.Module):
     (flax ``momentum`` 0.9; torch's ``BatchNorm1d`` keeps the unbiased one,
     4/3 of it at B = 4); in eval mode it normalises by the running
     statistics.  eps 1e-5, flax's default.  The statistics are buffers, so
-    a checkpoint holds them."""
+    a checkpoint holds them.  In a data-parallel train step the batch
+    statistics span the rows of every rank of the data group
+    (``parallel/mesh.py batch_moments``; the reference's SyncBatchNorm,
+    JAX's statistics over the global batch)."""
 
     MOMENTUM, EPS = 0.9, 1e-5
 
@@ -32,13 +37,22 @@ class FlaxBatchNorm1d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.EPS)
+        group = mesh.batch_group()
+        if group is not None:
+            mean, var = mesh.batch_moments(x, group)
+            self._update(mean.detach(), var.detach())
+            return ((x - mean) * torch.rsqrt(var + self.EPS) * self.weight
+                    + self.bias)
         with torch.no_grad():
-            m = self.MOMENTUM
-            self.running_mean.mul_(m).add_((1 - m) * x.mean(dim=0))
-            self.running_var.mul_(m).add_((1 - m) * x.var(dim=0,
-                                                          unbiased=False))
+            self._update(x.mean(dim=0), x.var(dim=0, unbiased=False))
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.EPS)
+
+    @torch.no_grad()
+    def _update(self, mean, var):
+        m = self.MOMENTUM
+        self.running_mean.mul_(m).add_((1 - m) * mean)
+        self.running_var.mul_(m).add_((1 - m) * var)
 
 
 class BilinearFusion(nn.Module):

@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nystrom import nystrom_attention
+from ..parallel import mesh
+from ..parallel.seq_shard import nystrom_attention_seq_sharded
 
 LN_EPS = 1e-6
 
@@ -75,7 +77,10 @@ class NystromAttention(nn.Module):
     ``residual`` is off), ``to_out`` and dropout.  The
     residual is the reference's depthwise ``Conv2d(heads, heads, (33, 1),
     groups=heads)`` over ``v [B, h, N, dh]`` (JAX repeats each head's
-    filter over the flattened ``[B, N, inner]`` values: the same sums)."""
+    filter over the flattened ``[B, N, inner]`` values: the same sums).
+    In a sharded train step the pinv's maxima span the rows of the data
+    group, and in a ``seq`` layout the core runs on this rank's chunk of
+    the tokens (``parallel/seq_shard.py``; JAX's ``seq_mesh``)."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  num_landmarks: int = 256, dropout: float = 0.0,
@@ -96,8 +101,17 @@ class NystromAttention(nn.Module):
         B, N, _ = x.shape
         q, k, v = (t.unflatten(-1, (self.heads, self.dim_head)).transpose(1, 2)
                    for t in self.to_qkv(x).chunk(3, dim=-1))
-        out = nystrom_attention(q * self.dim_head ** -0.5, k, v,
-                                self.num_landmarks, self.pinv_iterations)
+        q = q * self.dim_head ** -0.5
+        a = mesh.current()  # a sharded step: its pinv group, its token axis
+        pinv_group = a.layout.pinv_group if a else None
+        seq = mesh.inner_group("seq")
+        if seq is not None:
+            out = nystrom_attention_seq_sharded(
+                q, k, v, self.num_landmarks, seq, self.pinv_iterations,
+                pinv_group)
+        else:
+            out = nystrom_attention(q, k, v, self.num_landmarks,
+                                    self.pinv_iterations, pinv_group)
         if self.res_conv is not None:
             out = out + self.res_conv(v)
         return self.dropout(self.to_out(out.transpose(1, 2).flatten(2)))

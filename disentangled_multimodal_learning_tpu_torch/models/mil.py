@@ -62,8 +62,8 @@ class TransMIL(nn.Module):
     (N(0, 1) at init), TransLayer -> PPEG -> TransLayer, LayerNorm, and the
     cls token's classifier and projection.  At N 2,500 the sequence is
     2,501 tokens, left-padded to 2,560 for the 256 landmarks.  JAX's
-    ``seq_mesh`` (the token axis sharded over chips) belongs to the
-    parallel part of the port, which ``models/factory.py`` refuses."""
+    ``seq_mesh`` (the token axis sharded over chips) is a layout of the
+    train step here (``seq_shard_devices``, ``parallel/seq_shard.py``)."""
 
     def __init__(self, label_dim: int, path_dim: int = 128,
                  input_dim: int = 1024, dim: int = 512):

@@ -2,16 +2,19 @@
 (counterpart of ``disentangled_multimodal_learning_tpu/models/teacher_student.py``:
 ``ClusterMergeNet`` :53, ``TeacherEncoder`` :80, ``StudentEncoder`` :108,
 ``TeacherNet`` :129, ``StudentNet`` :158, ``TeachersNet`` :180,
-``StudentsNet`` :241, ``TeacherStudentNet`` :286, ``MultiScaleNet`` :310,
-unstacked).
+``StudentsNet`` :241, ``TeacherStudentNet`` :286, ``MultiScaleNet`` :310).
 
 ``unimodal=True`` gives the uniteacher (queries are ``[path, path]``).
 Outputs are the reference's six structured dicts, keyed as in JAX.
 ``MultiScaleNet`` trains a teacher and a student per magnification side by
 side (each scale a ``TeacherStudentNet`` with its own omic encoders); the
 reference's dead ``fusion`` FusionNet has no counterpart (its keys are
-skipped on load, ``utils/checkpoint.py``), and JAX's ``stacked_scales``
-layout comes with the parallel part of the port.  Train
+skipped on load, ``utils/checkpoint.py``).  JAX's ``stacked_scales``
+layout (one subnetwork vmapped over both scales, for its scale-branch
+parallelism) has no module of its own here: the port's scale layout runs
+each scale's subnetwork under its unstacked name on its own rank
+(``parallel/branch_shard.py``), and ``utils/jax_params.py`` unstacks a
+stacked JAX param tree.  Train
 mode (``model.train()``) turns on the dropouts of the JAX model: AlphaDropout
 in both MaxNets, dropout 0.1 on the deformable attention weights and on the
 TransFusionLayers' MHA weights, and draws the student's DPC tie-break noise
@@ -27,6 +30,7 @@ import torch
 from torch import nn
 
 from ..ops import cluster as cluster_ops
+from ..parallel import mesh
 from .deform_attention import DeformCrossAttention2D
 from .layers import (FusionNet, Pooler, TransFusionLayer, combine_logits,
                      layer_norm, survival_chain)
@@ -63,7 +67,10 @@ class ClusterMergeNet(nn.Module):
         if self.training:
             noise = torch.rand((B, N), device=x.device)
         else:
-            noise = cluster_ops.pinned_density_noise((B, N), x.device)
+            # a sharded step's rows take their rows of the global draw
+            off, total = mesh.global_rows(B)
+            noise = cluster_ops.pinned_density_noise(
+                (total, N), x.device)[off:off + B]
         return cluster_ops.cluster_merge(x, cluster_num, token_weight, k=5,
                                          density_noise=noise)
 
@@ -283,13 +290,8 @@ class MultiScaleNet(nn.Module):
                  input_size_omic_immune: int, input_path_dim: int = 1024,
                  path_dim: int = 128, omic_dim: int = 128,
                  dropout_rate: float = 0.1, sample_ratio: float = 0.0008,
-                 combination_type: str = "max_confidence",
-                 stacked_scales: bool = False, **attn_kw):
+                 combination_type: str = "max_confidence", **attn_kw):
         super().__init__()
-        if stacked_scales:
-            raise NotImplementedError(
-                "stacked_scales: the scale-stacked layout is not ported yet; "
-                "it comes with the parallel part of the port")
         self.combination_type = combination_type
         kw = dict(label_dim=label_dim,
                   input_size_omic_tumor=input_size_omic_tumor,

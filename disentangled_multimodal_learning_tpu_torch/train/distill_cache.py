@@ -12,7 +12,10 @@ so a replay is an index on the card and no copy to the host.
 
 A cached row is the teacher's output for that sample in another batch;
 it equals a recompute as long as a sample's outputs do not depend on its
-batch-mates (the teacher has no batch statistics).  A loader without
+batch-mates (the teacher has no batch statistics).  In a parallel layout
+every rank holds the whole store: a miss runs the teacher on each rank's
+rows and gathers them (``steps.sharded_boundary``), keyed by the rows'
+dataset indices.  A loader without
 ``batch.indices``, or of unknown size, makes every batch recompute: the
 uncached cost, never a wrong value.
 

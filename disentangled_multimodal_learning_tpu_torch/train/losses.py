@@ -3,7 +3,9 @@ student, and the vgrid consistency loss of deformpathomic (counterpart of
 ``disentangled_multimodal_learning_tpu/train/losses.py``: weighted CE :30,
 ``nll_surv_loss`` :42, ``task_loss`` :89, ``path_batch_loss`` :131,
 ``distillation_loss`` :106, ``feature_distillation_loss`` :117,
-``diag_variance_loss`` :176, ``omic_domain_scale_loss`` :183,
+``path_batch_loss_stacked`` :156 (its per-scale Gram, :func:`gram_mean`,
+for the scale-branch layout), ``diag_variance_loss`` :176,
+``omic_domain_scale_loss`` :183,
 ``batch_loss_vgrid`` :200), and the reference losses no step calls
 (``compat.py`` and the tests do): ``cox_loss`` :65, ``ce_surv_loss`` :76,
 ``kl_loss`` :222, ``cosine_loss`` :235, ``orthogonal_loss`` :240,
@@ -94,14 +96,22 @@ def path_batch_loss(att10, att20):
     contraction over both trailing axes does not see the layout),
     row-normalized, averaged over heads; the squared difference of the two
     scales' averages, summed, over B."""
-    n = att10.shape[0]
+    return gram_mean_loss(gram_mean(att10), gram_mean(att20))
 
-    def gram_mean(a):
-        a = a.float().flatten(2).transpose(0, 1)                 # [H, B, KN]
-        s = a @ a.transpose(1, 2)                                # [H, B, B]
-        return (s / torch.linalg.vector_norm(s, dim=2, keepdim=True)).mean(0)
 
-    return ((gram_mean(att10) - gram_mean(att20)) ** 2 / n).sum()
+def gram_mean(a):
+    """One scale's share of :func:`path_batch_loss`: the per-head Grams of
+    the batch's flattened maps ``a [B, H, K, N]``, row-normalized,
+    averaged over heads -> ``[B, B]`` (the Gram JAX's
+    ``path_batch_loss_stacked`` keeps per scale before the seam)."""
+    a = a.float().flatten(2).transpose(0, 1)                     # [H, B, KN]
+    s = a @ a.transpose(1, 2)                                    # [H, B, B]
+    return (s / torch.linalg.vector_norm(s, dim=2, keepdim=True)).mean(0)
+
+
+def gram_mean_loss(m10, m20):
+    """:func:`path_batch_loss` from the two scales' :func:`gram_mean`."""
+    return ((m10 - m20) ** 2 / m10.shape[0]).sum()
 
 
 def diag_variance_loss(x, weight: float = 1.0):

@@ -49,6 +49,15 @@ student with ``train=True`` whatever ``deterministic_training`` says
 (``steps.py:371``), while its uncached step honours it; here both honour
 it, so that the two steps compute the same loss, as JAX's docstring says
 they do.
+
+In a parallel layout (``parallel/mesh.py``) the step takes the global
+batch on every rank and runs the rank's share of it: its rows' forward in
+the layout's context (BatchNorm, the Nystrom core and the 2-D attention
+run their sharded forms), the loss above on the outputs gathered over the
+data axis, the rank's share of the backward, one all-reduce of the
+gradient (JAX's ``psum``), then the modulation and the optimizer on the
+global gradient; the scale layout runs ``parallel/branch_shard.py``'s
+forward and backward, the pipeline ``parallel/pipe_shard.py``'s step.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ import torch
 
 from ..data.contract import LabelCol
 from ..models.factory import BASELINES
+from ..parallel import branch_shard, mesh
 from . import losses as L
 from .grad_modulate import modulate_kernel_grad
 
@@ -242,15 +252,36 @@ def make_teacher_boundary_fn(teacher):
     return teacher_boundary
 
 
-def make_distill_cached_step(model, cfg, optimizer, scheduler=None):
+def sharded_boundary(boundary_fn, layout):
+    """``boundary_fn`` over a global batch with each rank of ``layout``'s
+    data axis running it on its own rows (in the layout's step context),
+    the results gathered: the teacher's share of a sharded distillation
+    step, and what the teacher-output cache fills with."""
+    if layout is None or layout.size == 1:
+        return boundary_fn
+
+    def boundary(tensors: dict) -> tuple:
+        total = tensors["label"].shape[0]
+        off, b = layout.rows(total)
+        with mesh.active(layout, off, total):
+            out = boundary_fn(mesh.slice_rows(tensors, off, b))
+        return tuple(mesh.gather_rows(t, layout.data_group) for t in out)
+
+    return boundary
+
+
+def make_distill_cached_step(model, cfg, optimizer, scheduler=None,
+                             layout=None):
     """The distillation step on precomputed teacher boundary tensors,
     ``tensors[k]`` for ``k`` in :data:`BOUNDARY_KEYS`; otherwise the
     uncached step (see the module docstring)."""
     return _make_step(model, cfg, optimizer, scheduler,
-                      lambda tensors: tuple(tensors[k] for k in BOUNDARY_KEYS))
+                      lambda tensors: tuple(tensors[k] for k in BOUNDARY_KEYS),
+                      layout)
 
 
-def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None):
+def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None,
+                    layout=None):
     """The train step of ``cfg.mode`` (teacher, uniteacher, student,
     multiscale, deformpathomic, a baseline, or distillation with the frozen
     ``teacher``):
@@ -260,7 +291,10 @@ def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None):
     as they are on; deformpathomic: ``loss``, ``loss3`` and, with
     ``return_vgrid``, ``batch_sim_loss``; a baseline: ``loss`` and
     ``taskloss``); read them with ``float()`` only where the host needs
-    the value."""
+    the value.  With a ``layout`` (``parallel/mesh.py``) of more than one
+    rank, ``tensors`` is the global batch and the step is this rank's
+    share of it (:func:`_sharded_backward`); every rank returns the same
+    metrics and holds the same parameters after it."""
     if cfg.mode not in MODEL_INPUTS:
         raise NotImplementedError(f"mode {cfg.mode!r} is not a mode of the "
                                   "port")
@@ -276,14 +310,16 @@ def make_train_step(model, cfg, optimizer, scheduler=None, teacher=None):
         if teacher is None:
             raise ValueError("mode 'distillation' needs the frozen teacher "
                              "(teacher=...)")
-        return _make_step(model, cfg, optimizer, scheduler,
-                          make_teacher_boundary_fn(teacher))
-    return _make_step(model, cfg, optimizer, scheduler)
+        return _make_step(model, cfg, optimizer, scheduler, sharded_boundary(
+            make_teacher_boundary_fn(teacher), layout), layout)
+    return _make_step(model, cfg, optimizer, scheduler, layout=layout)
 
 
-def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None):
+def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None,
+               layout=None):
     """The step of :func:`make_train_step`; with ``boundary_fn``
-    (``tensors -> teacher boundary``) the distillation step."""
+    (``tensors -> teacher boundary`` of the global batch) the distillation
+    step; with ``layout``, a rank's share of a sharded step."""
     mode = cfg.mode
     inputs = MODEL_INPUTS[mode]
     loss_fn = {"deformpathomic": _deformpathomic_loss,
@@ -295,30 +331,40 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None):
     train_mode = not cfg.deterministic_training
     params = list(model.parameters())
 
+    def losses_of(out, label, boundary):
+        if boundary is not None:
+            return (*_distillation_loss(cfg, out, label, cw, boundary), [])
+        return loss_fn(model, cfg, out, label, cw)
+
     def train_step(tensors: dict) -> dict:
         boundary = boundary_fn(tensors) if boundary_fn is not None else None
         model.train(train_mode)
         optimizer.zero_grad(set_to_none=True)
         label = tensors["label"]
-        out = model(**{arg: tensors[key] for arg, key in inputs.items()})
-        if boundary is not None:
-            loss, metrics = _distillation_loss(cfg, out, label, cw, boundary)
-            modulated = []
+        if layout is not None and layout.size > 1:
+            loss, metrics, modulated = _sharded_backward(
+                model, cfg, tensors, inputs, layout, cw,
+                lambda out: losses_of(out, label, boundary))
         else:
-            loss, metrics, modulated = loss_fn(model, cfg, out, label, cw)
-        loss.backward()
+            out = model(**{arg: tensors[key] for arg, key in inputs.items()})
+            loss, metrics, modulated = losses_of(out, label, boundary)
+            loss.backward()
         # a parameter the loss does not reach (the MaxNets' classifiers)
         # gets a zero gradient, so the optimizer still decays it, as optax
         # does
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if layout is not None:
+            mesh.sum_grads(params, layout)
         if cfg.gradient_modulate:
             y = label[:, label_col]
             for cls, f1, f2 in modulated:
                 cls.weight.grad = modulate_kernel_grad(
                     cls.weight.grad, f1.detach(), f2.detach(),
                     cls.weight.detach(), cls.bias.detach(), y)
+            if layout is not None and layout.kind == "scale":
+                branch_shard.share_classifier_grads(model, cfg.mode, layout)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -326,3 +372,23 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None):
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def _sharded_backward(model, cfg, tensors, inputs, layout, cw, losses_of):
+    """This rank's forward and backward of a sharded step over the global
+    batch ``tensors``: the forward of its rows (in the layout's step
+    context, so that BatchNorm, the Nystrom core and the 2-D attention run
+    their sharded forms), then the loss of the whole batch on the outputs
+    gathered over the data axis and this rank's share of its backward
+    (``parallel/mesh.py backward_from_rows``); the scale layout runs its
+    own branch (``parallel/branch_shard.py``).  Returns ``(loss, metrics,
+    modulated classifiers)``."""
+    total = tensors["label"].shape[0]
+    off, b = layout.rows(total)
+    own = mesh.slice_rows(tensors, off, b)
+    with mesh.active(layout, off, total):
+        if layout.kind == "scale":
+            return branch_shard.forward_backward(model, cfg, own, tensors,
+                                                 layout, cw)
+        out = model(**{arg: own[key] for arg, key in inputs.items()})
+    return mesh.backward_from_rows(out, losses_of, layout)

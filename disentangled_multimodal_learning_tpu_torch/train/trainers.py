@@ -33,8 +33,19 @@ Distillation trains the student against the frozen ``teacher``: with
 step and a :class:`~.distill_cache.TeacherBoundaryCache` on the student's
 device; otherwise through the uncached step.
 
-What the JAX driver does besides, and the port does not: meshes and
-sharded steps, ``scan_steps``, and the orbax checkpoint backend.
+In a process group (``parallel/mesh.py``) every rank runs this driver on
+the same loaders: the layout comes from :func:`~..parallel.mesh.choose_layout`
+(JAX's precedence: the pipeline, tensor parallelism, the scale branches,
+TransMIL's token axis, data parallelism), the parameters start as rank
+0's, each step is the rank's share of the global batch, and rank 0 alone
+evaluates, logs and saves (its checkpoint is the single-process one).  The
+dropout stream of a rank is seeded with its data index added, so the data
+shards draw other masks and the ranks of one inner group the same ones
+(the replicated parts stay equal).  A pipeline (``pipe_devices``) trains
+distillation without the teacher-output cache, as JAX does.
+
+What the JAX driver does besides, and the port does not: ``scan_steps``,
+and the orbax checkpoint backend.
 """
 
 from __future__ import annotations
@@ -44,6 +55,8 @@ import time
 
 import torch
 
+from ..parallel import mesh
+from ..parallel.pipe_shard import make_pipe_distill_step
 from ..utils.checkpoint import (SUFFIX, metric_stamped_name,
                                 restore_state, save_checkpoint)
 from .distill_cache import TeacherBoundaryCache, loader_dataset_size
@@ -52,7 +65,8 @@ from .evaluation import (METRIC_NAMES, Evaluator, headline_metrics,
 from .optim import (ReduceLROnPlateau, make_optimizer, make_scheduler,
                     set_learning_rate)
 from .steps import (batch_to_tensors, make_distill_cached_step,
-                    make_teacher_boundary_fn, make_train_step)
+                    make_teacher_boundary_fn, make_train_step,
+                    sharded_boundary)
 
 
 def run_training(cfg, model, loaders, logger=None, model_type="teacher",
@@ -67,10 +81,21 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     evaluated outputs under ``logits``, the last step's ``train_loss`` and
     every step's under ``train_losses``; and the checkpoint's path (None
     where ``checkpoints`` is ``"#"``).  In distillation mode ``teacher`` is
-    the frozen teacher."""
+    the frozen teacher.  In a process group, ranks other than 0 return no
+    evaluation and no checkpoint (see the module docstring)."""
     train_loader, test_loader = loaders
     device = next(model.parameters()).device
     mode = cfg.mode
+    layout = None
+    if mesh.in_group():
+        layout = mesh.choose_layout(cfg, has_teacher=teacher is not None)
+        print(f"[parallel] rank {mesh.world_rank()[1]}: " + (
+            "the whole batch on every rank" if layout is None else
+            f"{layout.kind} layout, data {layout.dp} x {layout.kind} "
+            f"{layout.inner}" + (", idle" if layout.idle else "")))
+        if layout is not None and layout.idle:
+            return model, {}, None
+    lead = mesh.world_rank()[1] == 0
     steps_per_epoch = max(1, len(train_loader))
     plateau = (ReduceLROnPlateau(cfg.plateau_factor, cfg.plateau_patience,
                                  cfg.plateau_threshold)
@@ -81,6 +106,7 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     if state is not None:
         step = restore_state(model, optimizer, scheduler, state)
     saving = cfg.checkpoints not in ("#", "")
+    writing = saving and lead
     latest_name = f"{mode}_fold_{cfg.cur_fold + 1}_latest"
     latest_path = os.path.join(cfg.checkpoints, latest_name + SUFFIX)
     start_epoch = 0
@@ -90,20 +116,17 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
         print(f"[resume] {latest_path}: step {step} -> starting at epoch "
               f"{start_epoch}")
 
-    cache = None
-    n_samples = loader_dataset_size(train_loader)
-    if mode == "distillation" and cfg.distill_teacher_cache and n_samples:
-        cache = TeacherBoundaryCache(make_teacher_boundary_fn(teacher),
-                                     n_samples, device)
-        train_step = make_distill_cached_step(model, cfg, optimizer,
-                                              scheduler)
-    else:
-        train_step = make_train_step(model, cfg, optimizer, scheduler,
-                                     teacher=teacher)
+    if layout is not None:
+        for m in (model, teacher):
+            if m is not None:
+                mesh.broadcast_state(m, layout)
+    train_step, cache = make_step(cfg, model, optimizer, scheduler, teacher,
+                                  layout, loader_dataset_size(train_loader))
     evaluator = Evaluator(model, cfg, device, model_type)
     headline = evaluator.tags[-1]  # teas / stus / fused / simple
     score = "cindex" if evaluator.survival else "auc"
-    torch.manual_seed(cfg.seed + 1234)  # the dropout draws
+    # the dropout draws (a rank's stream: its data shard's)
+    torch.manual_seed(cfg.seed + 1234 + (layout.data_index if layout else 0))
     start = time.time()
     cur_iters = start_epoch * steps_per_epoch
     losses = []  # device scalars, read once at the end
@@ -123,7 +146,8 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
                 epoch_losses.append(metrics["loss"])
             crossed = (cur_iters // cfg.eval_every_iters
                        > prev_iters // cfg.eval_every_iters)
-            if cfg.eval_during_training and test_loader is not None and crossed:
+            if (cfg.eval_during_training and test_loader is not None
+                    and crossed and lead):
                 result = evaluate(evaluator, test_loader)
                 if logger is not None:
                     logger.log(eval_payload(evaluator, metrics, result))
@@ -138,7 +162,7 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
             mean_loss = float(torch.stack(epoch_losses).mean())
             set_learning_rate(optimizer, cfg.lr * plateau.step(mean_loss))
         every = cfg.save_every_epochs
-        if saving and every > 0 and (epoch + 1) % every == 0:
+        if writing and every > 0 and (epoch + 1) % every == 0:
             save_checkpoint(cfg.checkpoints, latest_name, model, optimizer,
                             scheduler, step,
                             extra={"mode": mode, "task": cfg.task_type,
@@ -147,7 +171,7 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     if cache is not None:
         print(f"[distill cache] {cache.hits} hits, {cache.misses} misses")
     final = {}
-    if test_loader is not None:
+    if test_loader is not None and lead:
         evaluator.model.eval()
         logits, labels = evaluator.logits(test_loader)
         detail = evaluator.metrics(logits, labels)
@@ -159,7 +183,7 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
         final["train_losses"] = torch.stack(losses).tolist()
         final["train_loss"] = final["train_losses"][-1]
     path = None
-    if saving:
+    if writing:
         stamp = final if test_loader is not None else dict.fromkeys(
             ("cindex",) + METRIC_NAMES, 0.0)
         path = save_checkpoint(
@@ -168,6 +192,27 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
             model, optimizer, scheduler, step,
             extra={"mode": mode, "task": cfg.task_type, "fold": cfg.cur_fold})
     return model, final, path
+
+
+def make_step(cfg, model, optimizer, scheduler, teacher=None, layout=None,
+              n_samples: int | None = None):
+    """``(train step, teacher-output cache or None)`` of ``cfg.mode`` in
+    ``layout``: the pipelined distillation step in a ``stage`` layout;
+    distillation with ``distill_teacher_cache`` and a train set of known
+    size ``n_samples``, the cached step and its cache on the model's
+    device (filled by the layout's ranks together); else
+    ``make_train_step``."""
+    if layout is not None and layout.kind == "stage":
+        return make_pipe_distill_step(model, teacher, cfg, optimizer,
+                                      scheduler, layout), None
+    if cfg.mode == "distillation" and cfg.distill_teacher_cache and n_samples:
+        cache = TeacherBoundaryCache(
+            sharded_boundary(make_teacher_boundary_fn(teacher), layout),
+            n_samples, next(model.parameters()).device)
+        return make_distill_cached_step(model, cfg, optimizer, scheduler,
+                                        layout), cache
+    return make_train_step(model, cfg, optimizer, scheduler, teacher=teacher,
+                           layout=layout), None
 
 
 def evaluate(evaluator, loader) -> dict:

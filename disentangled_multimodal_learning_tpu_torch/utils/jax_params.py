@@ -5,8 +5,11 @@ JAX params go through the port's own name map below (a copy of the JAX
 package's numpy-only exporter ``utils/torch_export.py``, so that the port
 imports nothing of that package): it writes the reference's names and torch
 layouts, which the port's modules carry.  The map covers the modes the port
-has, in the unstacked layout.  The reference's members that its forward
-never uses (StudentNet's ``norm`` and ``pooler1``, the attention of the
+has; a param tree in JAX's ``stacked_scales`` layout (``teacher_nets``,
+``student_nets``, ``scale_nets``: both scales' subnetworks on a leading
+axis of 2, JAX ``parallel/branch_shard.py``) is unstacked first
+(:func:`unstack_scale_params`; :func:`stack_scale_params` is its
+inverse).  The reference's members that its forward never uses (StudentNet's ``norm`` and ``pooler1``, the attention of the
 other ``attn_dim`` in ``DeformCrossTransLayer``) have no counterpart in
 the port, so the load stays strict.
 
@@ -28,8 +31,50 @@ import numpy as np
 import torch
 
 
+# JAX's stacked module -> the unstacked per-scale modules it replaces
+STACKED_NAMES = {
+    "teacher_nets": ("teacher10_net", "teacher20_net"),
+    "student_nets": ("student10_net", "student20_net"),
+    "scale_nets": ("scale10_net", "scale20_net"),
+}
+
+
 def _np(v):
     return np.asarray(v, dtype=np.float32)
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_scale_params(params: dict) -> dict:
+    """An unstacked param tree (``teacher10_net`` / ``teacher20_net`` ...)
+    in JAX's ``stacked_scales`` layout (one ``teacher_nets`` subtree whose
+    leaves have a leading axis of 2); other subtrees pass through (JAX
+    ``branch_shard.stack_scale_params``)."""
+    out, used = {}, set()
+    for stacked, (n10, n20) in STACKED_NAMES.items():
+        if n10 in params and n20 in params:
+            out[stacked] = _tree_map(lambda a, b: np.stack(
+                [np.asarray(a), np.asarray(b)]), params[n10], params[n20])
+            used.update((n10, n20))
+    out.update({k: v for k, v in params.items() if k not in used})
+    return out
+
+
+def unstack_scale_params(params: dict) -> dict:
+    """The inverse of :func:`stack_scale_params` (JAX
+    ``branch_shard.unstack_scale_params``)."""
+    out = {}
+    for k, v in params.items():
+        if k in STACKED_NAMES:
+            for i, name in enumerate(STACKED_NAMES[k]):
+                out[name] = _tree_map(lambda a: np.asarray(a)[i], v)
+        else:
+            out[k] = v
+    return out
 
 
 def _dense(p, key, out):
@@ -329,7 +374,9 @@ def jax_state_dict(params, mode: str, attn_dim: int = 2,
     ``student``, ``multiscale``, ``deformpathomic`` at ``attn_dim``,
     unstacked, or a baseline) and, for a model with BatchNorm
     (BilinearFusion), its ``batch_stats`` -> reference-named (baselines:
-    flax-named) state_dict of numpy arrays."""
+    flax-named) state_dict of numpy arrays; a tree in the
+    ``stacked_scales`` layout is unstacked first."""
+    params = unstack_scale_params(dict(params))
     out: dict = {}
     if mode in ("teacher", "uniteacher"):
         _maxnet(params["omic_net_tumor"], "omic_net_tumor", out)

@@ -469,8 +469,8 @@ def test_deformpathomic_bilinear_fusion_refuses_gradient_modulation():
 def test_every_factory_mode_builds_and_config_takes_the_baseline_keys():
     """``define_net`` builds all fourteen modes of the JAX factory (and
     distillation's pair); ``Config.from_dict`` takes the eight former LATER
-    keys at any value and any ``fusion_type``; TransMIL's token sharding
-    (the parallel part) is refused."""
+    keys at any value and any ``fusion_type``, and TransMIL's token
+    sharding (``seq_shard_devices``, a layout of the train step)."""
     assert len(MODES) == 15 and len(BASELINES) == 9
     cfg = Config.from_dict({"init_type": "xavier", "init_gain": 0.5,
                             "skip": 1, "use_bilinear": 0, "path_gate": 0,
@@ -481,7 +481,6 @@ def test_every_factory_mode_builds_and_config_takes_the_baseline_keys():
     assert model.fusion.linear_h2.out_features == 128 // 4
     for mode in MODES:
         assert define_net(cfg.replace(mode=mode, init_type="max"), "cpu")
-    with pytest.raises(NotImplementedError, match="parallel part"):
-        Config.from_dict({"seq_shard_devices": 2})
+    assert Config.from_dict({"seq_shard_devices": 2}).seq_shard_devices == 2
     with pytest.raises(NotImplementedError, match="initialization method"):
         Config(init_type="uniform").validate()

@@ -53,8 +53,6 @@ from disentangled_multimodal_learning_tpu_torch import inference
 from disentangled_multimodal_learning_tpu_torch import main as tmain
 from disentangled_multimodal_learning_tpu_torch.config import Config
 from disentangled_multimodal_learning_tpu_torch.models.factory import define_net
-from disentangled_multimodal_learning_tpu_torch.models.teacher_student import (
-    MultiScaleNet)
 from disentangled_multimodal_learning_tpu_torch.ops import cluster as tcluster
 from disentangled_multimodal_learning_tpu_torch.train import optim as toptim
 from disentangled_multimodal_learning_tpu_torch.train.steps import (
@@ -248,7 +246,8 @@ def test_name_map_and_reference_state_dict_load(tmp_path, jax_setup):
     reference-named ``.pth`` carrying the reference MultiScaleNet's dead
     ``fusion.fusion_layer`` keys loads strictly but for those (which JAX's
     importer skips too), giving the JAX weights; a key the model lacks
-    under any other name still fails."""
+    under any other name still fails; JAX's ``stacked_scales`` tree of the
+    same weights maps to the same state_dict."""
     _, params, _ = jax_setup
     got = jax_params.jax_state_dict(params, "multiscale")
     want = export_torch_state_dict(params, "multiscale")
@@ -269,8 +268,12 @@ def test_name_map_and_reference_state_dict_load(tmp_path, jax_setup):
     torch.save(sd, path)
     with pytest.raises(RuntimeError, match="scale10_net.extra.weight"):
         restore_state(model, None, None, path)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        MultiScaleNet(4, 59, 361, stacked_scales=True)
+    # JAX's stacked_scales layout of the same tree (scale_nets, leading
+    # axis 2) maps to the same state_dict
+    stacked = jax_params.stack_scale_params(jax.device_get(params))
+    assert set(stacked) == {"scale_nets"}
+    for k, v in jax_params.jax_state_dict(stacked, "multiscale").items():
+        np.testing.assert_array_equal(v, got[k], err_msg=k)
 
 
 def test_multiscale_entries_run_one_fold_and_serve_its_checkpoint(tmp_path):

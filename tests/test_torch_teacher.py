@@ -189,13 +189,14 @@ def test_inference_refuses_real_data_until_ported(tmp_path):
 
 def test_define_net_refuses_unported_modes():
     """Every mode of the JAX factory is ported (the baselines too): a mode
-    it does not know raises as JAX's does, and the one config the port
-    leaves for its parallel part, TransMIL's token axis sharded over
-    devices, raises naming that part."""
+    it does not know raises as JAX's does; TransMIL with its token axis
+    sharded over ranks builds the plain TransMIL (the sharding is a layout
+    of the train step, ``parallel/seq_shard.py``)."""
     with pytest.raises(NotImplementedError, match=r"model \[bogus\]"):
         define_net(Config(mode="bogus"), "cpu")
-    with pytest.raises(NotImplementedError, match="comes with the parallel"):
-        Config.from_dict({"mode": "transmil", "seq_shard_devices": 2})
+    cfg = Config.from_dict({"mode": "transmil", "seq_shard_devices": 2,
+                            "fixdim": 64})
+    assert type(define_net(cfg, "cpu")).__name__ == "TransMIL"
 
 
 def test_seeded_init_is_reproducible_and_finite():
@@ -262,15 +263,16 @@ def test_every_yaml_preset_loads(preset):
 
 
 def test_config_refuses_later_and_unknown_keys():
-    """A key ported later, set to anything but JAX's default, raises
-    ``NotImplementedError`` naming what brings it; at its default it loads;
-    a key that neither the port nor the JAX ``Config`` knows raises
-    ``ValueError`` (JAX would keep it in ``cfg._extra``, where its
-    ``define_net`` may read it)."""
-    with pytest.raises(NotImplementedError, match="comes with the parallel"):
-        Config.from_dict({"seq_shard_devices": 4})
-    with pytest.raises(NotImplementedError, match="comes with the parallel"):
-        Config.from_dict({"seq_shard_dp": 2})
+    """No key is left for a later part of the port (``LATER`` is empty
+    since the parallel part: its keys load at any value); a key that
+    neither the port nor the JAX ``Config`` knows raises ``ValueError``
+    (JAX would keep it in ``cfg._extra``, where its ``define_net`` may read
+    it)."""
+    from disentangled_multimodal_learning_tpu_torch import config as tconfig
+
+    assert tconfig.LATER == {}
+    assert Config.from_dict({"seq_shard_devices": 4}).seq_shard_devices == 4
+    assert Config.from_dict({"seq_shard_dp": 2}).seq_shard_dp == 2
     assert Config.from_dict({"init_type": "xavier", "skip": 1}).skip == 1
     with pytest.raises(ValueError, match="unknown config key 'fixdimm'"):
         Config.from_dict({"fixdimm": 64})
