@@ -32,14 +32,17 @@ TASK_CLASS_WEIGHTS = {
 }
 
 
-_TPU = "a TPU setting of the JAX package"
+_NOWHERE = "the JAX package reads it nowhere"
 _UNREAD = "the JAX package reads it nowhere (a reference CLI key)"
 _CLUSTER = ("the JAX package reads it nowhere (a reference cluster key; the "
             "process group comes from nodes and the DMLT_* environment)")
 # JAX Config keys the port ignores on purpose -> why
 IGNORED = {
-    "remat": _TPU, "use_pallas": _TPU, "scan_steps": _TPU,
-    "mesh_data_axis": _TPU, "compute_dtype": _TPU,
+    "remat": ("JAX's CPB_REMAT recomputes the CPB MLP in the backward to "
+              "save memory, with equal results; the port's CPB backward "
+              "kernels read no stored MLP activations"),
+    "use_pallas": _NOWHERE, "mesh_data_axis": _NOWHERE,
+    "compute_dtype": _NOWHERE + " (its compute dtype follows the backend)",
     "checkpoint_backend": "the orbax/pickle choice of the JAX checkpoints",
     "gpus": _CLUSTER, "nr": _CLUSTER, "rank": _CLUSTER,
     "world_size": _CLUSTER, "dataparallel": _CLUSTER,
@@ -164,6 +167,9 @@ class Config:
     eval_every_iters: int = 200
     eval_during_training: bool = True
     deterministic_training: bool = False
+    # JAX's fuser of K train-step dispatches (JAX config.py:276); read as
+    # max(1, K), and ``validate`` refuses K > 1
+    scan_steps: int = 1
     # checkpoints (JAX config.py:110-111, :173): ``reload`` restores the
     # full state from checkpoints_teacher / checkpoints_student before
     # training; ``resume`` restarts a fold from its rolling checkpoint,
@@ -302,6 +308,13 @@ class Config:
             from .data.bucketing import validate_buckets
 
             validate_buckets(str(self.buckets).split(","))
+        if self.scan_steps > 1:
+            raise NotImplementedError(
+                f"scan_steps={self.scan_steps}: the port trains one update a "
+                "batch. JAX's scan_steps fuses K dispatches into one on a "
+                "TPU, and with it updates the batches grouped by bag shape "
+                "and evaluates once per K steps; that order is not ported, "
+                "so set scan_steps to 1")
         from .utils.weight_init import VALID_INIT_TYPES
 
         if self.init_type not in VALID_INIT_TYPES:

@@ -44,8 +44,10 @@ shards draw other masks and the ranks of one inner group the same ones
 (the replicated parts stay equal).  A pipeline (``pipe_devices``) trains
 distillation without the teacher-output cache, as JAX does.
 
-What the JAX driver does besides, and the port does not: ``scan_steps``,
-and the orbax checkpoint backend.
+What the JAX driver does besides, and the port does not: the orbax
+checkpoint backend.  ``scan_steps`` above 1 is refused by
+:meth:`Config.validate`: the port takes one update a batch, in the
+loader's order.
 """
 
 from __future__ import annotations

@@ -283,6 +283,23 @@ def test_config_refuses_later_and_unknown_keys():
     assert (cfg.fixdim, cfg.dataDir, cfg.coTraining) == (64, "/data/", False)
 
 
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_scan_steps_above_one_is_refused(k):
+    """``scan_steps`` is a field at JAX's default, read as ``max(1, K)``:
+    K <= 1 trains one update a batch as JAX does, and K > 1, where JAX
+    updates in another order (batches grouped by bag shape, an evaluation
+    once a chunk), is refused by ``validate`` and so by both entries'
+    command lines, not ignored."""
+    if k <= 1:
+        assert Config.from_dict({"scan_steps": k}).validate().scan_steps == k
+        assert Config.from_args(["--scan_steps", str(k)])[0].scan_steps == k
+        return
+    with pytest.raises(NotImplementedError, match=f"scan_steps={k}"):
+        Config.from_dict({"scan_steps": k}).validate()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Config.from_args(["--scan_steps", str(k)])
+
+
 def test_every_jax_config_field_is_ported_or_in_one_table():
     """Each field of the JAX ``Config`` is a field of the port's, or sits in
     exactly one of its tables; each LATER entry holds JAX's default."""
@@ -296,6 +313,13 @@ def test_every_jax_config_field_is_ported_or_in_one_table():
         if name in tconfig.LATER:
             assert tconfig.LATER[name][0] == f.default, name
     assert set(tconfig.IGNORED) | set(tconfig.LATER) <= set(jax_fields)
+    # scan_steps is a field at JAX's default; the keys JAX reads nowhere
+    # say so, and remat says why the port needs no recompute
+    assert Config().scan_steps == jax_fields["scan_steps"].default == 1
+    for name in ("use_pallas", "mesh_data_axis", "compute_dtype"):
+        assert tconfig.IGNORED[name].startswith(
+            "the JAX package reads it nowhere"), name
+    assert "CPB_REMAT" in tconfig.IGNORED["remat"]
 
 
 def test_synthetic_data_matches_jax():
