@@ -277,6 +277,21 @@ with ``return_vgrid``) with seeded random weights:
    bitwise equal, every rank's launches exact and printed (no time: two
    ranks sharing a card measure no scaling).
 
+3n. a teacher fold that the JAX package trained and saved
+   (``tests/data/jax_teacher_fold.ckpt``, written with JAX's
+   ``save_checkpoint`` by ``tests/make_jax_checkpoint_fixture.py``: fixdim
+   2,500, divisor 1, f32 streams, ``deterministic_training``, model width
+   16, 3 AdamW steps) served through the serving entry with ``--checkpoint
+   ...ckpt`` on its fold-0 test set (4 bags drawn with numpy from the
+   stored seed; K1-fwd 4), its logits within ``LOGITS_TOL`` of JAX's stored
+   ones;
+5n. the same file resumed by the training entry as the fold's rolling
+   checkpoint (``teacher_fold_1_latest.ckpt`` in a temporary directory
+   under ``build/``; ``resume``): it starts at JAX's epoch 3 of 5 and takes
+   2 steps (K1-fwd 4 and K1-bwd 4 a step, K1-fwd 4 for the final
+   evaluation), their losses within ``STEP_LOSS_TOL`` relative of JAX's
+   stored ones; both errors on a line of their own.
+
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
 teacher's also in the opt-in settings (a), (b) and (c), every count set to
@@ -1448,6 +1463,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir="build") as tmp:
         check_group_of_one(train_preset, batch, dev, tmp, card)
         check_parallel_layouts(f32, batch, dev, tmp, card)
+    torch.cuda.empty_cache()
+
+    # ---- phases 3n, 5n: a fold that the JAX package wrote ---------------
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        check_jax_fold(dev, card, tmp)
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernel_line(
@@ -3346,6 +3366,57 @@ def run_distillation_entries(train_preset, dev, card: str,
     if len(ckpt) != 1:
         raise RuntimeError("the survival run wrote no cindex checkpoint")
     return teacher_ckpt
+
+
+# phases 3n and 5n: the JAX fold and what JAX computed from it
+JAX_FOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "jax_teacher_fold")
+
+
+def check_jax_fold(dev, card: str, tmp: str) -> None:
+    """Phases 3n and 5n: the JAX package's ``.ckpt`` served by the serving
+    entry and resumed by the training entry, against JAX's stored logits
+    and losses."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch.config import Config
+
+    with np.load(JAX_FOLD + ".npz") as z:
+        stored = {k: z[k] for k in z.files}
+    cfg = Config.diag2021().replace(**json.loads(str(stored["settings"])),
+                                    synthetic_data=True, debug=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics, logits = inference.main(cfg, checkpoint=JAX_FOLD + ".ckpt",
+                                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts()
+    print(f"[jax fold] serving from {JAX_FOLD}.ckpt (seed "
+          f"{int(stored['seed'])}, {setting(cfg)}, width {cfg.path_dim}): "
+          f"1 batch in {wall:.2f} s (reading the file and set-up included); "
+          f"launches {n} | {card}")
+    check_outputs(metrics, logits, cfg.synthetic_test_size)
+    if n != expect(k1_fwd=4):
+        raise RuntimeError(f"serving the JAX fold: launches {n}, want K1-fwd 4")
+    logit_err = max(float(np.abs(logits[k] - stored[k]).max())
+                    for k in ("logits_tea10", "logits_tea20", "logits_teas"))
+    shutil.copy(JAX_FOLD + ".ckpt",
+                os.path.join(tmp, "teacher_fold_1_latest.ckpt"))
+    out = {}
+    run_training_entry(cfg.replace(resume=True, checkpoints=tmp), dev, 2,
+                       dict(k1_fwd=4, k1_bwd=4), dict(k1_fwd=4), card, out)
+    losses, want = out["final"]["train_losses"], stored["losses"].tolist()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    print(f"[jax fold] card vs JAX: served logits max_abs_err "
+          f"{logit_err:.3e} (tol {LOGITS_TOL}); resumed losses {losses} vs "
+          f"{want}, max rel err {loss_err:.3e} (tol {STEP_LOSS_TOL}) | {card}")
+    if not (logit_err <= LOGITS_TOL and loss_err <= STEP_LOSS_TOL):
+        raise RuntimeError("the JAX fold on the card disagrees with JAX")
 
 
 class _Stopped(Exception):

@@ -43,7 +43,9 @@ IGNORED = {
               "kernels read no stored MLP activations"),
     "use_pallas": _NOWHERE, "mesh_data_axis": _NOWHERE,
     "compute_dtype": _NOWHERE + " (its compute dtype follows the backend)",
-    "checkpoint_backend": "the orbax/pickle choice of the JAX checkpoints",
+    "checkpoint_backend": "the JAX writer's orbax/pickle choice: the port "
+                          "writes .pt, reads JAX's pickle .ckpt and does "
+                          "not read .orbax",
     "gpus": _CLUSTER, "nr": _CLUSTER, "rank": _CLUSTER,
     "world_size": _CLUSTER, "dataparallel": _CLUSTER,
     "visiable_device": _CLUSTER,

@@ -11,8 +11,8 @@ pathomic family, ``simple_val`` for ``path``, ``transmil``, ``omic``,
         --config config/config_mine_diag2021.yaml --synthetic_data true \\
         [--mode student | --mode distillation | --mode multiscale | \\
         --mode deformpathomic --attn_dim 1 | --mode cmta | ...] \\
-        [--checkpoint model.pt | \\
-        model.pth] [--save4visualization true] [--device cpu]
+        [--checkpoint model.pt | model.pth | jax_fold.ckpt] \\
+        [--save4visualization true] [--device cpu]
     python -m disentangled_multimodal_learning_tpu_torch.inference \\
         --config config/config_mine_diag2021.yaml --synthetic_data false \\
         --dataDir D [--coTraining false | --external_eval true] \\
@@ -29,7 +29,8 @@ and raises where there is no card.  With ``nodes > 1`` (or a
 training entry does (``parallel/mesh.py``); rank 0 evaluates, prints and
 logs, and the other ranks return empty results.  Without ``--config``
 the in-code diag2021 preset is used (no ``yaml`` needed).  The weights
-come from the checkpoint (the port's ``.pt`` or a reference-named ``.pth``; else
+come from the checkpoint (the port's ``.pt``, a reference-named ``.pth``
+or a JAX ``.ckpt``, read without JAX; a ``.orbax`` is refused; else
 ``checkpoints_teacher`` for the teachers, ``checkpoints_student`` for the
 other modes, as in JAX); without one they are a seeded random init, with a
 warning.  Distillation evaluates the student of ``(student, teacher)``.
@@ -119,7 +120,7 @@ def _evaluate(cfg: Config, checkpoint, device, model, logger):
             cfg.checkpoints_teacher if cfg.mode in ("teacher", "uniteacher")
             else cfg.checkpoints_student)
         if ckpt and ckpt not in ("#", ""):
-            restore_state(model, None, None, ckpt)
+            restore_state(model, None, None, ckpt, cfg.mode, cfg.attn_dim)
             print(f"[inference] loaded checkpoint: {ckpt}")
         else:
             print("[inference] WARNING: no checkpoint given, evaluating a "

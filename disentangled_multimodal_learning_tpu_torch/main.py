@@ -32,6 +32,9 @@ Distillation builds ``(student, teacher)`` and restores the teacher from
 either is set (root ``main.py:89-113``).  ``reload`` restores the full
 state of the other modes from ``checkpoints_teacher`` (teacher and
 uniteacher) or ``checkpoints_student`` before training (``:115-128``).
+Each of these is the port's ``.pt``, a reference-named ``.pth`` or a JAX
+``.ckpt`` (``utils/checkpoint.py``; a ``.orbax`` is refused), and
+``resume`` also takes JAX's rolling ``{mode}_fold_{k}_latest.ckpt``.
 Each fold writes a metric-stamped checkpoint into ``checkpoints`` (``.pt``,
 ``utils/checkpoint.py``) unless that is ``"#"``, and prints its path.
 
@@ -88,15 +91,17 @@ def dispatch_training(cfg: Config, device, loaders, logger=None):
     if cfg.mode == "distillation":
         student, teacher = define_net(cfg, device)
         if _is_set(cfg.checkpoints_teacher):
-            restore_state(teacher, None, None, cfg.checkpoints_teacher)
-        state = (load_checkpoint(cfg.checkpoints_student)
+            restore_state(teacher, None, None, cfg.checkpoints_teacher,
+                          "teacher")
+        state = (load_checkpoint(cfg.checkpoints_student, "student")
                  if _is_set(cfg.checkpoints_student) else None)
         return trainDistillation(student, teacher, loaders, None, None,
                                  logger, cfg, student_state=state)
     model = define_net(cfg, device)
     ckpt = (cfg.checkpoints_teacher if cfg.mode in ("teacher", "uniteacher")
             else cfg.checkpoints_student)
-    state = load_checkpoint(ckpt) if cfg.reload and _is_set(ckpt) else None
+    state = (load_checkpoint(ckpt, cfg.mode, cfg.attn_dim)
+             if cfg.reload and _is_set(ckpt) else None)
     if cfg.mode in BASELINES:
         return run_training(cfg, model, loaders, logger,
                             model_type=model_type_of(cfg.mode), state=state)

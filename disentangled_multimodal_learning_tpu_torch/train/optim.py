@@ -16,7 +16,9 @@ update rules match the optax chains the JAX package builds:
   gradient first.  torch's Adagrad adds its eps outside the root.
 
 ``plateau`` keeps the lr constant and lets :class:`ReduceLROnPlateau`, fed
-the mean train loss of each epoch, scale it (:func:`set_learning_rate`).
+the mean train loss of each epoch, scale it (:func:`set_learning_rate`); a
+restored lr holds until the watcher's first decision
+(:func:`hold_learning_rate`), as JAX's injected lr does.
 """
 
 from __future__ import annotations
@@ -65,7 +67,13 @@ def make_schedule(cfg, steps_per_epoch: int, plateau=None):
     if policy == "plateau":
         if plateau is None:
             raise ValueError("lr_policy 'plateau' needs its ReduceLROnPlateau")
-        return lambda step: lr * plateau.scale
+
+        def sched(step):
+            held = plateau.held_lr
+            return lr * plateau.scale if held is None else held
+
+        sched.plateau = plateau  # for hold_learning_rate
+        return sched
     raise NotImplementedError(f"lr policy [{policy}] is not implemented")
 
 
@@ -155,6 +163,8 @@ class ReduceLROnPlateau:
         self.best: float | None = None
         self.num_bad = 0
         self.scale = 1.0
+        # a restored lr, the schedule's value until the next decision
+        self.held_lr: float | None = None
 
     def _improved(self, metric: float) -> bool:
         if self.best is None:
@@ -164,6 +174,7 @@ class ReduceLROnPlateau:
         return metric > self.best * (1.0 + self.threshold)
 
     def step(self, metric: float) -> float:
+        self.held_lr = None
         if self._improved(metric):
             self.best = float(metric)
             self.num_bad = 0
@@ -178,6 +189,17 @@ class ReduceLROnPlateau:
 def set_learning_rate(optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def hold_learning_rate(optimizer, scheduler, lr: float) -> None:
+    """Set a restored ``lr``; under ``plateau`` the ``scheduler`` keeps it
+    until its watcher's next decision (a restarted watcher, whose scale is
+    1, as JAX keeps a restored injected lr)."""
+    set_learning_rate(optimizer, lr)
+    plateau = (getattr(scheduler.lr_lambdas[0], "plateau", None)
+               if scheduler is not None else None)
+    if plateau is not None:
+        plateau.held_lr = lr
 
 
 def current_learning_rate(optimizer) -> float:

@@ -23,7 +23,9 @@ and, unless ``checkpoints`` is ``"#"``, a metric-stamped checkpoint
 (``utils/checkpoint.py``).
 
 ``resume`` restores the rolling checkpoint (model, optimizer, scheduler
-and step) and starts at epoch ``step // steps_per_epoch``; the dropout
+and step), the port's ``{mode}_fold_{k}_latest.pt`` or else the one the
+JAX package wrote, ``{mode}_fold_{k}_latest.ckpt`` (``utils/checkpoint.py``
+reads it), and starts at epoch ``step // steps_per_epoch``; the dropout
 generator restarts from the run's seed, as JAX restarts its dropout key, so
 with dropout on a resumed fold matches an uninterrupted one only under
 ``deterministic_training``.
@@ -45,7 +47,8 @@ shards draw other masks and the ranks of one inner group the same ones
 distillation without the teacher-output cache, as JAX does.
 
 What the JAX driver does besides, and the port does not: the orbax
-checkpoint backend.  ``scan_steps`` above 1 is refused by
+checkpoint backend (the port writes ``.pt``, reads JAX's pickle ``.ckpt``
+and refuses ``.orbax``).  ``scan_steps`` above 1 is refused by
 :meth:`Config.validate`: the port takes one update a batch, in the
 loader's order.
 """
@@ -59,7 +62,7 @@ import torch
 
 from ..parallel import mesh
 from ..parallel.pipe_shard import make_pipe_distill_step
-from ..utils.checkpoint import (SUFFIX, metric_stamped_name,
+from ..utils.checkpoint import (JAX_SUFFIX, SUFFIX, metric_stamped_name,
                                 restore_state, save_checkpoint)
 from .distill_cache import TeacherBoundaryCache, loader_dataset_size
 from .evaluation import (METRIC_NAMES, Evaluator, headline_metrics,
@@ -110,10 +113,13 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     saving = cfg.checkpoints not in ("#", "")
     writing = saving and lead
     latest_name = f"{mode}_fold_{cfg.cur_fold + 1}_latest"
-    latest_path = os.path.join(cfg.checkpoints, latest_name + SUFFIX)
+    latest_path = next((p for p in (
+        os.path.join(cfg.checkpoints, latest_name + suffix)
+        for suffix in (SUFFIX, JAX_SUFFIX)) if os.path.exists(p)), None)
     start_epoch = 0
-    if cfg.resume and saving and os.path.exists(latest_path):
-        step = restore_state(model, optimizer, scheduler, latest_path)
+    if cfg.resume and saving and latest_path is not None:
+        step = restore_state(model, optimizer, scheduler, latest_path,
+                             mode, cfg.attn_dim)
         start_epoch = min(step // steps_per_epoch, cfg.epochs)
         print(f"[resume] {latest_path}: step {step} -> starting at epoch "
               f"{start_epoch}")

@@ -15,14 +15,20 @@ A checkpoint is one ``torch.save`` file holding
 - ``step``: the train steps taken;
 - ``extra``: mode, task and fold (and the epoch, in a rolling checkpoint).
 
-Its suffix is ``.pt``, not JAX's ``.ckpt``: JAX pickles optax state objects,
-which the port cannot read, and JAX cannot restore the port's optimizer
-state (it can import the ``params``).  :func:`load_checkpoint` also reads a
-bare reference-named state_dict (a ``.pth``, as the reference and JAX's
-``save_torch_checkpoint`` write it): its payload holds the params only.
-:func:`restore_state` loads strictly but for :data:`IGNORABLE` keys, the
-reference's members that no forward reads (JAX ``utils/torch_import.py``
-``_IGNORABLE``), which it drops where the model has no such key.
+Its suffix is ``.pt``, not JAX's ``.ckpt``: JAX cannot restore the port's
+optimizer state (it can import the ``params``).  :func:`load_checkpoint`
+also reads a bare reference-named state_dict (a ``.pth``, as the reference
+and JAX's ``save_torch_checkpoint`` write it): its payload holds the params
+only.  It reads a JAX ``.ckpt`` (JAX's pickle backend) through
+``utils/jax_checkpoint.py``, for the model of a mode: params,
+``batch_stats``, the optimizer's state (``jax_opt_state``, which
+:func:`restore_state` puts into the torch optimizer and its scheduler),
+step and extra.  It refuses a ``.orbax`` directory, JAX's other backend:
+reading it needs orbax.  JAX's ``load_checkpoint_any`` also chooses by
+suffix.  :func:`restore_state` loads strictly but for :data:`IGNORABLE`
+keys, the reference's members that no forward reads (JAX
+``utils/torch_import.py`` ``_IGNORABLE``), which it drops where the model
+has no such key.
 """
 
 from __future__ import annotations
@@ -31,7 +37,11 @@ import os
 
 import torch
 
+from .jax_checkpoint import (jax_payload, load_optimizer_state,
+                             read_jax_checkpoint)
+
 SUFFIX = ".pt"
+JAX_SUFFIX = ".ckpt"
 # key prefixes of reference members the port does not build: the
 # reference MultiScaleNet's FusionNet, never in its forward (model.py:619)
 IGNORABLE = ("fusion.fusion_layer.",)
@@ -73,9 +83,19 @@ def save_checkpoint(directory: str, name: str, model, optimizer=None,
     return path
 
 
-def load_checkpoint(path: str) -> dict:
+def load_checkpoint(path: str, mode: str | None = None,
+                    attn_dim: int = 2) -> dict:
     """The payload of a ``.pt`` checkpoint, or of a bare state_dict (params
-    only, step 0), on the CPU."""
+    only, step 0), on the CPU; of a JAX ``.ckpt``, for the model of
+    ``mode`` at ``attn_dim`` (default: the mode the file names; a file of
+    another mode raises).  A ``.orbax`` path raises."""
+    path = os.fspath(path)
+    if path.rstrip("/").endswith(".orbax"):
+        raise ValueError(f"{path}: a JAX orbax checkpoint; reading it needs "
+                         "orbax, which the port does not use (write the fold "
+                         "with JAX's pickle backend, a .ckpt)")
+    if path.endswith(JAX_SUFFIX):
+        return jax_payload(read_jax_checkpoint(path), mode, attn_dim)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if "params" not in payload:
         payload = {"params": payload, "opt_state": None, "scheduler": None,
@@ -83,13 +103,15 @@ def load_checkpoint(path: str) -> dict:
     return payload
 
 
-def restore_state(model, optimizer, scheduler, source) -> int:
-    """Load ``source`` (a path, or a payload of :func:`load_checkpoint`)
-    into ``model`` (strictly) and, where the payload holds their state and
-    they are given, into ``optimizer`` and ``scheduler``; returns the
-    payload's step."""
-    payload = (load_checkpoint(source) if isinstance(source, (str, os.PathLike))
-               else source)
+def restore_state(model, optimizer, scheduler, source,
+                  mode: str | None = None, attn_dim: int = 2) -> int:
+    """Load ``source`` (a path, read by :func:`load_checkpoint` with
+    ``mode`` and ``attn_dim``, or a payload of it) into ``model``
+    (strictly) and, where the payload holds their state and they are
+    given, into ``optimizer`` and ``scheduler``; returns the payload's
+    step."""
+    payload = (load_checkpoint(source, mode, attn_dim)
+               if isinstance(source, (str, os.PathLike)) else source)
     own = model.state_dict()
     params = {k: v for k, v in payload["params"].items()
               if k in own or not k.startswith(IGNORABLE)}
@@ -98,4 +120,7 @@ def restore_state(model, optimizer, scheduler, source) -> int:
         optimizer.load_state_dict(payload["opt_state"])
     if scheduler is not None and payload.get("scheduler") is not None:
         scheduler.load_state_dict(payload["scheduler"])
+    if optimizer is not None and payload.get("jax_opt_state") is not None:
+        load_optimizer_state(model, optimizer, scheduler,
+                             payload["jax_opt_state"])
     return int(payload.get("step", 0))
