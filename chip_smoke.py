@@ -290,7 +290,31 @@ with ``return_vgrid``) with seeded random weights:
    under ``build/``; ``resume``): it starts at JAX's epoch 3 of 5 and takes
    2 steps (K1-fwd 4 and K1-bwd 4 a step, K1-fwd 4 for the final
    evaluation), their losses within ``STEP_LOSS_TOL`` relative of JAX's
-   stored ones; both errors on a line of their own.
+   stored ones; both errors on a line of their own;
+3o. ``scan_steps 2`` (``train/graph_chunk.py``: on the card a full chunk
+   of K steps is one CUDA graph, captured once a bag shape and replayed)
+   through the training entry's functions on the demo cohorts' IvYGAP and
+   TCGA slides (train) and CPTAC's (test), ``buckets 1600,2500``, batch 2,
+   2 epochs: two graphs captured, leftovers drained between replays, every
+   update in the order JAX's algorithm gives
+   for the loader's arrivals, ``len(loader)`` updates an epoch, exact
+   launch counts with the replays' (``ops/launches.py``: a capture runs no
+   kernel, so its counts are added at each replay);
+5o. for every mode ``define_net`` builds (distillation with and without
+   the teacher-output cache; the teacher under Adam, SGD and Adagrad too),
+   at the preset's widths in f32 under ``deterministic_training``, one
+   chunk of 2 steps from one snapshot through the default path
+   (``scan_steps`` 1, 3 runs), as the graph (capture and replay, then a
+   replay) and as single steps of the capturable optimizer: parameters,
+   optimizer state and metrics of the graph and the single steps within
+   ``OPT_RTOL``'s rule of the default path, the launches of each replay
+   the default chunk's; in train mode (dropout 0.1), every mode and (a):
+   two replays from one snapshot differ wherever two chunks of single
+   steps do; K6 with its seed drawn on the card: its mask bitwise its
+   plain version's, and other in each replay of a graph;
+6o. a record, not a claim: host and wall ms an update and the device-busy
+   share of the teacher preset at ``scan_steps 4``, chunks of single steps
+   against graph replays.
 
 The main paths (the inference entry and the training entry) each run at
 the preset's divisor 1 and at the ``Config`` default divisor 0, and the
@@ -588,34 +612,23 @@ def mlp_weights(o: int, gen, device):
 
 
 def _wrappers():
-    from disentangled_multimodal_learning_tpu_torch.ops import (
-        cpb, cpb1d, dpc_knn, fused_exact, fused_table)
+    from disentangled_multimodal_learning_tpu_torch.ops import launches
 
-    return {"k1_fwd": cpb.table_interp,
-            "k1_bwd": cpb.table_interp_backward,
-            "k2_fwd": cpb.cpb_bias_transposed,
-            "k2_bwd": cpb.cpb_bias_transposed_backward,
-            "k3_knn": dpc_knn.knn_stream,
-            "k3_parent": dpc_knn.parent_stream,
-            "k4_fwd": cpb1d.table1d_interp,
-            "k4_bwd": cpb1d.table1d_interp_backward,
-            "k5_fwd": cpb.table_interp_strided,
-            "k5_bwd": cpb.table_interp_strided_backward,
-            "k6_fwd": fused_table.fused_table_attention,
-            "k6_bwd": fused_table.fused_table_attention_backward,
-            "k2nk_fwd": cpb.cpb_bias_nk,
-            "k2nk_bwd": cpb.cpb_bias_nk_backward,
-            "k7_fwd": fused_exact.fused_exact_attention,
-            "k7_bwd": fused_exact.fused_exact_attention_backward}
+    return launches.WRAPPERS
 
 
 def reset_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    from disentangled_multimodal_learning_tpu_torch.ops import launches
+
+    launches.reset()
 
 
 def counts() -> dict:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    """Every kernel's launches since the last reset, those of CUDA graph
+    replays included (``ops/launches.py``)."""
+    from disentangled_multimodal_learning_tpu_torch.ops import launches
+
+    return launches.counts()
 
 
 def expect(**per_key) -> dict:
@@ -1437,6 +1450,10 @@ def main() -> int:
                                        card)
         torch.cuda.empty_cache()
         time_real_data(f"{tmp}/data", dev, card)
+        torch.cuda.empty_cache()
+
+        # ---- phase 3o: scan_steps 2 on the demo cohorts, CUDA graphs -----
+        run_scan_steps_entry(f"{tmp}/data", dev, card)
     torch.cuda.empty_cache()
 
     # ---- phases 3j, 5j, 6j: the baselines (no kernel on their path) -----
@@ -1469,6 +1486,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir="build") as tmp:
         check_jax_fold(dev, card, tmp)
     torch.cuda.empty_cache()
+
+    # ---- phases 5o, 6o: a scan_steps chunk as one CUDA graph ------------
+    check_graph_chunks(train_preset, dev, card)
+    time_graph_chunks(train_preset, dev, card)
 
     print(json.dumps({"kernels": kernel_line(
         train_counts, dict(k1=max(k1_err, side40["k1"]),
@@ -5065,6 +5086,621 @@ def check_parallel_layouts(f32, batch, dev, tmp: str, card: str) -> None:
     print(f"[5m] six layouts' steps on 2 ranks in {wall:.1f} s (the ranks' "
           f"start, set-up and first calls included; no speed figure) | "
           f"{card}")
+
+
+# ---- phases 3o, 5o and 6o: scan_steps, a chunk as one CUDA graph ---------
+
+def jax_scan_order(arrivals: list, k: int) -> list:
+    """The order in which JAX's ``run_training`` (``trainers.py:234-285``)
+    updates an epoch's batches that arrive with bag sides ``arrivals`` at
+    ``scan_steps`` ``k``: a side's buffer as it fills, then the buffers that
+    did not fill, in first-seen order."""
+    bufs, order = {}, []
+    for side in arrivals:
+        buf = bufs.setdefault(side, [])
+        buf.append(side)
+        if len(buf) == k:
+            order += buf
+            bufs[side] = []
+    for buf in bufs.values():
+        order += buf
+    return order
+
+
+def run_scan_steps_entry(data_dir: str, dev, card: str) -> None:
+    """Phase 3o: the demo cohorts' IvYGAP and TCGA slides, as co-training
+    joins them (16: 7 at side 40, 9 at 50 after bucketing), as the train
+    set and CPTAC's as the test set, through the training entry's own
+    functions (``make_loaders``, ``dispatch_training``) at the preset with
+    ``scan_steps 2``, ``buckets 1600,2500``, 2 epochs and a batch of 2
+    (side 40 fills 3 batches an epoch, a chunk and a leftover, side 50 4,
+    two chunks; at the preset's 4 a side fills at most 2): each side's
+    first chunk eager, its second captured as a graph and replayed (2
+    graphs), the leftovers drained eagerly between replays, every update in
+    the order JAX's algorithm gives for the loader's arrivals
+    (:func:`jax_scan_order`), ``len(loader)`` updates an epoch, and exact
+    launch counts with the replays' (K1-fwd and K1-bwd 4 an update, K1-fwd
+    4 an eval batch).  (A batch of 1 would take the teacher's consistency
+    loss, a variance over the batch, to NaN.)"""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch import main as train_main
+    from disentangled_multimodal_learning_tpu_torch.data.cohorts import (
+        read_manifest)
+    from disentangled_multimodal_learning_tpu_torch.data.datasets import (
+        ConcatDataset, CPTAC_Dataset, IvYGAP_Dataset, TCGA_Dataset)
+    from disentangled_multimodal_learning_tpu_torch.train import (
+        graph_chunk, trainers)
+
+    cfg = real_data_cfg(data_dir, "#").replace(
+        buckets="1600,2500", printDataSplit=False, scan_steps=2,
+        batch_size=2, epochs=2, eval_every_iters=10 ** 6)
+    train_ds = ConcatDataset([IvYGAP_Dataset(read_manifest(cfg, "IvYGAP"), cfg),
+                              TCGA_Dataset(read_manifest(cfg, "TCGA"), cfg)])
+    test_ds = CPTAC_Dataset(read_manifest(cfg, "CPTAC"), cfg)
+    cfg = cfg.replace(**train_ds.omic_sizes)
+    train, test = train_main.make_loaders(cfg, train_ds, test_ds)
+    arrivals = []
+    for epoch in range(cfg.epochs):
+        train.set_epoch(epoch)
+        arrivals.append([math.isqrt(b) for b, _, _ in train.loader.plan()])
+    runners, order, in_chunk = [], [], [False]
+
+    class Recording(graph_chunk.ChunkRunner):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            runners.append(self)
+
+        def run(self, key, chunk):
+            order.extend(math.isqrt(key[1]) for _ in chunk)
+            in_chunk[0] = True
+            try:
+                return super().run(key, chunk)
+            finally:
+                in_chunk[0] = False
+
+    make_step = trainers.make_step
+
+    def recording_make_step(*args, **kw):
+        step, cache = make_step(*args, **kw)
+
+        def single(tensors):  # the warm-up chunks' and the leftovers' steps
+            if not in_chunk[0]:
+                order.append(math.isqrt(tensors["x_path10"].shape[1]))
+            return step(tensors)
+
+        return single, cache
+
+    trainers.ChunkRunner, trainers.make_step = Recording, recording_make_step
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, final, _ = train_main.dispatch_training(cfg, dev, (train, test))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts()
+    finally:
+        trainers.ChunkRunner, trainers.make_step = graph_chunk.ChunkRunner, make_step
+    (runner,) = runners
+    want_order = [s for sides in arrivals for s in jax_scan_order(sides, 2)]
+    updates = len(final["train_losses"])
+    want = _sum_counts(updates, dict(k1_fwd=4, k1_bwd=4), len(test),
+                       dict(k1_fwd=4))
+    print(f"[3o] scan_steps 2, the demo cohorts' IvYGAP + TCGA (train) and "
+          f"CPTAC (test), buckets 1600,2500, batch 2, 2 epochs: arrivals "
+          f"(sides) {arrivals}; "
+          f"updates {order} (JAX's order {want_order}); {updates} updates "
+          f"({len(train)} a epoch), graphs captured {runner.captures}, "
+          f"replays {runner.replays}, {len(test)} eval batches in "
+          f"{wall:.2f} s (set-up, capture and bag reads included); losses "
+          f"{final['train_losses']}; launches {n} | {card}")
+    if (order != want_order or updates != cfg.epochs * len(train)
+            or {s for sides in arrivals for s in sides} != {40, 50}
+            or runner.captures != 2 or n != want
+            or not all(map(math.isfinite, final["train_losses"]))):
+        raise RuntimeError(f"3o: updates {order}, want {want_order}; "
+                           f"{runner.captures} graphs, want 2; launches {n}, "
+                           f"want {want}")
+
+
+def _chunk_batches(preset, n: int, dev) -> list:
+    """``n`` synthetic batches of the preset (B 4, fixdim 2500) on ``dev``,
+    one bag shape: ``[(tensors, dataset rows)]``."""
+    from disentangled_multimodal_learning_tpu_torch import inference
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        batch_to_tensors)
+
+    loader = inference.build_fold0_test_loader(
+        preset.replace(synthetic_test_size=n * preset.batch_size))
+    return [(batch_to_tensors(b, dev), b.indices) for b in loader]
+
+
+def _graph_runner(cfg, dev, batches, steps_per_epoch: int = 1000):
+    """``cfg``'s training at ``scan_steps`` ``len(batches)`` on the card,
+    built as ``run_training`` builds it (the capturable optimizer, the
+    step of ``trainers.make_step`` with the train set's size, so that
+    distillation takes the teacher-output cache, which fills the chunk's
+    boundary tensors), after the warm-up chunk (single steps).  Returns a
+    namespace: ``runner`` (the chunks as graphs), ``single`` (the single
+    step, the schedule stepped after it), ``model``, ``teacher``, ``opt``,
+    ``sched`` (over ``steps_per_epoch`` steps an epoch), ``key`` and
+    ``chunk`` (the batches' tensors)."""
+    from types import SimpleNamespace
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        define_net)
+    from disentangled_multimodal_learning_tpu_torch.train.graph_chunk import (
+        ChunkRunner)
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        make_optimizer, make_scheduler)
+    from disentangled_multimodal_learning_tpu_torch.train.trainers import (
+        make_step)
+
+    model, teacher = define_net(cfg, dev), None
+    if cfg.mode == "distillation":
+        model, teacher = model
+    opt = make_optimizer(cfg, model.parameters(), capturable=True)
+    step, cache = make_step(cfg, model, opt, None, teacher, None,
+                            len(batches) * cfg.batch_size)
+    sched = make_scheduler(cfg, opt, steps_per_epoch)
+    chunk = [dict(t, **cache.boundary(t, rows)) if cache is not None else t
+             for t, rows in batches]
+
+    def single(tensors):
+        metrics = step(tensors)
+        sched.step()
+        return metrics
+
+    for tensors in chunk:
+        single(tensors)
+    return SimpleNamespace(
+        runner=ChunkRunner(step, opt, sched, len(chunk)), single=single,
+        model=model, teacher=teacher, opt=opt, sched=sched,
+        key=tuple(chunk[0]["x_path10"].shape), chunk=chunk,
+        steps_per_epoch=steps_per_epoch)
+
+
+def _state(model, opt, sched):
+    """What a chunk changes, by name: the module's parameters and buffers,
+    the optimizer's state tensors and the schedule's count."""
+    out = {f"model.{k}": v for k, v in model.state_dict().items()}
+    for name, p in model.named_parameters():
+        out.update((f"opt.{name}.{k}", v) for k, v in opt.state[p].items()
+                   if hasattr(v, "copy_"))
+    return out, sched.last_epoch
+
+
+def _snapshot(model, opt, sched):
+    state, count = _state(model, opt, sched)
+    return {k: v.detach().clone() for k, v in state.items()}, count
+
+
+def _restore(model, opt, sched, snap) -> None:
+    """Put ``snap`` back in place: a graph holds the tensors' addresses."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        set_schedule_count)
+
+    state, _ = _state(model, opt, sched)
+    with torch.no_grad():
+        for k, v in snap[0].items():
+            state[k].copy_(v)
+    set_schedule_count(sched, opt, snap[1])
+
+
+def _chunk_result(model, opt, sched, metrics) -> dict:
+    """What a chunk left (on the card: the default optimizer keeps Adam's
+    step counts on the host) and its losses, by name."""
+    import torch
+
+    out = {k: v.cuda() for k, v in _snapshot(model, opt, sched)[0].items()}
+    out["count"] = torch.tensor(float(sched.last_epoch))
+    for i, m in enumerate(metrics):
+        out.update((f"step{i}.{k}", v.clone()) for k, v in m.items())
+    return out
+
+
+# phase 5o: a parameter entry (and its moments) is compared where its
+# gradient's root mean square over the chunk (from AdamW's second moment)
+# is above this, 100 x
+# AdamW's eps, as tests/torch_parallel_cases.py compares the parameters: an
+# AdamW step is lr g / (|g| + eps) an entry, so where |g| is near eps (the
+# biases whose gradient is 0 in exact arithmetic, the cluster scores' and
+# the CPB output's) it is set by the gradient's rounding residue, and a
+# full-size step of either sign is right
+ADAM_GRAD_FLOOR = 1e-6
+
+
+def _exact_zero_grad(name: str, t):
+    """The entries of parameter ``name`` (values ``t``) whose gradient is 0
+    in exact arithmetic, a rounding residue in f32: the ZERO_GRAD_BIASES,
+    and the q and k rows of the TransFusion layers' MHA, which attends to
+    one kv token (a softmax of one score is 1)."""
+    import torch
+
+    zero = torch.zeros_like(t, dtype=torch.bool)
+    if name.endswith(ZERO_GRAD_BIASES):
+        zero[...] = True
+    elif ".transfusion_layer" in name and ".in_proj_" in name:
+        zero[:2 * t.shape[0] // 3] = True
+    return zero
+
+
+def _grad_masks(result: dict, steps: int) -> dict:
+    """The entries compared, by name: of each parameter and its optimizer
+    state, where the gradient is not 0 in exact arithmetic
+    (:func:`_exact_zero_grad`) and, under Adam or AdamW, where its root
+    mean square over ``steps`` updates (from the second moment) is above
+    ADAM_GRAD_FLOOR; of SGD's momentum (a running sum of gradients), the
+    entries above it."""
+    keep = 1 - 0.999 ** steps  # AdamW's bias correction of exp_avg_sq
+    names = {k[len("opt."):].rsplit(".", 1)[0] for k in result
+             if k.startswith("opt.")}
+    out = {}
+    for name in names:
+        m = ~_exact_zero_grad(name, result[f"model.{name}"])
+        sq = result.get(f"opt.{name}.exp_avg_sq")
+        if sq is not None:
+            m &= (sq / keep).sqrt() > ADAM_GRAD_FLOOR
+        buf = result.get(f"opt.{name}.momentum_buffer")
+        if buf is not None:
+            out[f"opt.{name}.momentum_buffer"] = m & (buf.abs()
+                                                      > ADAM_GRAD_FLOOR)
+        for k in (f"model.{name}",
+                  *(k for k in result if k.startswith(f"opt.{name}."))):
+            if k not in out and result[k].shape == m.shape:
+                out[k] = m
+    return out
+
+
+# phase 5o: torch's capturable Adam and AdamW (the graph's) compute the
+# bias corrections 1 - beta^t on the card in f32, the default ones in
+# float64 on the host.  beta2 = 0.999 is 0.99900001 in f32, so 1 - beta2^t
+# is 1.3e-5 relative off and each update 6.4e-6 (its square root), which
+# the second step's gradient carries on; SGD's and Adagrad's rules differ
+# only in rounding.  The graph is held against the default path entry by
+# entry within REPEAT_FACTOR x the default runs' spread, plus OPT_RTOL of
+# the entry's tensor's largest change over the chunk, plus 2 roundings a
+# step of its largest value (measured on the H100 at the preset: up to
+# 2.0e-4 of a tensor's change, so 1e-3 keeps a margin of 5).  The schedule
+# of this check is
+# GRAPH_CHECK_STEPS_PER_EPOCH steps an epoch (one epoch: a cosine over 8
+# steps), so that the lr moves 12-20% a step in the chunk: an lr a step
+# off, or a bias correction a step off, moves an update by 10% or more
+OPT_RTOL = 1e-3
+GRAPH_CHECK_STEPS_PER_EPOCH = 8
+
+
+def _default_gaps(graph: dict, default: dict, start: dict, masks: dict,
+                  spread: float, k: int) -> dict:
+    """Each entry's largest difference between ``graph`` and ``default``
+    as a share of its tolerance (see OPT_RTOL): ``start`` the snapshot (a
+    metric's change is from the first step to the last)."""
+    import torch
+
+    out = {}
+    for key, want in default.items():
+        m = masks.get(key, ...)
+        if not want[m].numel():
+            out[key] = 0.0
+            continue
+        if key.startswith("step"):
+            name = key.split(".", 1)[1]
+            change = (default[f"step{k - 1}.{name}"].float()
+                      - default[f"step0.{name}"].float()).abs().max()
+        elif key in start:
+            change = (want.float() - start[key].float())[m].abs().max()
+        else:  # the schedule's count
+            change = torch.zeros(())
+        d = (graph[key].float() - want.float())[m]
+        tol = (REPEAT_FACTOR * spread + OPT_RTOL * float(change)
+               + 2 * k * 2.0 ** -23 * want.float()[m].abs().max().item())
+        err = d.abs().max().item()
+        out[key] = err / tol if tol > 0 else (0.0 if err == 0 else math.inf)
+    return out
+
+
+def _diffs(x: dict, y: dict, masks=None) -> dict:
+    """Each entry's largest difference (over ``masks[k]``'s entries)."""
+    out = {}
+    for k in x:
+        d = (x[k].float() - y[k].float())[(masks or {}).get(k, ...)]
+        out[k] = d.abs().max().item() if d.numel() else 0.0
+    return out
+
+
+def _max_diff(x: dict, y: dict, masks=None) -> float:
+    return max(_diffs(x, y, masks).values())
+
+
+def check_k6_device_seed(dev, card: str) -> None:
+    """Phase 5o, K6: the dropout seed drawn on the card (one int64 the
+    kernels read).  At BH 8, K 64 = D 64 with ``v`` the identity, ``out``
+    is the dropped map itself, so its nonzero entries are K6's mask: held
+    bitwise against ``dropout_keep_mask`` of the same seed tensor, ``out``
+    and ``attn`` within ``K6_OUT_TOL`` and ``K6_ATTN_TOL`` of the plain
+    version; then the seed's draw and K6 captured in a CUDA graph and
+    replayed twice: the two replays draw other seeds and drop other
+    elements, each its own seed's mask."""
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.ops import fused_table
+
+    gen = torch.Generator().manual_seed(11)
+    c = fused_case(dev, gen, bh=8, k=64, d=64)
+    q, k, table, shifts, side = (c[n] for n in ("q", "k", "table", "shifts",
+                                                "side"))
+    v = torch.eye(64, device=dev).expand(8, 64, 64).contiguous()
+    shape = (8, 64, side * side)
+
+    def call(seed):
+        return fused_table.fused_table_attention(q, k, v, table, shifts,
+                                                 side, seed, 0.1)
+
+    seed = torch.randint(0, 2 ** 31 - 1, (), device=dev)
+    with torch.inference_mode():
+        out, attn = call(seed)
+        ref_out, ref_attn = fused_table.fused_table_attention_reference(
+            q, k, v, table, shifts, side, seed, 0.1)
+    torch.cuda.synchronize()
+    mask = fused_table.dropout_keep_mask(seed, shape, 0.1, dev)
+    same = torch.equal(out.transpose(1, 2) != 0, mask)
+    e_out = (out - ref_out).abs().max().item()
+    e_attn = (attn - ref_attn).abs().max().item()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_seed = torch.randint(0, 2 ** 31 - 1, (), device=dev)
+        g_out, _ = call(g_seed)
+    seeds, masks, own = [], [], []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        seeds.append(int(g_seed))
+        masks.append(g_out.transpose(1, 2) != 0)
+        own.append(torch.equal(masks[-1], fused_table.dropout_keep_mask(
+            g_seed, shape, 0.1, dev)))
+    print(f"[5o] K6 with a device seed {int(seed)}, BH 8, K 64 = D 64, v = "
+          f"I, rate 0.1: mask bitwise its plain version's {same} (kept "
+          f"{mask.float().mean().item():.4f}); out {e_out:.3e} (tol "
+          f"{K6_OUT_TOL}), attn {e_attn:.3e} (tol {K6_ATTN_TOL}); in a "
+          f"graph, two replays: seeds {seeds}, masks differ "
+          f"{not torch.equal(*masks)}, each its seed's {own} | {card}")
+    if (not same or not e_out <= K6_OUT_TOL or not e_attn <= K6_ATTN_TOL
+            or seeds[0] == seeds[1] or torch.equal(*masks)
+            or not all(own)):
+        raise RuntimeError("5o: K6's device seed")
+
+
+def _default_path(cfg, g):
+    """The default path (``scan_steps`` 1) over ``g``'s model: the optimizer
+    without ``capturable``, its ``LambdaLR`` stepped after each step.
+    Returns ``chunk(snapshot, saved) -> (result, launches)``: the snapshot
+    put back in place, the optimizer's state ``saved`` (the capturable
+    one's ``state_dict``) loaded, and ``g``'s chunk run as single steps."""
+    import copy
+
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        keep_capturable, make_optimizer, make_scheduler, set_schedule_count)
+    from disentangled_multimodal_learning_tpu_torch.train.trainers import (
+        make_step)
+
+    plain = make_optimizer(cfg, g.model.parameters())
+    sched = make_scheduler(cfg, plain, g.steps_per_epoch)
+    step, _ = make_step(cfg, g.model, plain, sched, g.teacher, None,
+                        len(g.chunk) * cfg.batch_size)
+
+    def chunk(snap, saved):
+        _restore(g.model, g.opt, g.sched, snap)
+        # a copy: the loader keeps the tensors it is given, which the
+        # steps then update in place
+        plain.load_state_dict(copy.deepcopy(saved))
+        keep_capturable(plain, [False] * len(plain.param_groups))
+        set_schedule_count(sched, plain, snap[1])
+        reset_counts()
+        ms = [step(t) for t in g.chunk]
+        n = counts()
+        return _chunk_result(g.model, plain, sched, ms), n
+
+    return chunk
+
+
+def _replay_from(g, snap) -> tuple:
+    """``g``'s chunk replayed (captured first, at the first call) from
+    ``snap``, restored in place: ``(result, launches)``."""
+    import torch
+
+    _restore(g.model, g.opt, g.sched, snap)
+    reset_counts()
+    ms = g.runner.run(g.key, g.chunk)
+    torch.cuda.synchronize()
+    n = counts()
+    return _chunk_result(g.model, g.opt, g.sched, ms), n
+
+
+def check_graph_chunks(train_preset, dev, card: str) -> None:
+    """Phase 5o.  (a) Against the default path: for every mode
+    ``define_net`` builds, distillation with the teacher-output cache (the
+    default; its boundary tensors are graph inputs) and without, and the
+    teacher under Adam, SGD and Adagrad besides AdamW, at the preset's
+    widths (B 4, fixdim 2500, dims 128) in f32 (bf16 streams off, as phases
+    5 and 5b compare: with bf16 operands the first step's atomic noise
+    moves whole bf16 roundings in the second, so repeated chunks spread by
+    up to 3e-2 of each other) under ``deterministic_training``, with a
+    schedule of GRAPH_CHECK_STEPS_PER_EPOCH steps: one chunk of 2 steps
+    from one snapshot (restored in place, since the graph holds the
+    addresses) three times through the default path (``scan_steps`` 1: the
+    optimizer without ``capturable``, ``LambdaLR`` stepped after each
+    step), twice as the graph (its capture and replay, then a replay) and
+    once as single steps of the capturable optimizer (the trainer's first
+    chunk of a shape and its leftovers): the parameters, buffers, optimizer
+    state, the schedule's count and each step's metrics of the graph and of
+    the single steps, entry by entry, within OPT_RTOL's rule of the
+    closest default run (the entries of :func:`_grad_masks`); the launch
+    counts of the capture with its replay, and of the second replay, each
+    the default chunk's.  (b) In train mode (dropout 0.1, the preset's
+    bf16 streams), the same modes and the teacher with
+    ``fused_table_attention`` (a): from one snapshot, two chunks of single
+    steps and two replays; every loss finite, and where the single steps'
+    losses differ (a mode that draws dropout, density noise or K6's seed;
+    every mode with a kernel does), the replays' differ too: no random
+    draw is frozen into the graph.  (c) K6's device seed
+    (:func:`check_k6_device_seed`).  Every case runs; the phase fails at
+    its end if one did."""
+    import copy
+
+    import torch
+
+    from disentangled_multimodal_learning_tpu_torch.models.factory import (
+        BASELINES)
+
+    check_k6_device_seed(dev, card)
+    batches = _chunk_batches(train_preset, 2, dev)
+    modes = ("teacher", "uniteacher", "student", "multiscale",
+             "deformpathomic", "distillation") + BASELINES
+    cases = ([dict(mode=m) for m in modes]
+             + [dict(mode="distillation", distill_teacher_cache=False)]
+             + [dict(mode="teacher", optimizer=o)
+                for o in ("adam", "sgd", "adagrad")])
+    failed = []
+    for case in cases:
+        cfg = train_preset.replace(deterministic_training=True,
+                                   attn_bf16_streams=False, **case)
+        label = (f"{setting(cfg)}, {cfg.optimizer}"
+                 + (f", teacher cache {cfg.distill_teacher_cache}"
+                    if cfg.mode == "distillation" else ""))
+        g = _graph_runner(cfg, dev, batches, GRAPH_CHECK_STEPS_PER_EPOCH)
+        snap = _snapshot(g.model, g.opt, g.sched)
+        saved = copy.deepcopy(g.opt.state_dict())
+        default_chunk = _default_path(cfg, g)
+        default, graph, n = [], [], {}
+        for _ in range(3):
+            result, n["default"] = default_chunk(snap, saved)
+            default.append(result)
+        _restore(g.model, g.opt, g.sched, snap)
+        single = _chunk_result(g.model, g.opt, g.sched,
+                               [g.single(t) for t in g.chunk])
+        for name in ("capture", "replay"):
+            result, n[name] = _replay_from(g, snap)
+            graph.append(result)
+        masks = _grad_masks(default[0], 2)
+        spread = max(_max_diff(x, y, masks) for i, x in enumerate(default)
+                     for y in default[i + 1:])
+        # each entry's share of its tolerance against the closest default
+        # run: the graph's two runs, and the single steps'
+        start = {k: v.cuda() for k, v in snap[0].items()}
+
+        def worst_share(runs):
+            shares = [min((_default_gaps(r, e, start, masks, spread, 2)
+                           for e in default),
+                          key=lambda gaps: max(gaps.values())) for r in runs]
+            return max(((k, v) for gaps in shares for k, v in gaps.items()),
+                       key=lambda kv: kv[1])
+
+        worst, worst_single = worst_share(graph), worst_share([single])
+        losses = [[float(r[f"step{i}.loss"]) for i in range(2)]
+                  for r in (default[0], single, *graph)]
+        d_graph = max(min(_max_diff(r, e, masks) for e in default)
+                      for r in graph)
+        print(f"[5o] {label}: a chunk of 2 steps from one snapshot through "
+              f"the default path (3 runs), as a graph (capture + replay, "
+              f"replay) and as single steps of the capturable optimizer (a "
+              f"shape's first chunk, the leftovers): losses default "
+              f"{losses[0]}, graph {losses[2:]}, single steps {losses[1]}; "
+              f"the default runs' largest spread {spread:.3e}; to the "
+              f"default path, the largest share of an entry's tolerance "
+              f"(tol {REPEAT_FACTOR} x the spread + {OPT_RTOL} x the "
+              f"tensor's change over the chunk + 2 roundings a step): the "
+              f"graph {worst[1]:.3f} ({worst[0]}; the largest difference "
+              f"{d_graph:.3e}), the single steps {worst_single[1]:.3f} "
+              f"({worst_single[0]}; the graph to the single steps "
+              f"{max(_max_diff(r, single, masks) for r in graph):.3e})"
+              f"; parameter entries compared where the gradient's rms is "
+              f"above {ADAM_GRAD_FLOOR}: "
+              f"{sum(int(m.sum()) for m in masks.values())} of "
+              f"{sum(m.numel() for m in masks.values())}; launches default "
+              f"{n['default']}, capture + replay {n['capture']}, replay "
+              f"{n['replay']}; graphs {g.runner.captures}, replays "
+              f"{g.runner.replays} | {card}")
+        if worst[1] > 1 or worst_single[1] > 1:
+            failed.append(f"{label}: the graph or the single steps against "
+                          "the default path")
+        if (not n["default"] == n["capture"] == n["replay"]
+                or (cfg.mode == "teacher" and n["default"]
+                    != expect(k1_fwd=8, k1_bwd=8))):
+            failed.append(f"{label}: launches {n}")
+        del g, snap, saved, default_chunk, default, graph, single, start
+        torch.cuda.empty_cache()
+    train_cases = ([dict(mode=m) for m in modes]
+                   + [dict(mode="distillation", distill_teacher_cache=False),
+                      dict(mode="teacher", fused_table_attention=True)])
+    for case in train_cases:
+        cfg = train_preset.replace(**case)
+        label = (setting(cfg) + (f", teacher cache {cfg.distill_teacher_cache}"
+                                 if cfg.mode == "distillation" else ""))
+        g = _graph_runner(cfg, dev, batches)
+        snap = _snapshot(g.model, g.opt, g.sched)
+        singles, replays = [], []
+        for _ in range(2):
+            _restore(g.model, g.opt, g.sched, snap)
+            singles.append([float(g.single(t)["loss"]) for t in g.chunk])
+        for _ in range(2):
+            _restore(g.model, g.opt, g.sched, snap)
+            replays.append([float(m["loss"])
+                            for m in g.runner.run(g.key, g.chunk)])
+        draws = singles[0] != singles[1]
+        print(f"[5o] {label}, dropout {cfg.dropout_rate}, train mode: from "
+              f"one snapshot, single steps' losses {singles}, replays' "
+              f"{replays} (draws randomness: {draws}) | {card}")
+        if (not all(map(math.isfinite, sum(singles + replays, [])))
+                or (draws and replays[0] == replays[1])
+                or (not draws and cfg.mode not in BASELINES)
+                or g.runner.replays != 2):
+            failed.append(f"{label}: a random draw frozen in the graph, or "
+                          "a loss not finite")
+        del g, snap
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"5o: {failed}")
+
+
+def time_graph_chunks(train_preset, dev, card: str, n: int = 5) -> None:
+    """Phase 6o (a record, not a claim): the teacher preset (dropout on) at
+    ``scan_steps`` 4, host ms and wall ms an update, chunks of single steps
+    (the first chunk of a shape, the CPU's and a process group's) against
+    graph replays, each chunk from a drained queue (host: until the last
+    step or the replay returns; wall: until the card is done; medians of
+    ``n``), and the profiler's device-busy share of each."""
+    import torch
+
+    g = _graph_runner(train_preset, dev, _chunk_batches(train_preset, 4, dev))
+    g.runner.run(g.key, g.chunk)  # the capture and its replay
+    rows = {}
+    for name, run in (("single steps", lambda: [g.single(t) for t in g.chunk]),
+                      ("graph", lambda: g.runner.run(g.key, g.chunk))):
+        host, wall = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3 / 4)
+            wall.append((t2 - t0) * 1e3 / 4)
+        busy, pwall = profile(f"chunk of 4 ({name}, {setting(train_preset)})",
+                              run, n=2, rows=8)
+        rows[name] = (median(sorted(host)), median(sorted(wall)),
+                      busy / pwall)
+        print(f"[6o] {setting(train_preset)}, scan_steps 4, {name}: host "
+              f"{rows[name][0]:.3f} ms an update, wall {rows[name][1]:.3f} "
+              f"ms an update (medians of {n} chunks), device busy "
+              f"{rows[name][2]:.1%} (profiler) | {card}")
+    print(f"[6o] graph replay against single steps: host ms an update "
+          f"{rows['graph'][0] / rows['single steps'][0]:.3f}x, wall "
+          f"{rows['graph'][1] / rows['single steps'][1]:.3f}x | {card}")
+    del g
+    torch.cuda.empty_cache()
 
 
 def profile(label: str, fn, n: int = 5, rows: int = 30) -> tuple:

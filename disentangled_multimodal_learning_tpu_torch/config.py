@@ -169,8 +169,9 @@ class Config:
     eval_every_iters: int = 200
     eval_during_training: bool = True
     deterministic_training: bool = False
-    # JAX's fuser of K train-step dispatches (JAX config.py:276); read as
-    # max(1, K), and ``validate`` refuses K > 1
+    # K train steps a chunk, batches grouped by bag shape (JAX
+    # config.py:276, trainers.py:234-285); read as max(1, K); on the card a
+    # chunk is one CUDA graph (train/graph_chunk.py)
     scan_steps: int = 1
     # checkpoints (JAX config.py:110-111, :173): ``reload`` restores the
     # full state from checkpoints_teacher / checkpoints_student before
@@ -310,13 +311,6 @@ class Config:
             from .data.bucketing import validate_buckets
 
             validate_buckets(str(self.buckets).split(","))
-        if self.scan_steps > 1:
-            raise NotImplementedError(
-                f"scan_steps={self.scan_steps}: the port trains one update a "
-                "batch. JAX's scan_steps fuses K dispatches into one on a "
-                "TPU, and with it updates the batches grouped by bag shape "
-                "and evaluates once per K steps; that order is not ported, "
-                "so set scan_steps to 1")
         from .utils.weight_init import VALID_INIT_TYPES
 
         if self.init_type not in VALID_INIT_TYPES:

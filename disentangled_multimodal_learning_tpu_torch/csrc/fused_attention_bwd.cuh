@@ -81,6 +81,14 @@ __device__ __forceinline__ void prefetch_l1(const float* p) {
   asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
 }
 
+// the dropout seed: K6-bwd's lies in device memory (seed_ptr, the low 32
+// bits of an int64, so that a CUDA graph replay reads its own draw); K7-bwd
+// passes null and the seed itself
+__device__ __forceinline__ uint32_t read_seed(const long long* seed_ptr,
+                                              uint32_t seed) {
+  return seed_ptr != nullptr ? static_cast<uint32_t>(*seed_ptr) : seed;
+}
+
 constexpr int kBwdWarps = 16;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kBTQ = 32;          // queries of a resident tile
@@ -107,8 +115,9 @@ fused_attention_bwd_resident_kernel(
     const float* __restrict__ v, const float* __restrict__ attn,
     const float* __restrict__ gout, const float* __restrict__ gattn,
     float* __restrict__ dq, float* __restrict__ ds, float* __restrict__ partial,
-    int BH, int K, int N, int D, int nk, uint32_t seed, uint32_t threshold,
-    float scale) {
+    int BH, int K, int N, int D, int nk,
+    const long long* __restrict__ seed_ptr, uint32_t seed,
+    uint32_t threshold, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int split = blockIdx.x;
@@ -203,7 +212,7 @@ fused_attention_bwd_resident_kernel(
   const int mq = warp & 1;            // dq: queries 16 mq .. 16 mq + 15,
   const int np = (warp >> 1) & 3;     // head dims 16 np .. 16 np + 15,
   const int kh = warp >> 3;           // the first or second half of the kv rows
-  const uint32_t seed_mix = mix32(seed);
+  const uint32_t seed_mix = mix32(read_seed(seed_ptr, seed));
   const bool even = (N & 1) == 0;     // float2 rows of ds stay aligned
   float acc_dk[kBMT][2][4];
   float acc_dv[kBMT][2][4];
@@ -487,8 +496,9 @@ fused_attention_bwd_chunked_kernel(
     const float* __restrict__ v, const float* __restrict__ attn,
     const float* __restrict__ gout, const float* __restrict__ gattn,
     float* __restrict__ dq, float* __restrict__ ds, float* __restrict__ partial,
-    int BH, int K, int N, int D, int nk, uint32_t seed, uint32_t threshold,
-    float scale) {
+    int BH, int K, int N, int D, int nk,
+    const long long* __restrict__ seed_ptr, uint32_t seed,
+    uint32_t threshold, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int split = blockIdx.x;
@@ -508,7 +518,7 @@ fused_attention_bwd_chunked_kernel(
 
   const float* kb = k + static_cast<size_t>(bh) * K * D;
   const float* vb = v + static_cast<size_t>(bh) * K * D;
-  const uint32_t seed_mix = mix32(seed);
+  const uint32_t seed_mix = mix32(read_seed(seed_ptr, seed));
   const int dg = threadIdx.x & 15;   // head dims dg*4 .. dg*4+3
   const int rg = threadIdx.x >> 4;   // kv rows rg + 16 i (or queries)
   const bool d_ok = dg * 4 < D;
@@ -748,9 +758,9 @@ inline int fused_attention_bwd(const void* q, const void* k, const void* v,
                                const void* attn, const void* gout,
                                const void* gattn, void* dq, void* dkv,
                                void* ds, void* partial, int BH, int K, int N,
-                               int D, int splits, int nk, int seed,
-                               int threshold, float scale,
-                               cudaStream_t s) {
+                               int D, int splits, int nk,
+                               const void* seed_ptr, int seed, int threshold,
+                               float scale, cudaStream_t s) {
   if (BH == 0 || N == 0) return 0;
   if (K < 1 || D < 4 || D > kMaxD || D % 4 != 0 || splits < 1 ||
       splits > (N + kQT - 1) / kQT) {
@@ -769,7 +779,8 @@ inline int fused_attention_bwd(const void* q, const void* k, const void* v,
       static_cast<const float*>(gout), static_cast<const float*>(gattn),
       static_cast<float*>(dq), static_cast<float*>(ds),
       static_cast<float*>(partial), BH, K, N, D, nk,
-      static_cast<uint32_t>(seed), static_cast<uint32_t>(threshold), scale);
+      static_cast<const long long*>(seed_ptr), static_cast<uint32_t>(seed),
+      static_cast<uint32_t>(threshold), scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return sum_partials(partial, splits, 2 * BH * K * D, dkv, s);

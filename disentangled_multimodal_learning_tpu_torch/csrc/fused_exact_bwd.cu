@@ -43,6 +43,7 @@ extern "C" int dmlt_fused_exact_bwd(const void* q, const void* k,
                                     int threshold, float scale,
                                     void* stream) {
   return fused_attention_bwd(q, k, v, attn, gout, gattn, dq, dkv, ds, partial,
-                             BH, K, N, D, splits, nk, seed, threshold, scale,
+                             BH, K, N, D, splits, nk, nullptr, seed,
+                             threshold, scale,
                              static_cast<cudaStream_t>(stream));
 }

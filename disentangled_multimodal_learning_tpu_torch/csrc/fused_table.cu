@@ -89,7 +89,8 @@ fused_table_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        int tn_cols, const int* __restrict__ taps,
                        const float* __restrict__ fracs,
                        float* __restrict__ out, float* __restrict__ attn,
-                       int K, int N, int D, int side, uint32_t seed,
+                       int K, int N, int D, int side,
+                       const long long* __restrict__ seed,
                        uint32_t threshold, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -170,7 +171,9 @@ fused_table_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nd = warp >> 1;          // PV: head dims 8 nd .. 8 nd + 7
   const int nmt = Kp / 16;
   const int col = cg * 8 + 2 * t;    // sim: this lane's two queries
-  const uint32_t seed_mix = mix32(seed);
+  // the seed lies in device memory, so that a CUDA graph replay reads the
+  // one its own generator drew
+  const uint32_t seed_mix = mix32(static_cast<uint32_t>(*seed));
   const bool even = (N & 1) == 0;    // float2 rows of attn stay aligned
   const int ntiles = (N + kTQ - 1) / kTQ;
   int buf = 0;
@@ -411,7 +414,8 @@ extern "C" int dmlt_fused_table_fwd_smem(int tn_rows, int tn_cols, int K,
 // q [BH, N, D] (pre-scaled), k, v [BH, K, D], table [tn_rows, tn_cols],
 // taps [BH*K, 2] int32, fracs [BH*K, 2], all f32 but taps -> out [BH, N, D]
 // and attn [BH, K, N] (before dropout), f32.  threshold = round(rate *
-// 2^24) (0: no dropout), scale = 1 / (1 - rate).  Needs K <= 160, D <= 64
+// 2^24) (0: no dropout), scale = 1 / (1 - rate); seed points to one int64
+// on the card, the mask's seed (its low 32 bits).  Needs K <= 160, D <= 64
 // and a multiple of 4, N = side^2.  Returns cudaGetLastError() after the
 // launch (0 = launched).
 extern "C" int dmlt_fused_table_fwd(const void* q, const void* k,
@@ -419,7 +423,7 @@ extern "C" int dmlt_fused_table_fwd(const void* q, const void* k,
                                     int tn_rows, int tn_cols,
                                     const void* taps, const void* fracs,
                                     void* out, void* attn, int BH, int K,
-                                    int N, int D, int side, int seed,
+                                    int N, int D, int side, const void* seed,
                                     int threshold, float scale,
                                     void* stream) {
   if (BH == 0 || N == 0) return 0;
@@ -440,6 +444,7 @@ extern "C" int dmlt_fused_table_fwd(const void* q, const void* k,
       static_cast<const float*>(v), static_cast<const float*>(table), tn_rows,
       tn_cols, static_cast<const int*>(taps), static_cast<const float*>(fracs),
       static_cast<float*>(out), static_cast<float*>(attn), K, N, D, side,
-      static_cast<uint32_t>(seed), static_cast<uint32_t>(threshold), scale);
+      static_cast<const long long*>(seed), static_cast<uint32_t>(threshold),
+      scale);
   return static_cast<int>(cudaGetLastError());
 }

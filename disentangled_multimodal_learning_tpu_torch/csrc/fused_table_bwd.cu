@@ -27,17 +27,18 @@ extern "C" int dmlt_fused_table_bwd_smem(int K, int D) {
 // all f32 -> dq [BH, N, D], dkv [2, BH, K, D] (dk, then dv) and ds
 // [BH, K, N], f32.  partial is scratch of splits * 2 * BH * K * D f32;
 // split s of a bh takes the 64-query tiles s, s + splits, ...  threshold
-// and scale as in dmlt_fused_table_fwd.  Returns cudaGetLastError() after
+// and scale as in dmlt_fused_table_fwd, seed the forward's (one int64 on
+// the card).  Returns cudaGetLastError() after
 // the launches (0 = launched).
 extern "C" int dmlt_fused_table_bwd(const void* q, const void* k,
                                     const void* v, const void* attn,
                                     const void* gout, const void* gattn,
                                     void* dq, void* dkv, void* ds,
                                     void* partial, int BH, int K, int N,
-                                    int D, int splits, int seed,
+                                    int D, int splits, const void* seed,
                                     int threshold, float scale,
                                     void* stream) {
   return fused_attention_bwd(q, k, v, attn, gout, gattn, dq, dkv, ds, partial,
-                             BH, K, N, D, splits, 0, seed, threshold, scale,
+                             BH, K, N, D, splits, 0, seed, 0, threshold, scale,
                              static_cast<cudaStream_t>(stream));
 }

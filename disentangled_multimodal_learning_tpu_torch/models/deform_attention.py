@@ -350,8 +350,11 @@ class DeformCrossAttention2D(nn.Module):
             table, shifts = self.rel_pos_bias.table_parts(
                 pts.reshape(B * G, K, 2), side=side, kv_bound=kv_bound)
             rate = self.dropout if self.training else 0.0
-            # the mask's seed, from torch's RNG (JAX: make_rng("dropout"))
-            seed = int(torch.randint(0, 2 ** 31 - 1, ())) if rate > 0 else 0
+            # the mask's seed, drawn on the device from its torch generator
+            # (JAX: make_rng("dropout")), so that a CUDA graph replay draws
+            # its own and the host does not wait for it
+            seed = (torch.randint(0, 2 ** 31 - 1, (), device=x1.device)
+                    if rate > 0 else 0)
             # q, k and v are f32 here (the projections return f32)
             out, attn = fused_ops.fused_table_attention(
                 qh.reshape(B * H, N, dh), kh.reshape(B * H, K, dh),

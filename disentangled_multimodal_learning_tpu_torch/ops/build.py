@@ -48,10 +48,10 @@ SIGNATURES = {
     "dmlt_cpb_table_strided_bwd": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dmlt_fused_table_fwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _P),
+                             _I, _I, _I, _P, _I, _F, _P),
     "dmlt_fused_table_fwd_smem": (_I, _I, _I, _I),
     "dmlt_fused_table_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _P),
+                             _I, _I, _I, _P, _I, _F, _P),
     "dmlt_fused_table_bwd_smem": (_I, _I),
     "dmlt_cpb_exact_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _P),

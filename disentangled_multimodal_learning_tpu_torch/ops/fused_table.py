@@ -19,8 +19,12 @@ Dropout draws no random tensor: the kept elements are a counter-based hash
 of ``(seed, (bh*K + k)*N + n)`` (:func:`dropout_keep_mask`, the same bits as
 ``csrc/fused_table.cuh``), so the forward and the backward regenerate the
 same mask and the card's kernels and the plain version drop the same
-elements.  The caller draws the seed from torch's RNG per call; JAX draws
-it from its ``dropout`` RNG stream, whose bits this cannot match.
+elements.  The seed is an int or a one-element int64 tensor (its low 32
+bits); the kernels read it from device memory, and
+``DeformCrossAttention2D`` draws it there, from torch's generator of its
+device, at each call, so that a CUDA graph replay draws its own (an int is
+written to the card by a fill).  JAX hands its kernel the seed as an operand
+too, drawn from its ``dropout`` RNG stream, whose bits this cannot match.
 
 Wrapper rule, as in ``ops/cpb.py``: a tensor on the CPU goes to the plain
 PyTorch version (:func:`fused_table_attention_reference`, the composition
@@ -81,21 +85,24 @@ def dropout_threshold(rate: float) -> int:
     return int(round(rate * (1 << 24)))
 
 
-def dropout_keep_mask(seed: int, shape, rate: float, device=None,
+def dropout_keep_mask(seed, shape, rate: float, device=None,
                       first: int = 0):
-    """Bool ``[BH, K, N]``: the elements K6 keeps at ``rate`` for ``seed``
-    (``dropout_keep`` of ``csrc/fused_table.cuh``, in int64 tensor ops
-    masked to 32 bits); ``first`` is the element index of ``[0, 0, 0]``
-    (``bh0 * K * N`` for the batch-heads from ``bh0`` on)."""
+    """Bool ``[BH, K, N]``: the elements K6 keeps at ``rate`` for ``seed``,
+    an int or a one-element int64 tensor (``dropout_keep`` of
+    ``csrc/fused_table.cuh``, in int64 tensor ops masked to 32 bits);
+    ``first`` is the element index of ``[0, 0, 0]`` (``bh0 * K * N`` for
+    the batch-heads from ``bh0`` on)."""
     n = shape[0] * shape[1] * shape[2]
     idx = torch.arange(first, first + n, dtype=torch.int64,
                        device=device).reshape(shape)
-    h = _mix32((idx & _M32) ^ _mix32((idx >> 32) ^ _mix32_int(seed)))
+    mix = (_mix32(seed.to(idx.device, torch.int64).reshape(()) & _M32)
+           if isinstance(seed, torch.Tensor) else _mix32_int(seed))
+    h = _mix32((idx & _M32) ^ _mix32((idx >> 32) ^ mix))
     return (h >> 8) >= dropout_threshold(rate)
 
 
 def fused_table_attention_reference(q, k, v, table, shifts, side: int,
-                                    seed: int = 0, rate: float = 0.0):
+                                    seed=0, rate: float = 0.0):
     """Plain version of K6: the table windows (K1's plain version), ``k
     q^T + bias``, the softmax over K, the dropout mask of
     :func:`dropout_keep_mask` scaled by ``1 / (1 - rate)``, then PV;
@@ -118,7 +125,7 @@ def _attend_reference(q, k, v, table, taps, fracs, side, seed, rate):
 
 def fused_table_attention_backward_reference(q, k, v, table, taps, fracs,
                                              g_out, g_attn, side: int,
-                                             seed: int = 0, rate: float = 0.0):
+                                             seed=0, rate: float = 0.0):
     """Plain version of K6-bwd: autograd through the plain forward (from the
     taps and fractions of ``table_taps``) for the cotangents ``g_out`` and
     ``g_attn`` (None: the map was not used) -> ``(dq, dk, dv, dtable,
@@ -151,6 +158,18 @@ def _check_fused_args(name, q, k, v, table, taps, fracs, side):
     return BH, K, N, D
 
 
+def _device_seed(seed, name: str, device) -> torch.Tensor:
+    """The seed as the one int64 on ``device`` that the kernels read."""
+    if not isinstance(seed, torch.Tensor):
+        return torch.full((), seed, dtype=torch.int64, device=device)
+    if (seed.dtype != torch.int64 or seed.numel() != 1
+            or seed.device != device):
+        raise ValueError(f"{name}: the seed must be one int64 on {device}, "
+                         f"not {seed.dtype} {tuple(seed.shape)} on "
+                         f"{seed.device}")
+    return seed
+
+
 def _dropout_args(rate: float) -> tuple[int, float]:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate}: want 0 <= rate < 1")
@@ -174,18 +193,19 @@ def _forward_launch(q, k, v, table, taps, fracs, side, seed, rate):
     if BH == 0:  # nothing to launch, so nothing to count
         return out, attn
     threshold, scale = _dropout_args(rate)
+    seed = _device_seed(seed, "fused_table_attention", q.device)
     err = kernels().dmlt_fused_table_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         table.shape[0], table.shape[1], taps.data_ptr(), fracs.data_ptr(),
-        out.data_ptr(), attn.data_ptr(), BH, K, N, D, side, seed, threshold,
-        scale, _stream(q))
+        out.data_ptr(), attn.data_ptr(), BH, K, N, D, side, seed.data_ptr(),
+        threshold, scale, _stream(q))
     check(err, "fused_table_attention")
     fused_table_attention.launches += 1
     return out, attn
 
 
 def fused_table_attention_backward(q, k, v, table, taps, fracs, attn, g_out,
-                                   g_attn, side: int, seed: int = 0,
+                                   g_attn, side: int, seed=0,
                                    rate: float = 0.0):
     """K6-bwd wrapper: the forward's inputs (taps and fractions from
     ``table_taps``), its ``attn`` and the cotangents ``g_out [BH, N, D]``
@@ -223,11 +243,12 @@ def fused_table_attention_backward(q, k, v, table, taps, fracs, attn, g_out,
     partial = torch.empty((splits, 2, BH, K, D), dtype=torch.float32,
                           device=q.device)
     threshold, scale = _dropout_args(rate)
+    seed = _device_seed(seed, "fused_table_attention_backward", q.device)
     err = kernels().dmlt_fused_table_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr(),
         g_out.data_ptr(), None if g_attn is None else g_attn.data_ptr(),
         dq.data_ptr(), dkv.data_ptr(), ds.data_ptr(), partial.data_ptr(), BH,
-        K, N, D, splits, seed, threshold, scale, _stream(q))
+        K, N, D, splits, seed.data_ptr(), threshold, scale, _stream(q))
     check(err, "fused_table_attention_backward")
     table_scatter_launch(table, taps, fracs, ds, side, dtable, dfracs)
     fused_table_attention_backward.launches += 1
@@ -264,13 +285,14 @@ class _FusedTableAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-def fused_table_attention(q, k, v, table, shifts, side: int, seed: int = 0,
+def fused_table_attention(q, k, v, table, shifts, side: int, seed=0,
                           rate: float = 0.0):
     """K6: ``q [BH, N, D]`` (pre-scaled), ``k, v [BH, K, D]``, the divisor-1
     ``table [tn, tn]`` and the rows' lattice ``shifts [BH*K, 2]``
-    (``ops/cpb.py table_shifts``), all f32, an int dropout ``seed`` and
-    ``rate`` -> ``(out [BH, N, D], attn [BH, K, N])`` f32, ``attn`` before
-    dropout; differentiable with respect to q, k, v, table and shifts."""
+    (``ops/cpb.py table_shifts``), all f32, a dropout ``seed`` (an int or
+    one int64 on the inputs' device) and ``rate`` -> ``(out [BH, N, D],
+    attn [BH, K, N])`` f32, ``attn`` before dropout; differentiable with
+    respect to q, k, v, table and shifts."""
     if q.device.type == "cpu":
         return fused_table_attention_reference(q, k, v, table, shifts, side,
                                                seed, rate)

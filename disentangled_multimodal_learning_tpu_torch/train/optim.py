@@ -19,6 +19,15 @@ update rules match the optax chains the JAX package builds:
 the mean train loss of each epoch, scale it (:func:`set_learning_rate`); a
 restored lr holds until the watcher's first decision
 (:func:`hold_learning_rate`), as JAX's injected lr does.
+
+``make_optimizer(..., capturable=True)`` builds the optimizer that the CUDA
+graphs of ``scan_steps`` (``train/graph_chunk.py``) replay: its step reads
+the lr from a device tensor set into the param group, and Adam and AdamW
+keep their step counts on the card (torch's ``capturable=True``);
+:class:`CapturableSGD` is SGD's rule written for a tensor lr, and
+:class:`OptaxAdagrad` takes one as it is.  The graph steps the schedule K
+steps at a time (:func:`scheduled_lrs`, :func:`set_schedule_count`).  The
+default optimizers (``scan_steps`` 1, the CPU) are unchanged.
 """
 
 from __future__ import annotations
@@ -127,25 +136,94 @@ class OptaxAdagrad(torch.optim.Optimizer):
                 p.sub_(group["lr"] * g * scale)
 
 
-def make_optimizer(cfg, params):
+class CapturableSGD(torch.optim.SGD):
+    """torch's SGD rule (momentum, dampening 0, not Nesterov, the L2 decay
+    added to the gradient; the momentum buffer starts as the first
+    gradient) with the lr allowed to be a tensor on the card: torch's SGD
+    adds ``-lr`` as a Python scalar, which reads a tensor lr back to the
+    host, and a CUDA graph cannot."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.add(p, alpha=wd) if wd else p.grad
+                state = self.state[p]
+                buf = state.get("momentum_buffer")
+                if buf is None:
+                    state["momentum_buffer"] = buf = g.clone()
+                else:
+                    buf.mul_(group["momentum"]).add_(g)
+                p.sub_(buf * lr)
+
+
+def make_optimizer(cfg, params, capturable: bool = False):
     """``cfg.optimizer`` over ``params`` at base lr 1 (the scheduler sets
-    every step's lr)."""
+    every step's lr); with ``capturable``, the variant that a CUDA graph
+    replays (see the module docstring)."""
     name, wd = cfg.optimizer, float(cfg.weight_decay)
     if name == "sgd":
-        return torch.optim.SGD(params, lr=1.0, momentum=0.9, weight_decay=wd)
+        sgd = CapturableSGD if capturable else torch.optim.SGD
+        return sgd(params, lr=1.0, momentum=0.9, weight_decay=wd)
     if name == "adam":
-        return torch.optim.Adam(params, lr=1.0, weight_decay=wd)
+        return torch.optim.Adam(params, lr=1.0, weight_decay=wd,
+                                capturable=capturable)
     if name == "adagrad":
         return OptaxAdagrad(params, lr=1.0, weight_decay=wd)
     if name == "adamw":
-        return torch.optim.AdamW(params, lr=1.0, weight_decay=wd)
+        return torch.optim.AdamW(params, lr=1.0, weight_decay=wd,
+                                 capturable=capturable)
     raise NotImplementedError(f"optimizer [{name}] is not implemented")
+
+
+def keep_capturable(optimizer, flags) -> None:
+    """Give each param group of ``optimizer`` its ``capturable`` flag from
+    ``flags`` back (a loaded state dict brings the saver's) and put Adam's
+    step counts where the flag wants them: on the parameter's device for a
+    capturable group (the graph advances them there), else on the CPU, as
+    torch's loader does."""
+    for group, flag in zip(optimizer.param_groups, flags):
+        if "capturable" not in group:
+            continue
+        group["capturable"] = flag
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if torch.is_tensor(state.get("step")):
+                state["step"] = state["step"].to(
+                    p.device if flag else torch.device("cpu"), torch.float32)
+
+
+def capturable_flags(optimizer) -> list:
+    return [group.get("capturable", False)
+            for group in optimizer.param_groups]
 
 
 def make_scheduler(cfg, optimizer, steps_per_epoch: int, plateau=None):
     """Per-iteration ``LambdaLR``: step it after every optimizer step."""
     return torch.optim.lr_scheduler.LambdaLR(
         optimizer, make_schedule(cfg, steps_per_epoch, plateau))
+
+
+def scheduled_lrs(scheduler, n: int) -> list:
+    """The lr of each of the next ``n`` steps: what ``LambdaLR`` would set
+    before each of them (one param group)."""
+    base, fn = scheduler.base_lrs[0], scheduler.lr_lambdas[0]
+    return [base * fn(scheduler.last_epoch + i) for i in range(n)]
+
+
+def set_schedule_count(scheduler, optimizer, count: int) -> None:
+    """Put ``scheduler`` at step ``count`` and the optimizer's lr at that
+    step's value, a float, as ``count`` calls of ``scheduler.step()``
+    leave them."""
+    scheduler.last_epoch = count
+    lrs = [base * fn(count) for base, fn in
+           zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, lr in zip(optimizer.param_groups, lrs):
+        group["lr"] = lr
+    scheduler._last_lr = lrs
 
 
 class ReduceLROnPlateau:

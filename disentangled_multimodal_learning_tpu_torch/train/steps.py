@@ -326,10 +326,12 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None,
                "multiscale": _multiscale_loss}.get(mode, _two_scale_loss)
     if mode in BASELINES:
         loss_fn = _baseline_loss
+    params = list(model.parameters())
     cw = task_class_weights(cfg, cfg.task_type)
+    if cw is not None:  # on the card once: a CUDA graph copies no host list
+        cw = torch.tensor(cw, dtype=torch.float32, device=params[0].device)
     label_col = int(TASK_LABEL_COL[cfg.task_type])
     train_mode = not cfg.deterministic_training
-    params = list(model.parameters())
 
     def losses_of(out, label, boundary):
         if boundary is not None:

@@ -46,11 +46,23 @@ shards draw other masks and the ranks of one inner group the same ones
 (the replicated parts stay equal).  A pipeline (``pipe_devices``) trains
 distillation without the teacher-output cache, as JAX does.
 
+``scan_steps`` K > 1 takes JAX's order (``trainers.py:234-285``): each
+batch (with its teacher boundary tensors, in distillation with the cache)
+joins a buffer keyed by the shape of ``x_path10``, buffers kept in
+first-seen order, since bucketed loaders interleave bag lengths; a full
+buffer is a chunk of K updates (on the card in one process, a shape's
+first chunk K single steps, which warm up, and every later one a replay of
+the shape's CUDA graph of K steps, ``train/graph_chunk.py``; on the CPU and
+in a process group, K single steps), after which the last step's metrics are logged, the
+plateau watcher gets all K losses and the eval cadence is checked once,
+against the iteration count before the chunk; at each epoch's end the
+buffers that did not fill run one batch at a time through the single step,
+in first-seen order, each checked against the cadence at the epoch's last
+index, before plateau and the rolling checkpoint.
+
 What the JAX driver does besides, and the port does not: the orbax
 checkpoint backend (the port writes ``.pt``, reads JAX's pickle ``.ckpt``
-and refuses ``.orbax``).  ``scan_steps`` above 1 is refused by
-:meth:`Config.validate`: the port takes one update a batch, in the
-loader's order.
+and refuses ``.orbax``).
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from ..utils.checkpoint import (JAX_SUFFIX, SUFFIX, metric_stamped_name,
 from .distill_cache import TeacherBoundaryCache, loader_dataset_size
 from .evaluation import (METRIC_NAMES, Evaluator, headline_metrics,
                          model_type_of)
+from .graph_chunk import ChunkRunner
 from .optim import (ReduceLROnPlateau, make_optimizer, make_scheduler,
                     set_learning_rate)
 from .steps import (batch_to_tensors, make_distill_cached_step,
@@ -105,7 +118,18 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     plateau = (ReduceLROnPlateau(cfg.plateau_factor, cfg.plateau_patience,
                                  cfg.plateau_threshold)
                if cfg.lr_policy == "plateau" else None)
-    optimizer = make_optimizer(cfg, model.parameters())
+    scan_k = max(1, int(cfg.scan_steps))
+    # a chunk is one CUDA graph on the card in one process (gloo's
+    # collectives are not captured), K eager steps elsewhere
+    graphs = scan_k > 1 and device.type == "cuda" and not mesh.in_group()
+    if scan_k > 1 and lead:
+        print(f"[scan_steps] {scan_k} updates a chunk: " + (
+            "each full chunk one CUDA graph a bag shape" if graphs
+            else "eager steps (" + ("a process group: its collectives are "
+                                    "not captured" if mesh.in_group()
+                                    else f"no graphs on {device.type}")
+            + ")"))
+    optimizer = make_optimizer(cfg, model.parameters(), capturable=graphs)
     scheduler = make_scheduler(cfg, optimizer, steps_per_epoch, plateau)
     step = 0
     if state is not None:
@@ -128,8 +152,19 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
         for m in (model, teacher):
             if m is not None:
                 mesh.broadcast_state(m, layout)
-    train_step, cache = make_step(cfg, model, optimizer, scheduler, teacher,
-                                  layout, loader_dataset_size(train_loader))
+    # the step without the schedule (a chunk steps it K at a time), and the
+    # single step with it
+    step_fn, cache = make_step(cfg, model, optimizer, None, teacher, layout,
+                               loader_dataset_size(train_loader))
+
+    def train_step(tensors):
+        metrics = step_fn(tensors)
+        scheduler.step()
+        return metrics
+
+    runner = (ChunkRunner(step_fn, optimizer, scheduler, scan_k) if graphs
+              else None)
+    warm = set()  # the bag shapes whose first chunk ran as single steps
     evaluator = Evaluator(model, cfg, device, model_type)
     headline = evaluator.tags[-1]  # teas / stus / fused / simple
     score = "cindex" if evaluator.survival else "auc"
@@ -139,33 +174,56 @@ def run_training(cfg, model, loaders, logger=None, model_type="teacher",
     cur_iters = start_epoch * steps_per_epoch
     losses = []  # device scalars, read once at the end
 
+    def advance(ms, epoch, i):
+        """After the updates ``ms`` (their metric dicts) at batch index
+        ``i``: the counts, the losses, one eval-cadence check."""
+        nonlocal step, cur_iters
+        metrics = ms[-1]
+        step += len(ms)
+        losses.extend(m["loss"] for m in ms)
+        prev_iters, cur_iters = cur_iters, cur_iters + len(ms)
+        if plateau is not None:
+            epoch_losses.extend(m["loss"] for m in ms)
+        crossed = (cur_iters // cfg.eval_every_iters
+                   > prev_iters // cfg.eval_every_iters)
+        if (cfg.eval_during_training and test_loader is not None
+                and crossed and lead):
+            result = evaluate(evaluator, test_loader)
+            if logger is not None:
+                logger.log(eval_payload(evaluator, metrics, result))
+            print("\rFold: [%2d/%2d] Epoch: [%2d/%2d] Iter [%4d/%4d] || "
+                  "Time: %4.4f sec || Loss: %.4f || %s_%s %.4f"
+                  % (cfg.cur_fold, cfg.kfold, epoch, cfg.epochs, i + 1,
+                     len(train_loader), time.time() - start,
+                     float(metrics["loss"]), score, headline,
+                     result[f"{score}_{headline}"]),
+                  end="", flush=True)
+
     for epoch in range(start_epoch, cfg.epochs):
         train_loader.set_epoch(epoch)
         epoch_losses = []
+        bufs = {}  # pending batches by bag shape, first seen first
         for i, batch in enumerate(train_loader):
             tensors = batch_to_tensors(batch, device)
             if cache is not None:
                 tensors.update(cache.boundary(tensors, batch.indices))
-            metrics = train_step(tensors)
-            step += 1
-            losses.append(metrics["loss"])
-            prev_iters, cur_iters = cur_iters, cur_iters + 1
-            if plateau is not None:
-                epoch_losses.append(metrics["loss"])
-            crossed = (cur_iters // cfg.eval_every_iters
-                       > prev_iters // cfg.eval_every_iters)
-            if (cfg.eval_during_training and test_loader is not None
-                    and crossed and lead):
-                result = evaluate(evaluator, test_loader)
-                if logger is not None:
-                    logger.log(eval_payload(evaluator, metrics, result))
-                print("\rFold: [%2d/%2d] Epoch: [%2d/%2d] Iter [%4d/%4d] || "
-                      "Time: %4.4f sec || Loss: %.4f || %s_%s %.4f"
-                      % (cfg.cur_fold, cfg.kfold, epoch, cfg.epochs, i + 1,
-                         len(train_loader), time.time() - start,
-                         float(metrics["loss"]), score, headline,
-                         result[f"{score}_{headline}"]),
-                      end="", flush=True)
+            if scan_k == 1:
+                advance([train_step(tensors)], epoch, i)
+                continue
+            key = tuple(tensors["x_path10"].shape)
+            buf = bufs.setdefault(key, [])
+            buf.append(tensors)
+            if len(buf) == scan_k:
+                bufs[key] = []
+                if runner is not None and key in warm:
+                    advance(runner.run(key, buf), epoch, i)
+                else:
+                    warm.add(key)
+                    advance([train_step(t) for t in buf], epoch, i)
+        # the buffers that did not fill, one batch at a time
+        for buf in bufs.values():
+            for tensors in buf:
+                advance([train_step(tensors)], epoch, len(train_loader) - 1)
         if plateau is not None and epoch_losses:
             mean_loss = float(torch.stack(epoch_losses).mean())
             set_learning_rate(optimizer, cfg.lr * plateau.step(mean_loss))

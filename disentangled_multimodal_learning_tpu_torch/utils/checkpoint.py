@@ -37,6 +37,7 @@ import os
 
 import torch
 
+from ..train.optim import capturable_flags, keep_capturable
 from .jax_checkpoint import (jax_payload, load_optimizer_state,
                              read_jax_checkpoint)
 
@@ -117,7 +118,9 @@ def restore_state(model, optimizer, scheduler, source,
               if k in own or not k.startswith(IGNORABLE)}
     model.load_state_dict(params, strict=True)
     if optimizer is not None and payload.get("opt_state") is not None:
+        flags = capturable_flags(optimizer)
         optimizer.load_state_dict(payload["opt_state"])
+        keep_capturable(optimizer, flags)
     if scheduler is not None and payload.get("scheduler") is not None:
         scheduler.load_state_dict(payload["scheduler"])
     if optimizer is not None and payload.get("jax_opt_state") is not None:

@@ -48,7 +48,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..train.optim import OptaxAdagrad, hold_learning_rate
+from ..train.optim import (OptaxAdagrad, capturable_flags, hold_learning_rate,
+                           keep_capturable, set_schedule_count)
 from .jax_params import jax_state_dict
 
 
@@ -235,13 +236,11 @@ def load_optimizer_state(model, optimizer, scheduler, state: dict) -> None:
             if kind == "adam":
                 st["step"] = torch.tensor(float(state["count"]))
             optimizer.state[p] = st
+        # a capturable optimizer (scan_steps on the card) keeps its step
+        # count there
+        keep_capturable(optimizer, capturable_flags(optimizer))
     count = state["schedule_count"]
     if scheduler is not None and count is not None:
-        scheduler.last_epoch = count
-        lrs = [base * fn(count) for base, fn in
-               zip(scheduler.base_lrs, scheduler.lr_lambdas)]
-        for group, lr in zip(optimizer.param_groups, lrs):
-            group["lr"] = lr
-        scheduler._last_lr = lrs
+        set_schedule_count(scheduler, optimizer, count)
     if state["learning_rate"] is not None:
         hold_learning_rate(optimizer, scheduler, state["learning_rate"])

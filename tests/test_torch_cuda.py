@@ -1590,3 +1590,295 @@ def _flat(out) -> list:
     if isinstance(out, (tuple, list)):
         return [t for o in out for t in _flat(o)]
     return []
+
+
+# ---- scan_steps: a chunk of train steps as one CUDA graph ----------------
+
+# the graph's chunk against the eager chunk: bitwise, or within this factor
+# of the eager chunks' largest spread of each other (grid_sample's backward
+# adds with atomics, so the eager step does not repeat bitwise on the card;
+# chip_smoke.py's REPEAT_FACTOR)
+REPEAT_FACTOR = 4
+# the graph against the default path (scan_steps 1): torch's capturable
+# Adam and AdamW (the graph's) compute the bias corrections 1 - beta^t on
+# the card in f32, the default ones in float64 on the host; beta2 = 0.999 is
+# 0.99900001 in f32, so 1 - beta2^t is 1.3e-5 relative off and each update
+# 6.4e-6, which the second step's gradient carries on (up to 2.0e-4 of a
+# tensor's change over a chunk, measured on the H100).  An entry is held
+# within REPEAT_FACTOR x the default runs' spread, plus OPT_RTOL of its
+# tensor's largest change over the chunk, plus 2 roundings a step of its
+# largest value (chip_smoke.py phase 5o's rule).  The schedule runs
+# GRAPH_CHECK_STEPS_PER_EPOCH steps an epoch (a cosine over the 10 epochs'
+# 10 steps), so that the lr moves 12% a step in the chunk: an lr or a bias
+# correction a step off moves an update by 10% or more
+OPT_RTOL = 1e-3
+GRAPH_CHECK_STEPS_PER_EPOCH = 1
+
+
+@pytest.mark.cuda
+def test_fused_kernel_reads_its_seed_from_the_card(dev):
+    """K6 with its dropout seed drawn on the card: at K 64 = D 64 with v
+    the identity, ``out`` is the dropped map, so its nonzero entries are
+    the kernel's mask, bitwise ``dropout_keep_mask`` of the same seed
+    tensor; out and attn within K6's tolerances.  Captured with the seed's
+    draw in a CUDA graph, two replays draw two seeds and drop by each."""
+    c = _fused_case(np.random.default_rng(42), dev, bh=4, k=64, d=64)
+    v = torch.eye(64, device=dev).expand(4, 64, 64).contiguous()
+    shape = (4, 64, 2500)
+
+    def call(seed):
+        return fused_table.fused_table_attention(
+            c["q"], c["k"], v, c["table"], c["shifts"], 50, seed, 0.1)
+
+    seed = torch.randint(0, 2 ** 31 - 1, (), device=dev)
+    with torch.inference_mode():
+        out, attn = call(seed)
+    want_out, want_attn = fused_table.fused_table_attention_reference(
+        c["q"], c["k"], v, c["table"], c["shifts"], 50, seed, 0.1)
+    assert torch.equal(out.transpose(1, 2) != 0,
+                       fused_table.dropout_keep_mask(seed, shape, 0.1, dev))
+    assert (attn - want_attn).abs().max().item() <= K6_ATTN_TOL
+    assert (out - want_out).abs().max().item() <= K6_OUT_TOL
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_seed = torch.randint(0, 2 ** 31 - 1, (), device=dev)
+        g_out, _ = call(g_seed)
+    seeds, masks = [], []
+    for _ in range(2):
+        graph.replay()
+        seeds.append(int(g_seed))
+        masks.append(g_out.transpose(1, 2) != 0)
+        assert torch.equal(masks[-1], fused_table.dropout_keep_mask(
+            g_seed, shape, 0.1, dev))
+    assert seeds[0] != seeds[1] and not torch.equal(*masks)
+
+
+def _graph_chunk_case(dev, **kw):
+    """A small teacher (fixdim 64, B 2, divisor 1) on the card with the
+    capturable optimizer, as ``run_training`` trains at ``scan_steps`` 2:
+    the warm-up chunk run as single steps, then a runner of chunks of 2
+    steps as graphs: ``(runner, step, model, optimizer, scheduler, key,
+    chunk, cfg)``, ``step`` the single step (the schedule stepped after
+    it)."""
+    from disentangled_multimodal_learning_tpu_torch.train.graph_chunk import (
+        ChunkRunner)
+    from disentangled_multimodal_learning_tpu_torch.train.trainers import (
+        make_step)
+
+    cfg = Config(mode="teacher", fixdim=64, batch_size=2, cpb_table_divisor=1,
+                 **kw).validate()
+    ds = SyntheticBagDataset(size=4, fixdim=64, label_dim=4, seed=0)
+    chunk = [batch_to_tensors(ds.batch([2 * i, 2 * i + 1]), dev)
+             for i in range(2)]
+    model = define_net(cfg, dev)
+    opt = make_optimizer(cfg, model.parameters(), capturable=True)
+    sched = make_scheduler(cfg, opt, GRAPH_CHECK_STEPS_PER_EPOCH)
+    step_fn = make_step(cfg, model, opt, None)[0]
+
+    def step(tensors):
+        metrics = step_fn(tensors)
+        sched.step()
+        return metrics
+
+    for tensors in chunk:
+        step(tensors)
+    runner = ChunkRunner(step_fn, opt, sched, 2)
+    key = tuple(chunk[0]["x_path10"].shape)
+    return runner, step, model, opt, sched, key, chunk, cfg
+
+
+def _chunk_state(model, opt):
+    out = dict(model.state_dict())
+    for name, p in model.named_parameters():
+        out.update((f"opt.{name}.{k}", v) for k, v in opt.state[p].items()
+                   if isinstance(v, torch.Tensor))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "adam", "sgd", "adagrad"])
+def test_graph_chunk_matches_the_eager_chunk(dev, optimizer):
+    """One chunk of 2 ``deterministic_training`` steps from one snapshot as
+    the graph (its capture and replay; the snapshot restored in place: the
+    graph holds the addresses), and as 2 single steps of the same
+    capturable optimizer (the trainer's first chunk of a shape, and its
+    leftovers), each against three runs of 2 steps of the default path
+    (``scan_steps`` 1: ``make_optimizer`` without ``capturable``, its
+    ``LambdaLR`` stepped after each step): every entry within
+    ``OPT_RTOL``'s rule of the closest run.  Compared: the parameters, the
+    optimizer's moments and step counts, the schedule's count and the
+    losses; a parameter and its state where its gradient is not 0 in
+    exact arithmetic and, under Adam and AdamW, its rms is above 1e-6 (100
+    x AdamW's eps: below it an AdamW step is the gradient's rounding
+    residue, a full-size step of either sign, as
+    ``tests/torch_parallel_cases.py`` holds it), SGD's momentum where it is
+    above 1e-6.  The graph replays each
+    optimizer's capturable form: AdamW and Adam torch's, SGD and Adagrad
+    the port's rules with a tensor lr."""
+    import copy
+
+    from disentangled_multimodal_learning_tpu_torch.train.optim import (
+        keep_capturable, set_schedule_count)
+    from disentangled_multimodal_learning_tpu_torch.train.trainers import (
+        make_step)
+
+    runner, step, model, opt, sched, key, chunk, cfg = _graph_chunk_case(
+        dev, deterministic_training=True, optimizer=optimizer)
+    snap = {k: v.detach().clone() for k, v in _chunk_state(model, opt).items()}
+    saved, count = copy.deepcopy(opt.state_dict()), sched.last_epoch
+    plain = make_optimizer(cfg, model.parameters())
+    plain_sched = make_scheduler(cfg, plain, GRAPH_CHECK_STEPS_PER_EPOCH)
+    plain_step = make_step(cfg, model, plain, plain_sched)[0]
+
+    def result(optimizer, scheduler, ms):
+        out = {k: v.detach().to(dev, copy=True)
+               for k, v in _chunk_state(model, optimizer).items()}
+        out.update((f"loss{i}", m["loss"]) for i, m in enumerate(ms))
+        out["count"] = torch.tensor(float(scheduler.last_epoch), device=dev)
+        return out
+
+    def from_snapshot(run):
+        with torch.no_grad():
+            for k, v in _chunk_state(model, opt).items():
+                v.copy_(snap[k])
+        set_schedule_count(sched, opt, count)
+        return result(opt, sched, run())
+
+    def default_chunk():
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(snap[k])
+        # a copy: the loader keeps the tensors it is given
+        plain.load_state_dict(copy.deepcopy(saved))
+        keep_capturable(plain, [False] * len(plain.param_groups))
+        set_schedule_count(plain_sched, plain, count)
+        return result(plain, plain_sched, [plain_step(t) for t in chunk])
+
+    def diff(x, y):
+        d = [(x[k].float() - y[k].float())[masks.get(k, ...)] for k in x]
+        return max(t.abs().max().item() for t in d if t.numel())
+
+    def share(x, ref):
+        """The largest share of an entry's tolerance (OPT_RTOL's rule) and
+        its tensor."""
+        worst = (0.0, None)
+        for k, want in ref.items():
+            m = masks.get(k, ...)
+            if not want[m].numel():
+                continue
+            if k.startswith("loss"):
+                change = (ref["loss1"] - ref["loss0"]).abs()
+            elif k in snap:
+                change = (want.float() - snap[k].float())[m].abs().max()
+            else:
+                change = torch.zeros(())
+            tol = (REPEAT_FACTOR * spread + OPT_RTOL * float(change)
+                   + 4 * 2.0 ** -23 * want.float()[m].abs().max().item())
+            err = (x[k].float() - want.float())[m].abs().max().item()
+            share = err / tol if tol else (0.0 if err == 0 else math.inf)
+            worst = max(worst, (share, k), key=lambda sk: sk[0])
+        return worst
+
+    default = [default_chunk() for _ in range(3)]
+    masks = {}
+    for name, p in model.named_parameters():
+        # not where the gradient is 0 in exact arithmetic: the CPB output
+        # bias (a softmax ignores a shift), the TransFusion MHA's q and k
+        # rows (it attends to one kv token, a softmax of one score is 1)
+        m = torch.ones_like(p, dtype=torch.bool)
+        if name.endswith("rel_pos_bias.mlp.2.bias"):
+            m[...] = False
+        elif ".transfusion_layer" in name and ".in_proj_" in name:
+            m[:2 * p.shape[0] // 3] = False
+        v = default[0].get(f"opt.{name}.exp_avg_sq")
+        if v is not None:
+            m &= (v / (1 - 0.999 ** 2)).sqrt() > 1e-6
+        v = default[0].get(f"opt.{name}.momentum_buffer")
+        if v is not None:  # SGD's running sum of gradients
+            masks[f"opt.{name}.momentum_buffer"] = m & (v.abs() > 1e-6)
+        masks.update((k, m) for k in default[0] if k not in masks
+                     and (k == name or k.startswith(f"opt.{name}."))
+                     and default[0][k].shape == m.shape)
+    single = from_snapshot(lambda: [step(t) for t in chunk])
+    graph = from_snapshot(lambda: runner.run(key, chunk))
+    assert runner.captures == runner.replays == 1
+    spread = max(diff(x, y) for i, x in enumerate(default)
+                 for y in default[i + 1:])
+    worst = {name: min((share(run, e) for e in default),
+                       key=lambda sk: sk[0])
+             for name, run in (("graph", graph), ("single steps", single))}
+    print(f"{optimizer}: the default runs' spread {spread:.3e}; to the "
+          f"default path {min(diff(graph, e) for e in default):.3e}, the "
+          f"largest share of an entry's tolerance {worst}")
+    assert max(share for share, _ in worst.values()) <= 1, worst
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_their_launches(dev):
+    """A wrapper counts where its Python runs, and a capture runs no
+    kernel: the capture's counts are taken out and added again at each
+    replay, so that a capture with its replay, and each replay after it,
+    count 2 steps' launches (K1-fwd 4 and K1-bwd 4 a step), as 2 single
+    steps do; the losses are finite."""
+    from disentangled_multimodal_learning_tpu_torch.ops import launches
+
+    runner, step, _, _, _, key, chunk, _ = _graph_chunk_case(dev)
+    def single_steps():
+        return [step(t) for t in chunk]
+
+    def replay():
+        return runner.run(key, chunk)
+
+    got, losses = [], []
+    for run in (single_steps, replay, replay):
+        launches.reset()
+        ms = run()
+        torch.cuda.synchronize()
+        got.append(launches.counts())
+        losses.append([m["loss"].item() for m in ms])
+    want = dict.fromkeys(launches.WRAPPERS, 0)
+    want.update(k1_fwd=8, k1_bwd=8)
+    assert got == [want] * 3
+    assert runner.captures == 1 and runner.replays == 2
+    graph = runner.graphs[key]
+    assert graph.captured == {"k1_fwd": 8, "k1_bwd": 8}
+    assert all(map(math.isfinite, sum(losses, [])))
+
+
+@pytest.mark.cuda
+def test_restored_capturable_optimizer_keeps_its_step_on_the_card(dev):
+    """The capturable AdamW of ``scan_steps`` on the card restored from a
+    payload that a default AdamW wrote (its step counts on the CPU, its
+    groups not capturable), and from a JAX payload's Adam moments: its
+    groups stay capturable, every step count lies on the card, and a step
+    with a tensor lr runs."""
+    from disentangled_multimodal_learning_tpu_torch.utils.checkpoint import (
+        restore_state)
+
+    cfg = Config(mode="omic", fixdim=16, batch_size=2).validate()
+    model = define_net(cfg, dev)
+    plain = make_optimizer(cfg, model.parameters())
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    plain.step()
+    names = [n for n, _ in model.named_parameters()]
+    payloads = [
+        {"params": model.state_dict(), "opt_state": plain.state_dict(),
+         "step": 1},
+        {"params": model.state_dict(), "step": 3, "jax_opt_state": {
+            "kind": "adam", "count": 3, "schedule_count": 3,
+            "learning_rate": None, "moments": {
+                n: {"exp_avg": np.zeros(p.shape, np.float32),
+                    "exp_avg_sq": np.ones(p.shape, np.float32)}
+                for n, p in zip(names, model.parameters())}}}]
+    for payload in payloads:
+        opt = make_optimizer(cfg, model.parameters(), capturable=True)
+        sched = make_scheduler(cfg, opt, 10)
+        restore_state(model, opt, sched, payload)
+        assert all(g["capturable"] for g in opt.param_groups)
+        assert all(opt.state[p]["step"].device == p.device
+                   for p in model.parameters())
+        for g in opt.param_groups:
+            g["lr"] = torch.tensor(1e-4, device=dev)
+        opt.step()
+        torch.cuda.synchronize()

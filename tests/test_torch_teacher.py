@@ -285,19 +285,12 @@ def test_config_refuses_later_and_unknown_keys():
 
 @pytest.mark.parametrize("k", [0, 1, 2, 3])
 def test_scan_steps_above_one_is_refused(k):
-    """``scan_steps`` is a field at JAX's default, read as ``max(1, K)``:
-    K <= 1 trains one update a batch as JAX does, and K > 1, where JAX
-    updates in another order (batches grouped by bag shape, an evaluation
-    once a chunk), is refused by ``validate`` and so by both entries'
-    command lines, not ignored."""
-    if k <= 1:
-        assert Config.from_dict({"scan_steps": k}).validate().scan_steps == k
-        assert Config.from_args(["--scan_steps", str(k)])[0].scan_steps == k
-        return
-    with pytest.raises(NotImplementedError, match=f"scan_steps={k}"):
-        Config.from_dict({"scan_steps": k}).validate()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Config.from_args(["--scan_steps", str(k)])
+    """``scan_steps`` is a field at JAX's default, read as ``max(1, K)``,
+    and no K is refused any more: ``validate`` and both entries' command
+    lines take each and keep it (K <= 1, one update a batch; K > 1, JAX's
+    chunked order, ``tests/test_torch_scan_steps.py``)."""
+    assert Config.from_dict({"scan_steps": k}).validate().scan_steps == k
+    assert Config.from_args(["--scan_steps", str(k)])[0].scan_steps == k
 
 
 def test_every_jax_config_field_is_ported_or_in_one_table():

@@ -14,6 +14,10 @@ metrics, every gradient after the all-reduce (and the modulation) and the
 updated parameters.  ``kind`` ``core``: the sequence-sharded Nystrom core
 on ``q, k, v`` and a cotangent ``g`` of an ``.npz`` over a ``(data, seq)``
 layout, saving its output rows and the gradients of this rank's rows.
+``kind`` ``fold``: ``run_training`` of ``cfg`` from ``weights`` over a
+shuffled loader of ``size`` synthetic bags drawn and shuffled with
+``seed``, no test loader; it saves every update's loss, the final
+parameters and the layout.
 """
 
 import json
@@ -27,6 +31,10 @@ import torch.distributed as dist
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from disentangled_multimodal_learning_tpu_torch.config import Config  # noqa: E402
+from disentangled_multimodal_learning_tpu_torch.data.loader import (  # noqa: E402
+    BagLoader)
+from disentangled_multimodal_learning_tpu_torch.data.synthetic import (  # noqa: E402
+    SyntheticBagDataset)
 from disentangled_multimodal_learning_tpu_torch.models.factory import (  # noqa: E402
     define_net)
 from disentangled_multimodal_learning_tpu_torch.ops import cluster  # noqa: E402
@@ -35,7 +43,7 @@ from disentangled_multimodal_learning_tpu_torch.parallel import (  # noqa: E402
 from disentangled_multimodal_learning_tpu_torch.train.optim import (  # noqa: E402
     make_optimizer, make_scheduler)
 from disentangled_multimodal_learning_tpu_torch.train.trainers import (  # noqa: E402
-    make_step)
+    make_step, run_training)
 
 FIELDS = ("x_path10", "x_path20", "x_omic", "x_omic_tumor", "x_omic_immune")
 
@@ -95,6 +103,19 @@ def run_core(case: dict, out_path: Path) -> None:
     torch.save({"rows": (off, b), "out": out.detach(), **grads}, out_path)
 
 
+def run_fold(case: dict, out_path: Path) -> None:
+    cfg = Config.from_dict(case["cfg"]).validate()
+    model = define_net(cfg, "cpu")
+    model.load_state_dict(torch.load(case["weights"]))
+    ds = SyntheticBagDataset(size=case["size"], fixdim=cfg.fixdim,
+                             label_dim=cfg.label_dim, seed=case["seed"])
+    loader = BagLoader(ds, cfg.batch_size, shuffle=True, seed=case["seed"])
+    _, final, _ = run_training(cfg, model, (loader, None))
+    layout = mesh.choose_layout(cfg)
+    torch.save({"losses": final["train_losses"], "params": model.state_dict(),
+                "layout": (layout.kind, layout.dp, layout.inner)}, out_path)
+
+
 def main(spec_path: str, rank: int) -> None:
     spec = json.loads(Path(spec_path).read_text())
     torch.set_num_threads(1)
@@ -104,7 +125,8 @@ def main(spec_path: str, rank: int) -> None:
     out_dir = Path(spec["out"])
     for case in spec["cases"]:
         out_path = out_dir / f"{case['name']}.rank{rank}.pt"
-        {"step": run_step, "core": run_core}[case["kind"]](case, out_path)
+        {"step": run_step, "core": run_core,
+         "fold": run_fold}[case["kind"]](case, out_path)
     mesh.leave_process_group()
     assert not any(m == "jax" or m.startswith(("jax.", "disentangled_multi"
                                                "modal_learning_tpu."))

@@ -511,13 +511,26 @@ K6_ENTRIES = ("dmlt_fused_table_fwd", "dmlt_fused_table_bwd",
               "dmlt_fused_exact_bwd")
 
 
-def load_k6(name: str):
+# K6's entries take the dropout seed at this argument: a pointer to one
+# int64 on the card in the current sources, an int in sources before that
+K6_SEED_ARG = 15
+
+
+def k6_seed_by_pointer(csrc: Path) -> bool:
+    """Whether the K6 sources in ``csrc`` read the seed from the card."""
+    return "const void* seed" in (csrc / "fused_table.cu").read_text()
+
+
+def load_k6(name: str, seed_by_pointer: bool):
     from disentangled_multimodal_learning_tpu_torch.ops import build
 
     lib = ctypes.CDLL(str(OUT / name / "lib.so"))
     for entry in K6_ENTRIES:
         if hasattr(lib, entry):
-            getattr(lib, entry).argtypes = list(build.SIGNATURES[entry])
+            argtypes = list(build.SIGNATURES[entry])
+            if entry != "dmlt_fused_exact_bwd" and not seed_by_pointer:
+                argtypes[K6_SEED_ARG] = ctypes.c_int
+            getattr(lib, entry).argtypes = argtypes
     return lib
 
 
@@ -544,7 +557,9 @@ def compare_k6(parent: Path) -> int:
         print(f"SASS of {name}:")
         for line in cs.sass_counts(lib, cs.K6_KERNELS):
             print(f"  {line}")
-    libs = {name: load_k6(name) for name, _ in built}
+    libs = {name: load_k6(name, name != "k6_earlier"
+                          or k6_seed_by_pointer(parent))
+            for name, _ in built}
     cur = build.kernels()
 
     dev = torch.device("cuda")
@@ -577,6 +592,7 @@ def compare_k6(parent: Path) -> int:
                     part=torch.empty(splits, 2, BH, K, D, device=dev))
 
     dtable, dfracs = torch.empty_like(table), torch.empty_like(fracs)
+    seed_t = torch.full((), 99, dtype=torch.int64, device=dev)
     for rate in (0.0, 0.1):
         seed = 99
         thr, scale = fused_table._dropout_args(rate)
@@ -587,19 +603,23 @@ def compare_k6(parent: Path) -> int:
             bufs[f"split{n}"] = split_bufs
             lib_of[f"split{n}"] = libs[f"k6_split{n}"]
 
+        def k6_seed(ver):
+            by_pointer = ver != "earlier" or k6_seed_by_pointer(parent)
+            return seed_t.data_ptr() if by_pointer else seed
+
         def fwd(ver):
             b, lib = bufs[ver], lib_of[ver]
             return lambda: lib.dmlt_fused_table_fwd(
                 *ptr(q, k, v, table), table.shape[0], table.shape[1],
                 *ptr(taps, fracs, b["out"], b["attn"]), BH, K, N, D, side,
-                seed, thr, scale, stream)
+                k6_seed(ver), thr, scale, stream)
 
         def attn_bwd(ver):
             b, lib = bufs[ver], lib_of[ver]
             return lambda: lib.dmlt_fused_table_bwd(
                 *ptr(q, k, v, bufs["current"]["attn"], g_out, g_attn, b["dq"],
                      b["dkv"], b["ds"], b["part"]), BH, K, N, D, splits,
-                seed, thr, scale, stream)
+                k6_seed(ver), thr, scale, stream)
 
         def scatter(ver):
             return lambda: cpb.table_scatter_launch(
