@@ -157,19 +157,31 @@ def build_log() -> str:
 
 
 def kernels() -> ctypes.CDLL:
-    """The loaded kernel library (built on the first call)."""
+    """The loaded kernel library (built on the first call, inside the
+    set-up span ``setup.kernels``, whose count ``built`` is 1 where
+    ``nvcc`` ran)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.dmlt_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.dmlt_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            from ..utils import profiling
+
+            with profiling.span("setup.kernels", always=True) as s:
+                built = not (library_dir() / LIB_NAME).is_file()
+                _lib = _load(build())
+                if s is not None:
+                    s.counts["built"] = int(built)
         return _lib
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.dmlt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dmlt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(err: int, what: str) -> None:

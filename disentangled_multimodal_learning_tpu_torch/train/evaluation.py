@@ -29,6 +29,7 @@ import torch
 
 from ..data.contract import LabelCol
 from ..models.deform_attention import DeformCrossAttention2D, attn_kv_axis
+from ..utils import profiling
 from .metrics import cindex, compute_avg_metrics
 from .steps import MODEL_INPUTS
 
@@ -83,10 +84,18 @@ def headline_metrics(tags, survival: bool, result: dict) -> dict:
 
 
 def model_inputs(batch, device, mode: str) -> dict:
-    """Host batch -> the forward kwargs of ``mode``'s model on ``device``."""
-    return {arg: torch.from_numpy(np.ascontiguousarray(getattr(batch, key)))
-            .to(device, non_blocking=True)
-            for arg, key in MODEL_INPUTS[mode].items()}
+    """Host batch -> the forward kwargs of ``mode``'s model on ``device``,
+    the copies inside an ``h2d`` span that counts their host ``bytes``
+    (``utils/profiling.py``)."""
+    fields = MODEL_INPUTS[mode]
+    with profiling.span("h2d") as s:
+        out = {arg: torch.from_numpy(np.ascontiguousarray(
+            getattr(batch, key))).to(device, non_blocking=True)
+            for arg, key in fields.items()}
+        if s is not None:
+            s.counts["bytes"] = sum(getattr(batch, key).nbytes
+                                    for key in fields.values())
+    return out
 
 
 def export_dir(cfg) -> str:
@@ -120,18 +129,23 @@ class Evaluator:
     def step(self, batch) -> dict:
         """One deterministic forward -> the logits dict (and on survival
         the risks, ``risk_<tag>``), as host numpy; the attention maps are
-        not copied back."""
-        out = self.model(**model_inputs(batch, self.device, self.cfg.mode))
-        if self.fused:
-            res = {"logits_fused": out[3][2]}
-        elif self.model_type == "simple":
-            at_1 = self.cfg.mode in _LOGITS_AT_1
-            res = {"logits_simple": out[1] if at_1 else out[0]}
-            if self.survival:
-                res["risk_simple"] = -out[2].sum(dim=1)
-        else:
-            res = {**out[2], **out[5]} if self.survival else out[2]
-        return {k: v.float().cpu().numpy() for k, v in res.items()}
+        not copied back.  Inside an ``eval_batch`` span, the forward
+        between the device marks ``forward.start`` and ``forward.end``."""
+        with profiling.span("eval_batch"):
+            inputs = model_inputs(batch, self.device, self.cfg.mode)
+            profiling.device_mark("forward.start", self.device)
+            out = self.model(**inputs)
+            profiling.device_mark("forward.end", self.device)
+            if self.fused:
+                res = {"logits_fused": out[3][2]}
+            elif self.model_type == "simple":
+                at_1 = self.cfg.mode in _LOGITS_AT_1
+                res = {"logits_simple": out[1] if at_1 else out[0]}
+                if self.survival:
+                    res["risk_simple"] = -out[2].sum(dim=1)
+            else:
+                res = {**out[2], **out[5]} if self.survival else out[2]
+            return {k: v.float().cpu().numpy() for k, v in res.items()}
 
     def logits(self, loader):
         """All batches -> (per-tag outputs ``[M, ...]`` with the loader's

@@ -42,17 +42,20 @@ from typing import NamedTuple
 import torch
 
 from ..ops import launches
+from ..utils import profiling
 from .optim import scheduled_lrs, set_learning_rate, set_schedule_count
 
 
 class _ShapeGraph(NamedTuple):
-    """One bag shape's graph of K steps, its static buffers and the launch
-    counts its capture recorded."""
+    """One bag shape's graph of K steps, its static buffers, the launch
+    counts its capture recorded and the device marks it records
+    (``utils/profiling.py``)."""
     graph: torch.cuda.CUDAGraph
     inputs: dict
     lr: torch.Tensor
     outputs: list
     captured: dict
+    marks: list
 
 
 class ChunkRunner:
@@ -74,7 +77,8 @@ class ChunkRunner:
             raise ValueError(f"a chunk of {len(chunk)} steps, want {self.k}")
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = self._capture(chunk)
+            with profiling.span("setup.capture", always=True):
+                g = self.graphs[key] = self._capture(chunk)
             self.captures += 1
         for name, buf in g.inputs.items():
             shapes = {tuple(t[name].shape) for t in chunk}
@@ -84,7 +88,12 @@ class ChunkRunner:
             torch.stack([t[name] for t in chunk], out=buf)
         lrs = scheduled_lrs(self.scheduler, self.k)
         g.lr.copy_(torch.tensor(lrs).pin_memory(), non_blocking=True)
-        g.graph.replay()
+        # the replay's span takes its step marks; the last replay's are
+        # read back before this one records them again
+        with profiling.span("chunk") as s:
+            profiling.resolve(g.graph)
+            g.graph.replay()
+            profiling.attach(s, g.marks, g.graph)
         self.replays += 1
         for name, n in g.captured.items():
             launches.WRAPPERS[name].launches += n
@@ -100,7 +109,7 @@ class ChunkRunner:
         before = {name: fn.launches for name, fn in launches.WRAPPERS.items()}
         graph = torch.cuda.CUDAGraph()
         outputs = []
-        with torch.cuda.graph(graph):
+        with profiling.capturing_marks() as marks, torch.cuda.graph(graph):
             for i in range(self.k):
                 set_learning_rate(self.optimizer, lr[i])
                 outputs.append(self.step(
@@ -111,4 +120,4 @@ class ChunkRunner:
             if n:
                 fn.launches -= n  # recorded into the graph, not run
                 captured[name] = n
-        return _ShapeGraph(graph, inputs, lr, outputs, captured)
+        return _ShapeGraph(graph, inputs, lr, outputs, captured, marks)

@@ -36,6 +36,8 @@ import math
 
 import torch
 
+from ..utils import profiling
+
 ONECYCLE_PEAK = 1e-3  # JAX optim.py:49
 
 
@@ -163,20 +165,23 @@ class CapturableSGD(torch.optim.SGD):
 def make_optimizer(cfg, params, capturable: bool = False):
     """``cfg.optimizer`` over ``params`` at base lr 1 (the scheduler sets
     every step's lr); with ``capturable``, the variant that a CUDA graph
-    replays (see the module docstring)."""
-    name, wd = cfg.optimizer, float(cfg.weight_decay)
-    if name == "sgd":
-        sgd = CapturableSGD if capturable else torch.optim.SGD
-        return sgd(params, lr=1.0, momentum=0.9, weight_decay=wd)
-    if name == "adam":
-        return torch.optim.Adam(params, lr=1.0, weight_decay=wd,
-                                capturable=capturable)
-    if name == "adagrad":
-        return OptaxAdagrad(params, lr=1.0, weight_decay=wd)
-    if name == "adamw":
-        return torch.optim.AdamW(params, lr=1.0, weight_decay=wd,
-                                 capturable=capturable)
-    raise NotImplementedError(f"optimizer [{name}] is not implemented")
+    replays (see the module docstring).  Inside the set-up span
+    ``setup.optimizer``: a process's first optimizer imports
+    ``torch._dynamo``, seconds."""
+    with profiling.span("setup.optimizer", always=True):
+        name, wd = cfg.optimizer, float(cfg.weight_decay)
+        if name == "sgd":
+            sgd = CapturableSGD if capturable else torch.optim.SGD
+            return sgd(params, lr=1.0, momentum=0.9, weight_decay=wd)
+        if name == "adam":
+            return torch.optim.Adam(params, lr=1.0, weight_decay=wd,
+                                    capturable=capturable)
+        if name == "adagrad":
+            return OptaxAdagrad(params, lr=1.0, weight_decay=wd)
+        if name == "adamw":
+            return torch.optim.AdamW(params, lr=1.0, weight_decay=wd,
+                                     capturable=capturable)
+        raise NotImplementedError(f"optimizer [{name}] is not implemented")
 
 
 def keep_capturable(optimizer, flags) -> None:

@@ -68,6 +68,7 @@ import torch
 from ..data.contract import LabelCol
 from ..models.factory import BASELINES
 from ..parallel import branch_shard, mesh
+from ..utils import profiling
 from . import losses as L
 from .grad_modulate import modulate_kernel_grad
 
@@ -99,14 +100,19 @@ BOUNDARY_KEYS = ("tea_lt10", "tea_lt20", "tea_ft10", "tea_ft20")
 
 
 def batch_to_tensors(batch, device) -> dict:
-    """Host batch -> the step's tensors on ``device`` (labels as int64)."""
+    """Host batch -> the step's tensors on ``device`` (labels as int64),
+    the copies inside an ``h2d`` span that counts their host ``bytes``
+    (``utils/profiling.py``)."""
     def to(a, dtype=None):
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device, dtype=dtype, non_blocking=True)
 
-    out = {k: to(getattr(batch, k)) for k in tuple(_TEACHER_INPUTS)
-           + ("x_omic",)}
-    out["label"] = to(batch.label, torch.int64)
+    with profiling.span("h2d") as s:
+        out = {k: to(getattr(batch, k)) for k in tuple(_TEACHER_INPUTS)
+               + ("x_omic",)}
+        out["label"] = to(batch.label, torch.int64)
+        if s is not None:
+            s.counts["bytes"] = sum(getattr(batch, k).nbytes for k in out)
     return out
 
 
@@ -332,6 +338,7 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None,
         cw = torch.tensor(cw, dtype=torch.float32, device=params[0].device)
     label_col = int(TASK_LABEL_COL[cfg.task_type])
     train_mode = not cfg.deterministic_training
+    device = params[0].device  # of the step's marks (utils/profiling.py)
 
     def losses_of(out, label, boundary):
         if boundary is not None:
@@ -339,6 +346,7 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None,
         return loss_fn(model, cfg, out, label, cw)
 
     def train_step(tensors: dict) -> dict:
+        profiling.device_mark("step.start", device)
         boundary = boundary_fn(tensors) if boundary_fn is not None else None
         model.train(train_mode)
         optimizer.zero_grad(set_to_none=True)
@@ -350,6 +358,7 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None,
         else:
             out = model(**{arg: tensors[key] for arg, key in inputs.items()})
             loss, metrics, modulated = losses_of(out, label, boundary)
+            profiling.device_mark("step.loss", device)
             loss.backward()
         # a parameter the loss does not reach (the MaxNets' classifiers)
         # gets a zero gradient, so the optimizer still decays it, as optax
@@ -367,9 +376,11 @@ def _make_step(model, cfg, optimizer, scheduler, boundary_fn=None,
                     cls.weight.detach(), cls.bias.detach(), y)
             if layout is not None and layout.kind == "scale":
                 branch_shard.share_classifier_grads(model, cfg.mode, layout)
+        profiling.device_mark("step.optimizer", device)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
+        profiling.device_mark("step.end", device)
         metrics["loss"] = loss
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -1845,6 +1845,101 @@ def test_graph_replays_count_their_launches(dev):
     assert all(map(math.isfinite, sum(losses, [])))
 
 
+# a step's marks, in order (utils/profiling.py), and how far the marks'
+# sums may sit from the times they add up to
+STEP_MARKS = ("step.start", "step.loss", "step.optimizer", "step.end")
+MARKS_RTOL = 0.05
+
+
+@pytest.mark.cuda
+def test_graph_replay_marks_time_each_step(dev):
+    """The step marks captured into a chunk's graph (2 steps, 8 timed
+    events) are read back after each replay: a replay's ``chunk`` span
+    holds, for each step, forward + backward + optimizer within 5% of the
+    step's start-to-end time, each part above 0; the 2 steps' sum within
+    5% of CUDA events recorded around a replay of the graph alone.  No
+    replay that finished before the next began is left unresolved, and
+    with tracing off a replay records no span."""
+    from disentangled_multimodal_learning_tpu_torch.utils import profiling
+
+    runner, _, _, _, _, key, chunk, _ = _graph_chunk_case(dev)
+    profiling.enable(False)
+    profiling.reset()
+    runner.run(key, chunk)  # the capture and its replay, tracing off
+    torch.cuda.synchronize()
+    g = runner.graphs[key]
+    assert [name for name, _ in g.marks] == list(STEP_MARKS) * 2
+    assert [s.name for s in profiling.spans()] == ["setup.capture"]
+    profiling.enable(True)
+    try:
+        for _ in range(3):
+            runner.run(key, chunk)
+            # what the next chunk's pageable copy does before it starts
+            torch.cuda.synchronize()
+        replays = [s for s in profiling.spans() if s.name == "chunk"]
+        before, after = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(2))
+        before.record()
+        g.graph.replay()
+        after.record()
+        torch.cuda.synchronize()
+        whole = before.elapsed_time(after)
+        first = g.marks[0][1]
+        alone = [first.elapsed_time(ev) for _, ev in g.marks]
+    finally:
+        profiling.enable(False)
+    assert len(replays) == 3 and runner.replays == 4
+    assert profiling.unresolved() == 0 and profiling.dropped() == 0
+    for s in replays:
+        assert [name for name, _ in s.marks] == list(STEP_MARKS) * 2
+        t = [ms for _, ms in s.marks]
+        for i in range(0, len(t), 4):
+            parts = [t[i + 1] - t[i], t[i + 2] - t[i + 1], t[i + 3] - t[i + 2]]
+            assert all(p > 0 for p in parts), parts
+            assert sum(parts) == pytest.approx(t[i + 3] - t[i],
+                                               rel=MARKS_RTOL)
+    steps = sum(alone[i + 3] - alone[i] for i in range(0, len(alone), 4))
+    print(f"replay {whole:.4f} ms, its 2 steps {steps:.4f} ms")
+    assert steps == pytest.approx(whole, rel=MARKS_RTOL)
+    profiling.reset()
+
+
+@pytest.mark.cuda
+def test_eval_forward_marks_read_inside_the_batch(dev):
+    """With tracing on, ``Evaluator.step`` records an ``eval_batch`` span,
+    its ``h2d`` inside it, and the forward's marks, which read more than 0
+    and less than the batch's wall time."""
+    import time
+
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        Evaluator)
+    from disentangled_multimodal_learning_tpu_torch.utils import profiling
+
+    cfg = Config(mode="teacher", fixdim=64, batch_size=2,
+                 cpb_table_divisor=1).validate()
+    model = define_net(cfg, dev).eval()
+    evaluator = Evaluator(model, cfg, dev, "teacher")
+    batch = SyntheticBagDataset(size=2, fixdim=64, label_dim=4,
+                                seed=0).batch([0, 1])
+    evaluator.step(batch)  # the warm-up
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        t0 = time.perf_counter()
+        evaluator.step(batch)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        profiling.enable(False)
+    got = profiling.spans()
+    assert [(s.name, s.parent) for s in got] == [("eval_batch", -1),
+                                                  ("h2d", 0)]
+    marks = dict(got[0].marks)
+    forward = marks["forward.end"] - marks["forward.start"]
+    print(f"forward {forward:.4f} ms of a {wall_ms:.4f} ms batch")
+    assert 0 < forward < wall_ms
+    profiling.reset()
+
+
 @pytest.mark.cuda
 def test_restored_capturable_optimizer_keeps_its_step_on_the_card(dev):
     """The capturable AdamW of ``scan_steps`` on the card restored from a
