@@ -15,7 +15,14 @@ the optimizer's state made), and hands every later chunk of that shape to
   that shape's own (JAX retraces per shape); capture runs nothing, so the
   graph is then replayed for that chunk;
 - each chunk is copied into the buffers and replayed in one launch; its K
-  metric dicts are the graph's outputs, cloned after each replay.
+  metric dicts are the graph's outputs, cloned after each replay.  Before
+  it replays a graph, the host waits for that graph's last replay to
+  finish: the chunk's copies to the card (``train/steps.py
+  batch_to_tensors``, on a copy stream) and its stack are queued by then,
+  so the card waits only for the launch.  The wait keeps the host at most
+  a chunk ahead, and lets the last replay's marks be read back before the
+  replay records them again; it is made whether or not tracing is on, so
+  that a traced stretch runs the schedule of an untraced one.
 
 On the CPU and in a process group (``parallel/``: gloo's collectives are
 not captured) there is no runner and every chunk runs as K train steps, in
@@ -37,6 +44,7 @@ and added again at each replay (``ops/launches.py``).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -48,14 +56,16 @@ from .optim import scheduled_lrs, set_learning_rate, set_schedule_count
 
 class _ShapeGraph(NamedTuple):
     """One bag shape's graph of K steps, its static buffers, the launch
-    counts its capture recorded and the device marks it records
-    (``utils/profiling.py``)."""
+    counts its capture recorded, the device marks it records
+    (``utils/profiling.py``) and the event recorded after its last
+    replay."""
     graph: torch.cuda.CUDAGraph
     inputs: dict
     lr: torch.Tensor
     outputs: list
     captured: dict
     marks: list
+    done: torch.cuda.Event
 
 
 class ChunkRunner:
@@ -88,11 +98,15 @@ class ChunkRunner:
             torch.stack([t[name] for t in chunk], out=buf)
         lrs = scheduled_lrs(self.scheduler, self.k)
         g.lr.copy_(torch.tensor(lrs).pin_memory(), non_blocking=True)
-        # the replay's span takes its step marks; the last replay's are
-        # read back before this one records them again
-        with profiling.span("chunk") as s:
+        t0 = time.perf_counter_ns()
+        g.done.synchronize()
+        waited_us = (time.perf_counter_ns() - t0) // 1000
+        # the replay's span takes its step marks; the last replay's, done
+        # now, are read back before this one records them again
+        with profiling.span("chunk", waited_us=waited_us) as s:
             profiling.resolve(g.graph)
             g.graph.replay()
+            g.done.record()
             profiling.attach(s, g.marks, g.graph)
         self.replays += 1
         for name, n in g.captured.items():
@@ -120,4 +134,5 @@ class ChunkRunner:
             if n:
                 fn.launches -= n  # recorded into the graph, not run
                 captured[name] = n
-        return _ShapeGraph(graph, inputs, lr, outputs, captured, marks)
+        return _ShapeGraph(graph, inputs, lr, outputs, captured, marks,
+                           torch.cuda.Event())

@@ -101,18 +101,69 @@ BOUNDARY_KEYS = ("tea_lt10", "tea_lt20", "tea_ft10", "tea_ft20")
 
 def batch_to_tensors(batch, device) -> dict:
     """Host batch -> the step's tensors on ``device`` (labels as int64),
-    the copies inside an ``h2d`` span that counts their host ``bytes``
-    (``utils/profiling.py``)."""
-    def to(a, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device, dtype=dtype, non_blocking=True)
+    the copies inside an ``h2d`` span that counts their host ``bytes`` and,
+    of those, the bytes ``staged`` through pinned memory
+    (``utils/profiling.py``).
 
+    On a card the batch is staged (:func:`_stage`), so that its copy runs
+    beside the work already queued on the card, such as the previous
+    chunk's graph replay, and the caller may overwrite its arrays as soon
+    as the call returns.  On the CPU the float fields are the host arrays
+    themselves."""
+    device = torch.device(device)
+    arrays = {k: getattr(batch, k) for k in tuple(_TEACHER_INPUTS)
+              + ("x_omic", "label")}
+    dtypes = {"label": torch.int64}
     with profiling.span("h2d") as s:
-        out = {k: to(getattr(batch, k)) for k in tuple(_TEACHER_INPUTS)
-               + ("x_omic",)}
-        out["label"] = to(batch.label, torch.int64)
+        if device.type == "cuda":
+            out = _stage(arrays, dtypes, device)
+        else:
+            out = {k: torch.from_numpy(np.ascontiguousarray(a)).to(
+                device, dtype=dtypes.get(k), non_blocking=True)
+                for k, a in arrays.items()}
         if s is not None:
-            s.counts["bytes"] = sum(getattr(batch, k).nbytes for k in out)
+            s.counts["bytes"] = sum(a.nbytes for a in arrays.values())
+            s.counts["staged"] = (s.counts["bytes"] if device.type == "cuda"
+                                  else 0)
+    return out
+
+
+# the copy stream of each card, by device index
+_copy_streams: dict = {}
+
+
+def _stage(arrays: dict, dtypes: dict, device) -> dict:
+    """Host arrays -> tensors on the card ``device``, through pinned memory
+    on the card's copy stream.
+
+    Each array is filled, converted to its ``dtypes`` entry where it has
+    one, into a pinned block of the caching host allocator before the call
+    returns, and its copy queued on the copy stream, which never waits for
+    the current stream.  The current stream waits for the copies on the
+    card, not on the host, so whatever reads the tensors there is ordered
+    after them.  The tensors are allocated on the copy stream and recorded
+    on the current one: their blocks go back to the copy stream only after
+    the current stream has passed the work queued when they are freed (a
+    chunk's stack).  The copy recorded an event on each pinned block, which
+    the host allocator hands out again only once the copy has completed."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    copy = _copy_streams.get(device.index)
+    if copy is None:
+        copy = _copy_streams[device.index] = torch.cuda.Stream(device)
+    current = torch.cuda.current_stream(device)
+    out = {}
+    with torch.cuda.stream(copy):
+        for k, a in arrays.items():
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            host = torch.empty(src.shape, dtype=dtypes.get(k, src.dtype),
+                               pin_memory=True)
+            host.copy_(src)
+            t = out[k] = host.to(device, non_blocking=True)
+            t.record_stream(current)
+        done = torch.cuda.Event()
+        done.record(copy)
+    current.wait_event(done)
     return out
 
 

@@ -39,8 +39,11 @@ The recorder (JAX has none):
 Where each span and mark is recorded: ``h2d`` around the copies of a
 batch to the card (``train/steps.py batch_to_tensors``,
 ``train/evaluation.py model_inputs``; count ``bytes``, the host arrays'
-``nbytes``); ``chunk`` around a ``scan_steps`` chunk's graph replay
-(``train/graph_chunk.py``), whose marks are each step's ``step.start``, ``step.loss`` (the loss ready,
+``nbytes``, and in ``batch_to_tensors`` ``staged``, the bytes that went
+through pinned memory: all of them on a card, 0 on the CPU); ``chunk``
+around a ``scan_steps`` chunk's graph replay (``train/graph_chunk.py``;
+count ``waited_us``, the host's wait before it for the graph's last
+replay), whose marks are each step's ``step.start``, ``step.loss`` (the loss ready,
 before the backward), ``step.optimizer`` (after the modulation and the
 zero fills) and ``step.end`` (``train/steps.py``); ``eval_batch`` around
 ``Evaluator.step``, its marks ``forward.start`` and ``forward.end``; and

@@ -57,6 +57,7 @@ import torch
 
 from disentangled_multimodal_learning_tpu_torch import inference
 from disentangled_multimodal_learning_tpu_torch.config import Config
+from disentangled_multimodal_learning_tpu_torch.data.contract import Batch
 from disentangled_multimodal_learning_tpu_torch.data.synthetic import (
     SyntheticBagDataset)
 from disentangled_multimodal_learning_tpu_torch.models.deform_attention import (
@@ -1874,7 +1875,6 @@ def test_graph_replay_marks_time_each_step(dev):
     try:
         for _ in range(3):
             runner.run(key, chunk)
-            # what the next chunk's pageable copy does before it starts
             torch.cuda.synchronize()
         replays = [s for s in profiling.spans() if s.name == "chunk"]
         before, after = (torch.cuda.Event(enable_timing=True)
@@ -1901,6 +1901,103 @@ def test_graph_replay_marks_time_each_step(dev):
     steps = sum(alone[i + 3] - alone[i] for i in range(0, len(alone), 4))
     print(f"replay {whole:.4f} ms, its 2 steps {steps:.4f} ms")
     assert steps == pytest.approx(whole, rel=MARKS_RTOL)
+    profiling.reset()
+
+
+# the staged batches' bag (the preset's 2,500 patches, a quarter of its
+# 1024 features) and what the card does before the staging: about a second
+# of nothing on the current stream
+STAGED_BAG, STAGED_SLEEP_CYCLES = (4, 2500, 256), 2 * 10 ** 9
+
+
+def _host_batch(rng):
+    def f32(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    b = STAGED_BAG[0]
+    return Batch(x_path10=f32(*STAGED_BAG), x_path20=f32(*STAGED_BAG),
+                 x_omic=f32(b, 431), x_omic_tumor=f32(b, 59),
+                 x_omic_immune=f32(b, 361),
+                 label=rng.integers(0, 4, (b, 12), dtype=np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["overwritten", "replays"])
+def test_batches_staged_to_the_card(dev, case):
+    """``batch_to_tensors`` on the card (pinned memory, its copy stream).
+
+    ``overwritten``: two rounds of 2K (K = 2) distinct batches, each
+    staged while the current stream still sleeps and each host array
+    overwritten right after its call; a round's tensors are stacked on the
+    current stream and dropped before the next round is staged.  Every
+    stack holds the original arrays bit for bit, labels as int64: the
+    second round's copies did not reuse the blocks the first round's
+    stacks, still queued, read.  ``replays``: 20 chunks run back to back
+    through ``ChunkRunner.run`` with tracing on, each staged just before
+    it: no replay is left unresolved, and each ``chunk`` span holds its 4K
+    step marks and the host's ``waited_us``.  In both, every ``h2d``
+    span's ``staged`` is its ``bytes``.  (The staged chunk against the
+    eager steps and the default path:
+    ``test_graph_chunk_matches_the_eager_chunk``, whose chunk is
+    staged.)"""
+    from disentangled_multimodal_learning_tpu_torch.utils import profiling
+
+    fields = ("x_path10", "x_path20", "x_omic_tumor", "x_omic_immune",
+              "x_omic", "label")
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        if case == "overwritten":
+            rng = np.random.default_rng(0)
+            want, stacks = [], []
+            torch.cuda._sleep(STAGED_SLEEP_CYCLES)
+            for _ in range(2):
+                staged = []
+                for _ in range(4):
+                    batch = _host_batch(rng)
+                    want.append({k: getattr(batch, k).copy() for k in fields})
+                    staged.append(batch_to_tensors(batch, dev))
+                    for k in fields:
+                        getattr(batch, k)[...] = -1
+                stacks.append({k: torch.stack([t[k] for t in staged])
+                               for k in fields})
+                del staged
+            torch.cuda.synchronize()
+            got = [{k: s[k][i].cpu() for k in fields}
+                   for s in stacks for i in range(4)]
+            for w, g in zip(want, got):
+                for k in fields:
+                    assert g[k].dtype == (torch.int64 if k == "label"
+                                          else torch.float32), k
+                    assert torch.equal(g[k], torch.from_numpy(w[k]).to(
+                        g[k].dtype)), k
+            n_h2d, n_chunks = 8, 0
+        else:
+            runner, _, _, _, _, key, chunk, _ = _graph_chunk_case(dev)
+            runner.run(key, chunk)  # the capture and its replay
+            torch.cuda.synchronize()
+            profiling.reset()
+            ds = SyntheticBagDataset(size=4, fixdim=64, label_dim=4, seed=0)
+            for c in range(20):
+                runner.run(key, [batch_to_tensors(
+                    ds.batch([2 * ((c + i) % 2), 2 * ((c + i) % 2) + 1]), dev)
+                    for i in range(2)])
+            torch.cuda.synchronize()
+            n_h2d, n_chunks = 40, 20
+    finally:
+        profiling.enable(False)
+    spans = profiling.spans()
+    assert profiling.unresolved() == 0 and profiling.dropped() == 0
+    h2d = [s for s in spans if s.name == "h2d"]
+    chunks = [s for s in spans if s.name == "chunk"]
+    assert len(h2d) == n_h2d and len(chunks) == n_chunks
+    assert all(s.counts["staged"] == s.counts["bytes"] > 0 for s in h2d)
+    for s in chunks:
+        assert [name for name, _ in s.marks] == list(STEP_MARKS) * 2
+        assert s.counts["waited_us"] >= 0
+    if chunks:
+        print(f"host waits before the replays: "
+              f"{[s.counts['waited_us'] for s in chunks]} us")
     profiling.reset()
 
 

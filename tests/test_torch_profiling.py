@@ -173,7 +173,7 @@ def test_h2d_counts_the_host_arrays_bytes(batch):
         model_inputs(batch, CPU, mode)
     got = profiling.spans()
     assert [s.name for s in got] == ["h2d"] * 5
-    assert got[0].counts == {"bytes": want}
+    assert got[0].counts == {"bytes": want, "staged": 0}
     for s, mode in zip(got[1:], ("teacher", "student", "deformpathomic",
                                  "omic")):
         assert s.counts == {"bytes": sum(

@@ -334,6 +334,48 @@ def test_class_weights_follow_the_task_and_external_eval():
     assert task_class_weights(cfg, "survival") is None
 
 
+def test_batch_to_tensors_on_the_cpu_stages_nothing(monkeypatch):
+    """On a CPU device ``batch_to_tensors`` allocates no pinned memory: the
+    float fields are the host arrays themselves (``torch.from_numpy``), the
+    labels an int64 copy, and its ``h2d`` span counts every byte, none of
+    them ``staged``."""
+    from disentangled_multimodal_learning_tpu_torch.utils import profiling
+
+    empty = torch.empty
+
+    def unpinned_empty(*args, pin_memory=False, **kwargs):
+        assert not pin_memory, "pinned memory on the CPU path"
+        return empty(*args, **kwargs)
+
+    def no_pin_memory(self, *args, **kwargs):
+        raise AssertionError("pinned memory on the CPU path")
+
+    monkeypatch.setattr(torch, "empty", unpinned_empty)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", no_pin_memory)
+    batch = SyntheticBagDataset(size=2, fixdim=16, path_dim=8,
+                                seed=0).batch([0, 1])
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        got = batch_to_tensors(batch, "cpu")
+    finally:
+        profiling.enable(False)
+    spans = [(s.name, s.counts) for s in profiling.spans()]
+    profiling.reset()
+    fields = ("x_path10", "x_path20", "x_omic_tumor", "x_omic_immune",
+              "x_omic", "label")
+    assert list(got) == list(fields)
+    for k in fields:
+        a, t = getattr(batch, k), got[k]
+        assert t.device.type == "cpu" and not t.is_pinned(), k
+        assert t.dtype == (torch.int64 if k == "label"
+                           else torch.from_numpy(a).dtype), k
+        assert np.array_equal(t.numpy(), a), k
+        assert np.shares_memory(t.numpy(), a) == (k != "label"), k
+    assert spans == [("h2d", {"bytes": sum(getattr(batch, k).nbytes
+                                           for k in fields), "staged": 0})]
+
+
 def test_training_entry_runs_folds_with_the_eval_cadence(tmp_path):
     """The entry trains each synthetic fold with a fresh model and
     evaluates every ``eval_every_iters`` iterations and at the end; it
