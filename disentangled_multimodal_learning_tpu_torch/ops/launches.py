@@ -5,11 +5,15 @@ kernel, and nowhere else.  A CUDA graph (``train/graph_chunk.py``) runs
 its kernels with no Python: its capture records them, and runs none, so the
 capture's counts are taken back out of ``launches``, and each replay adds
 them to ``launches`` again.
+
+The plain-torch cores of :data:`CORES` are counted by call instead (each
+call launches many of torch's kernels): a core adds one to its ``calls``
+a call, and a graph takes back and adds again its capture's calls alike.
 """
 
 from __future__ import annotations
 
-from . import cpb, cpb1d, dpc_knn, fused_exact, fused_table
+from . import cpb, cpb1d, dpc_knn, fused_exact, fused_table, nystrom
 
 WRAPPERS = {"k1_fwd": cpb.table_interp,
             "k1_bwd": cpb.table_interp_backward,
@@ -29,6 +33,9 @@ WRAPPERS = {"k1_fwd": cpb.table_interp,
             "k7_bwd": fused_exact.fused_exact_attention_backward}
 
 
+CORES = {"nystrom": nystrom.nystrom_attention}
+
+
 def counts() -> dict:
     """Every kernel's launches, eager and replayed."""
     return {k: fn.launches for k, fn in WRAPPERS.items()}
@@ -37,3 +44,10 @@ def counts() -> dict:
 def reset() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in CORES.values():
+        fn.calls = 0
+
+
+def core_calls() -> dict:
+    """Every core's calls, eager and replayed."""
+    return {k: fn.calls for k, fn in CORES.items()}

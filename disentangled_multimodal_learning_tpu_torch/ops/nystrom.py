@@ -7,6 +7,13 @@ Both run in the inputs' dtype (f32 on the card and the CPU; JAX's bf16
 operands are a TPU-only branch, not ported).  On the card the products must
 not run in TF32: the pinv's cubic iteration amplifies their rounding, and
 ``models/factory.py full_f32_matmuls`` pins full f32 before any model runs.
+
+:func:`nystrom_attention` counts its calls (``calls``; a CUDA graph's
+capture takes them back out and each replay adds them again,
+``ops/launches.py CORES``) and records the layer marks
+``nystrom.fwd.start`` / ``nystrom.fwd.end`` around its forward and, inside
+a capture, ``nystrom.bwd.start`` / ``nystrom.bwd.end`` around its backward
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.mesh import global_max
+from ..utils import profiling
 
 
 def moore_penrose_pinv(x: torch.Tensor, iters: int = 6,
@@ -51,6 +59,9 @@ def nystrom_attention(q, k, v, num_landmarks: int, pinv_iterations: int = 6,
     ``(attn1 @ pinv(attn2)) @ (attn3 @ v)``, cropped back to the last N
     tokens (JAX ``nystrom.py:44-50``, ``:88``); ``pinv_group``: the pinv's
     process group (:func:`moore_penrose_pinv`)."""
+    nystrom_attention.calls += 1
+    profiling.device_mark("nystrom.fwd.start", q.device, layer=True)
+    inputs = (q, k, v)
     B, H, N, D = q.shape
     m = num_landmarks
     pad = (m - N % m) % m
@@ -66,4 +77,32 @@ def nystrom_attention(q, k, v, num_landmarks: int, pinv_iterations: int = 6,
     attn3 = torch.softmax(q_land @ k.transpose(-1, -2), dim=-1)       # [m, n]
     out = ((attn1 @ moore_penrose_pinv(attn2, pinv_iterations, pinv_group))
            @ (attn3 @ v))
-    return out[:, :, -N:] if pad else out
+    out = out[:, :, -N:] if pad else out
+    profiling.device_mark("nystrom.fwd.end", q.device, layer=True)
+    if out.requires_grad and profiling.capturing():
+        _mark_backward(out, inputs)
+    return out
+
+
+nystrom_attention.calls = 0
+
+
+def _mark_backward(out, inputs) -> None:
+    """Hooks that mark the core's backward: ``nystrom.bwd.start`` once the
+    cotangent of ``out`` is whole, ``nystrom.bwd.end`` once those of every
+    input that takes one are (the core's last backward op queued)."""
+    device = out.device
+    waiting = [t for t in inputs if t.requires_grad]
+    left = [len(waiting)]
+
+    def start(grad):
+        profiling.device_mark("nystrom.bwd.start", device, layer=True)
+
+    def end(grad):
+        left[0] -= 1
+        if left[0] == 0:
+            profiling.device_mark("nystrom.bwd.end", device, layer=True)
+
+    out.register_hook(start)
+    for t in waiting:
+        t.register_hook(end)

@@ -39,7 +39,9 @@ lr the step reads from the lr buffer.  The runner, not the step, steps the
 schedule, K at a time, so that a checkpoint after a chunk holds the count
 that K single steps leave.  A graph's kernels launch with no Python: its
 capture's launch counts are taken back out of the wrappers' ``launches``
-and added again at each replay (``ops/launches.py``).
+and added again at each replay (``ops/launches.py``), and so are the
+cores' calls (``CORES``), which the replay's ``chunk`` span also counts
+(``<core>_calls``).
 """
 
 from __future__ import annotations
@@ -56,14 +58,15 @@ from .optim import scheduled_lrs, set_learning_rate, set_schedule_count
 
 class _ShapeGraph(NamedTuple):
     """One bag shape's graph of K steps, its static buffers, the launch
-    counts its capture recorded, the device marks it records
-    (``utils/profiling.py``) and the event recorded after its last
+    counts and core calls its capture recorded, the device marks it
+    records (``utils/profiling.py``) and the event recorded after its last
     replay."""
     graph: torch.cuda.CUDAGraph
     inputs: dict
     lr: torch.Tensor
     outputs: list
     captured: dict
+    core_calls: dict
     marks: list
     done: torch.cuda.Event
 
@@ -103,7 +106,8 @@ class ChunkRunner:
         waited_us = (time.perf_counter_ns() - t0) // 1000
         # the replay's span takes its step marks; the last replay's, done
         # now, are read back before this one records them again
-        with profiling.span("chunk", waited_us=waited_us) as s:
+        with profiling.span("chunk", waited_us=waited_us, **{
+                f"{name}_calls": n for name, n in g.core_calls.items()}) as s:
             profiling.resolve(g.graph)
             g.graph.replay()
             g.done.record()
@@ -111,6 +115,8 @@ class ChunkRunner:
         self.replays += 1
         for name, n in g.captured.items():
             launches.WRAPPERS[name].launches += n
+        for name, n in g.core_calls.items():
+            launches.CORES[name].calls += n
         set_schedule_count(self.scheduler, self.optimizer,
                            self.scheduler.last_epoch + self.k)
         return [{name: v.clone() for name, v in m.items()} for m in g.outputs]
@@ -120,7 +126,8 @@ class ChunkRunner:
                   for name in chunk[0]}
         device = self.optimizer.param_groups[0]["params"][0].device
         lr = torch.zeros(self.k, device=device)
-        before = {name: fn.launches for name, fn in launches.WRAPPERS.items()}
+        before = launches.counts()
+        calls_before = launches.core_calls()
         graph = torch.cuda.CUDAGraph()
         outputs = []
         with profiling.capturing_marks() as marks, torch.cuda.graph(graph):
@@ -128,11 +135,16 @@ class ChunkRunner:
                 set_learning_rate(self.optimizer, lr[i])
                 outputs.append(self.step(
                     {name: buf[i] for name, buf in inputs.items()}))
-        captured = {}
+        captured, core_calls = {}, {}
         for name, fn in launches.WRAPPERS.items():
             n = fn.launches - before[name]
             if n:
                 fn.launches -= n  # recorded into the graph, not run
                 captured[name] = n
-        return _ShapeGraph(graph, inputs, lr, outputs, captured, marks,
-                           torch.cuda.Event())
+        for name, fn in launches.CORES.items():
+            n = fn.calls - calls_before[name]
+            if n:
+                fn.calls -= n
+                core_calls[name] = n
+        return _ShapeGraph(graph, inputs, lr, outputs, captured, core_calls,
+                           marks, torch.cuda.Event())

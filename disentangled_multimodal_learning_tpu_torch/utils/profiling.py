@@ -35,6 +35,13 @@ The recorder (JAX has none):
   :func:`spans`, and before a graph's next replay re-records its events
   (:func:`resolve`), where a replay not yet finished is counted by
   :func:`unresolved` and left out.
+- ``device_mark(name, device, layer=True)`` records a layer's mark by the
+  same rules, kept apart from the step marks: it reads back into
+  ``Span.layer_marks``, on the clock of ``Span.marks`` (ms after the
+  span's first step mark, or after its first layer mark where it has no
+  step mark), so that a run of step marks stays unbroken.  A capture
+  keeps it from any thread, the autograd engine's too; elsewhere it needs
+  an open span in the thread that records it.
 
 Where each span and mark is recorded: ``h2d`` around the copies of a
 batch to the card (``train/steps.py batch_to_tensors``,
@@ -50,7 +57,14 @@ zero fills) and ``step.end`` (``train/steps.py``); ``eval_batch`` around
 the set-up spans ``setup.kernels`` (the kernel library's first load, count
 ``built``: 1 where ``nvcc`` ran), ``setup.optimizer`` (``make_optimizer``,
 where the first optimizer imports ``torch._dynamo``) and ``setup.capture``
-(a graph's capture).
+(a graph's capture).  The layer marks of the Nystrom core
+(``ops/nystrom.py nystrom_attention``): ``nystrom.fwd.start`` and
+``nystrom.fwd.end`` around each call's forward, ``nystrom.bwd.start`` and
+``nystrom.bwd.end`` around its backward (from autograd hooks on its output
+and its inputs, made only inside a capture: eager, the autograd engine
+runs them on a thread where no span is open); a ``chunk`` span's count
+``nystrom_calls`` is the core calls its replay adds
+(``ops/launches.py CORES``).
 """
 
 from __future__ import annotations
@@ -72,15 +86,25 @@ class Span:
     """One recorded span (see the module docstring): ``parent`` is the
     index in :func:`spans` of the span open when it began (-1: none);
     ``marks`` its device marks, ``[(name, ms after the first)]``, once read
-    back."""
+    back, and ``layer_marks`` its layers' marks on the same clock."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "counts", "marks",
-                 "_events")
+                 "layer_marks", "_events")
 
     def __init__(self, name, start_ns, parent, counts):
         self.name, self.start_ns, self.end_ns = name, start_ns, start_ns
         self.parent, self.counts, self.marks = parent, counts, []
+        self.layer_marks = []
         self._events = None
+
+
+class Marks(list):
+    """Recorded step marks ``[(name, event)]``, and apart from them, in
+    ``layer``, the layers' marks."""
+
+    def __init__(self):
+        super().__init__()
+        self.layer = []
 
 
 _buffer: list = []
@@ -90,11 +114,12 @@ _local = threading.local()
 _enabled = False
 _dropped = 0
 _unresolved = 0
-# (span, [(mark name, event)], owner): marks not read back yet; ``owner``
-# is the graph that re-records the events (None: eager events, used once)
+# (span, [(mark name, event)], its layer marks alike, owner): marks not
+# read back yet; ``owner`` is the graph that re-records the events (None:
+# eager events, used once)
 _pending: list = []
 # the marks of the capture in progress, or None
-_capture: list | None = None
+_capture: Marks | None = None
 
 
 def enable(on: bool = True) -> None:
@@ -156,7 +181,7 @@ class span:
             self._rf.__exit__(*exc)
         rec.end_ns = time.time_ns()
         _stack().pop()
-        if rec._events:
+        if rec._events is not None:
             attach(rec, rec._events)
             rec._events = None
         return False
@@ -166,15 +191,16 @@ def _event():
     return torch.cuda.Event(enable_timing=True, external=True)
 
 
-def device_mark(name: str, device) -> None:
+def device_mark(name: str, device, layer: bool = False) -> None:
     """A timed CUDA event named ``name`` on the current stream: recorded
     into the graph during a capture (:func:`capturing_marks`), else while
     tracing is on, where ``device`` is a card, under the innermost open
-    span."""
+    span; ``layer``: a layer's mark, kept apart from the step marks."""
     if _capture is not None:
         ev = _event()
         ev.record()
-        _capture.append((name, ev))
+        with _lock:
+            (_capture.layer if layer else _capture).append((name, ev))
         return
     if not tracing() or torch.device(device).type != "cuda":
         return
@@ -185,17 +211,21 @@ def device_mark(name: str, device) -> None:
     ev = _event()
     ev.record()
     if rec._events is None:
-        rec._events = []
-    rec._events.append((name, ev))
+        rec._events = Marks()
+    (rec._events.layer if layer else rec._events).append((name, ev))
+
+
+def capturing() -> bool:
+    """Whether a CUDA graph's capture is collecting marks now."""
+    return _capture is not None
 
 
 @contextlib.contextmanager
 def capturing_marks():
     """Collect the marks recorded into a CUDA graph's capture; yields their
-    list ``[(name, event)]``, which :func:`attach` gives to each replay's
-    span."""
+    :class:`Marks`, which :func:`attach` gives to each replay's span."""
     global _capture
-    _capture = marks = []
+    _capture = marks = Marks()
     try:
         yield marks
     finally:
@@ -204,13 +234,15 @@ def capturing_marks():
 
 def attach(rec, events, owner=None) -> None:
     """Give the span ``rec`` (None: nothing records) the recorded
-    ``events``, to be read back once they have completed; ``owner``: the
-    graph whose next replay records them again."""
-    if rec is None or not events:
+    ``events`` (with the layer marks of a :class:`Marks`), to be read back
+    once they have completed; ``owner``: the graph whose next replay
+    records them again."""
+    layer = list(getattr(events, "layer", ()))
+    if rec is None or not (events or layer):
         return
     with _lock:
         resolve()
-        _pending.append((rec, list(events), owner))
+        _pending.append((rec, list(events), layer, owner))
 
 
 def resolve(owner=None) -> None:
@@ -222,14 +254,16 @@ def resolve(owner=None) -> None:
         return
     with _lock:
         keep = []
-        for rec, events, who in _pending:
-            if all(ev.query() for _, ev in events):
-                first = events[0][1]
+        for rec, events, layer, who in _pending:
+            if all(ev.query() for _, ev in events + layer):
+                first = (events or layer)[0][1]
                 rec.marks = [(n, first.elapsed_time(ev)) for n, ev in events]
+                rec.layer_marks = [(n, first.elapsed_time(ev))
+                                   for n, ev in layer]
             elif owner is not None and who is owner:
                 _unresolved += 1
             else:
-                keep.append((rec, events, who))
+                keep.append((rec, events, layer, who))
         _pending[:] = keep
 
 

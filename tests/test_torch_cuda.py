@@ -1654,19 +1654,19 @@ def test_fused_kernel_reads_its_seed_from_the_card(dev):
     assert seeds[0] != seeds[1] and not torch.equal(*masks)
 
 
-def _graph_chunk_case(dev, **kw):
-    """A small teacher (fixdim 64, B 2, divisor 1) on the card with the
-    capturable optimizer, as ``run_training`` trains at ``scan_steps`` 2:
-    the warm-up chunk run as single steps, then a runner of chunks of 2
-    steps as graphs: ``(runner, step, model, optimizer, scheduler, key,
-    chunk, cfg)``, ``step`` the single step (the schedule stepped after
-    it)."""
+def _graph_chunk_case(dev, mode="teacher", **kw):
+    """A small teacher (fixdim 64, B 2, divisor 1; or another ``mode``) on
+    the card with the capturable optimizer, as ``run_training`` trains at
+    ``scan_steps`` 2: the warm-up chunk run as single steps, then a runner
+    of chunks of 2 steps as graphs: ``(runner, step, model, optimizer,
+    scheduler, key, chunk, cfg)``, ``step`` the single step (the schedule
+    stepped after it)."""
     from disentangled_multimodal_learning_tpu_torch.train.graph_chunk import (
         ChunkRunner)
     from disentangled_multimodal_learning_tpu_torch.train.trainers import (
         make_step)
 
-    cfg = Config(mode="teacher", fixdim=64, batch_size=2, cpb_table_divisor=1,
+    cfg = Config(mode=mode, fixdim=64, batch_size=2, cpb_table_divisor=1,
                  **kw).validate()
     ds = SyntheticBagDataset(size=4, fixdim=64, label_dim=4, seed=0)
     chunk = [batch_to_tensors(ds.batch([2 * i, 2 * i + 1]), dev)
@@ -1901,6 +1901,59 @@ def test_graph_replay_marks_time_each_step(dev):
     steps = sum(alone[i + 3] - alone[i] for i in range(0, len(alone), 4))
     print(f"replay {whole:.4f} ms, its 2 steps {steps:.4f} ms")
     assert steps == pytest.approx(whole, rel=MARKS_RTOL)
+    profiling.reset()
+
+
+# the Nystrom cores' layer marks in a TransMIL step of the capture: each
+# layer's forward, then each layer's backward, the last layer's first
+CORE_MARKS = (["nystrom.fwd.start", "nystrom.fwd.end"] * 2
+              + ["nystrom.bwd.start", "nystrom.bwd.end"] * 2)
+
+
+@pytest.mark.cuda
+def test_graph_replay_marks_the_nystrom_cores(dev):
+    """A TransMIL chunk of 2 steps captured into a graph: the capture keeps
+    each step's 4 step marks in one unbroken run and the cores' layer marks
+    apart (those of the backward made on the autograd engine's thread);
+    each traced replay's marks resolve, its step marks form the runs that
+    ``bench_port/spans.py mark_steps`` matches, the cores' marked ms of
+    each update lie within its forward plus backward, and each replay
+    adds the capture's 4 core calls (2 layers a step) to the count and
+    to its ``chunk`` span."""
+    from bench_port import cores, spans
+    from disentangled_multimodal_learning_tpu_torch.ops import launches
+    from disentangled_multimodal_learning_tpu_torch.utils import profiling
+
+    runner, _, _, _, _, key, chunk, _ = _graph_chunk_case(dev, "transmil")
+    profiling.enable(False)
+    profiling.reset()
+    calls = launches.core_calls()["nystrom"]
+    runner.run(key, chunk)  # the capture and its replay
+    torch.cuda.synchronize()
+    g = runner.graphs[key]
+    assert g.core_calls == {"nystrom": 4} and g.captured == {}
+    assert launches.core_calls()["nystrom"] == calls + 4
+    assert [name for name, _ in g.marks] == list(STEP_MARKS) * 2
+    assert [name for name, _ in g.marks.layer] == CORE_MARKS * 2
+    profiling.enable(True)
+    try:
+        for _ in range(3):
+            runner.run(key, chunk)
+        torch.cuda.synchronize()
+        replays = [s for s in profiling.spans() if s.name == "chunk"]
+    finally:
+        profiling.enable(False)
+    assert launches.core_calls()["nystrom"] == calls + 16
+    assert len(replays) == 3
+    assert profiling.unresolved() == 0 and profiling.dropped() == 0
+    for s in replays:
+        assert s.counts["nystrom_calls"] == 4
+        steps = spans.mark_steps([s], spans.STEP_MARKS)
+        assert len(steps) == 2
+        assert [name for name, _ in s.layer_marks] == CORE_MARKS * 2
+        per_update = cores.update_ms(s)
+        for (fwd, bwd, _), core in zip(steps, per_update):
+            assert 0 < core <= fwd + bwd, (core, fwd, bwd)
     profiling.reset()
 
 

@@ -256,6 +256,36 @@ def test_marks_read_back_when_done_and_unresolved_before_a_replay():
     assert profiling._pending == []
 
 
+def test_layer_marks_read_back_apart_from_the_step_marks():
+    """A layer's marks (a capture's ``Marks.layer``) read back into
+    ``layer_marks`` on the clock of the span's step marks, and leave the
+    run of step marks unbroken; a span with layer marks alone reads them
+    after its first."""
+    profiling.enable(True)
+    graph = object()
+    with profiling.span("chunk") as chunk:
+        pass
+    with profiling.span("eval_batch") as eager:
+        pass
+    marks = profiling.Marks()
+    marks += [("step.start", _Event(2.0)), ("step.loss", _Event(9.0))]
+    marks.layer += [("nystrom.fwd.start", _Event(3.0)),
+                    ("nystrom.fwd.end", _Event(5.5))]
+    profiling.attach(chunk, marks, graph)
+    alone = profiling.Marks()
+    alone.layer += [("nystrom.fwd.start", _Event(1.0)),
+                    ("nystrom.fwd.end", _Event(1.25))]
+    profiling.attach(eager, alone)
+    profiling.spans()
+    assert chunk.marks == [("step.start", 0.0), ("step.loss", 7.0)]
+    assert chunk.layer_marks == [("nystrom.fwd.start", 1.0),
+                                 ("nystrom.fwd.end", 3.5)]
+    assert eager.marks == []
+    assert eager.layer_marks == [("nystrom.fwd.start", 0.0),
+                                 ("nystrom.fwd.end", 0.25)]
+    assert profiling._pending == [] and not profiling.capturing()
+
+
 def test_eager_marks_need_a_card_and_an_open_span():
     profiling.enable(True)
     profiling.device_mark("step.start", CPU)  # no span open
