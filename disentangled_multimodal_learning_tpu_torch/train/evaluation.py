@@ -31,7 +31,7 @@ from ..data.contract import LabelCol
 from ..models.deform_attention import DeformCrossAttention2D, attn_kv_axis
 from ..utils import profiling
 from .metrics import cindex, compute_avg_metrics
-from .steps import MODEL_INPUTS
+from .steps import MODEL_INPUTS, arrays_to_device
 
 METRIC_NAMES = ("acc", "f1", "auc", "bac", "sens", "spec", "prec")
 # the logits tags evaluated per model type (JAX distill_val :81-86; the
@@ -85,17 +85,10 @@ def headline_metrics(tags, survival: bool, result: dict) -> dict:
 
 def model_inputs(batch, device, mode: str) -> dict:
     """Host batch -> the forward kwargs of ``mode``'s model on ``device``,
-    the copies inside an ``h2d`` span that counts their host ``bytes``
-    (``utils/profiling.py``)."""
-    fields = MODEL_INPUTS[mode]
-    with profiling.span("h2d") as s:
-        out = {arg: torch.from_numpy(np.ascontiguousarray(
-            getattr(batch, key))).to(device, non_blocking=True)
-            for arg, key in fields.items()}
-        if s is not None:
-            s.counts["bytes"] = sum(getattr(batch, key).nbytes
-                                    for key in fields.values())
-    return out
+    by ``steps.arrays_to_device`` (on a card, staged through pinned
+    memory)."""
+    return arrays_to_device({arg: getattr(batch, key) for arg, key
+                             in MODEL_INPUTS[mode].items()}, {}, device)
 
 
 def export_dir(cfg) -> str:

@@ -101,19 +101,24 @@ BOUNDARY_KEYS = ("tea_lt10", "tea_lt20", "tea_ft10", "tea_ft20")
 
 def batch_to_tensors(batch, device) -> dict:
     """Host batch -> the step's tensors on ``device`` (labels as int64),
-    the copies inside an ``h2d`` span that counts their host ``bytes`` and,
-    of those, the bytes ``staged`` through pinned memory
-    (``utils/profiling.py``).
+    by :func:`arrays_to_device`."""
+    return arrays_to_device(
+        {k: getattr(batch, k) for k in tuple(_TEACHER_INPUTS)
+         + ("x_omic", "label")}, {"label": torch.int64}, device)
 
-    On a card the batch is staged (:func:`_stage`), so that its copy runs
-    beside the work already queued on the card, such as the previous
+
+def arrays_to_device(arrays: dict, dtypes: dict, device) -> dict:
+    """Host arrays -> tensors on ``device``, each converted to its
+    ``dtypes`` entry where it has one, the copies inside an ``h2d`` span
+    that counts their host ``bytes`` and, of those, the bytes ``staged``
+    through pinned memory (``utils/profiling.py``).
+
+    On a card the arrays are staged (:func:`_stage`), so that their copy
+    runs beside the work already queued on the card, such as the previous
     chunk's graph replay, and the caller may overwrite its arrays as soon
-    as the call returns.  On the CPU the float fields are the host arrays
-    themselves."""
+    as the call returns.  On the CPU the arrays that need no conversion
+    are the tensors themselves."""
     device = torch.device(device)
-    arrays = {k: getattr(batch, k) for k in tuple(_TEACHER_INPUTS)
-              + ("x_omic", "label")}
-    dtypes = {"label": torch.int64}
     with profiling.span("h2d") as s:
         if device.type == "cuda":
             out = _stage(arrays, dtypes, device)
@@ -130,36 +135,64 @@ def batch_to_tensors(batch, device) -> dict:
 
 # the copy stream of each card, by device index
 _copy_streams: dict = {}
+# The least bytes a bag takes for its field to be staged a bag a slice,
+# so that the card copies one bag while the host fills the next.  Each
+# slice adds a pinned block and two copies for the host to issue; a 4 MiB
+# slice takes ~90 us to copy at the pinned rate (~45 GB/s) and longer to
+# fill, which keeps that cost small.  The preset's bags (2,500 x 1,024
+# f32, 10.2 MB) are sliced; the omic vectors and the labels (under 2 KB a
+# bag) are not.
+SLICE_MIN_BYTES = 1 << 22
+
+
+def _slices(a) -> list:
+    """The slices of a host array that :func:`_stage` fills and copies
+    one after the other: one a bag where the array has more than one bag
+    of at least ``SLICE_MIN_BYTES``, else the whole array."""
+    if a.ndim and len(a) > 1 and a.nbytes // len(a) >= SLICE_MIN_BYTES:
+        return list(range(len(a)))
+    return [...]
+
+
+def _copy_stream(device) -> torch.cuda.Stream:
+    """The copy stream of the card ``device`` (an indexed device)."""
+    copy = _copy_streams.get(device.index)
+    if copy is None:
+        copy = _copy_streams[device.index] = torch.cuda.Stream(device)
+    return copy
 
 
 def _stage(arrays: dict, dtypes: dict, device) -> dict:
     """Host arrays -> tensors on the card ``device``, through pinned memory
     on the card's copy stream.
 
-    Each array is filled, converted to its ``dtypes`` entry where it has
-    one, into a pinned block of the caching host allocator before the call
-    returns, and its copy queued on the copy stream, which never waits for
-    the current stream.  The current stream waits for the copies on the
-    card, not on the host, so whatever reads the tensors there is ordered
-    after them.  The tensors are allocated on the copy stream and recorded
-    on the current one: their blocks go back to the copy stream only after
-    the current stream has passed the work queued when they are freed (a
-    chunk's stack).  The copy recorded an event on each pinned block, which
-    the host allocator hands out again only once the copy has completed."""
+    Each slice of each array (:func:`_slices`) is filled, converted to its
+    ``dtypes`` entry where it has one, into a pinned block of the caching
+    host allocator before the call returns, and its copy queued on the
+    copy stream, which never waits for the current stream: the card copies
+    a slice while the host fills the next.  The current stream waits for
+    the copies on the card, not on the host, so whatever reads the tensors
+    there is ordered after them.  The tensors are allocated on the copy
+    stream and recorded on the current one: their blocks go back to the
+    copy stream only after the current stream has passed the work queued
+    when they are freed (a chunk's stack).  The copy recorded an event on
+    each pinned block, which the host allocator hands out again only once
+    the copy has completed."""
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    copy = _copy_streams.get(device.index)
-    if copy is None:
-        copy = _copy_streams[device.index] = torch.cuda.Stream(device)
+    copy = _copy_stream(device)
     current = torch.cuda.current_stream(device)
     out = {}
     with torch.cuda.stream(copy):
         for k, a in arrays.items():
             src = torch.from_numpy(np.ascontiguousarray(a))
-            host = torch.empty(src.shape, dtype=dtypes.get(k, src.dtype),
-                               pin_memory=True)
-            host.copy_(src)
-            t = out[k] = host.to(device, non_blocking=True)
+            t = out[k] = torch.empty(
+                src.shape, dtype=dtypes.get(k, src.dtype), device=device)
+            for i in _slices(src):
+                host = torch.empty(src[i].shape, dtype=t.dtype,
+                                   pin_memory=True)
+                host.copy_(src[i])
+                t[i].copy_(host, non_blocking=True)
             t.record_stream(current)
         done = torch.cuda.Event()
         done.record(copy)

@@ -44,10 +44,10 @@ The recorder (JAX has none):
   an open span in the thread that records it.
 
 Where each span and mark is recorded: ``h2d`` around the copies of a
-batch to the card (``train/steps.py batch_to_tensors``,
-``train/evaluation.py model_inputs``; count ``bytes``, the host arrays'
-``nbytes``, and in ``batch_to_tensors`` ``staged``, the bytes that went
-through pinned memory: all of them on a card, 0 on the CPU); ``chunk``
+batch to the card (``train/steps.py arrays_to_device``, through which
+``batch_to_tensors`` and ``train/evaluation.py model_inputs`` copy; count
+``bytes``, the host arrays' ``nbytes``, and ``staged``, the bytes that
+went through pinned memory: all of them on a card, 0 on the CPU); ``chunk``
 around a ``scan_steps`` chunk's graph replay (``train/graph_chunk.py``;
 count ``waited_us``, the host's wait before it for the graph's last
 replay), whose marks are each step's ``step.start``, ``step.loss`` (the loss ready,

@@ -1963,12 +1963,12 @@ def test_graph_replay_marks_the_nystrom_cores(dev):
 STAGED_BAG, STAGED_SLEEP_CYCLES = (4, 2500, 256), 2 * 10 ** 9
 
 
-def _host_batch(rng):
+def _host_batch(rng, bag=STAGED_BAG):
     def f32(*shape):
         return rng.standard_normal(shape, dtype=np.float32)
 
-    b = STAGED_BAG[0]
-    return Batch(x_path10=f32(*STAGED_BAG), x_path20=f32(*STAGED_BAG),
+    b = bag[0]
+    return Batch(x_path10=f32(*bag), x_path20=f32(*bag),
                  x_omic=f32(b, 431), x_omic_tumor=f32(b, 59),
                  x_omic_immune=f32(b, 361),
                  label=rng.integers(0, 4, (b, 12), dtype=np.int32))
@@ -2054,6 +2054,100 @@ def test_batches_staged_to_the_card(dev, case):
     profiling.reset()
 
 
+# an eval batch of 4 of the preset's bags (2,500 patches of 1,024
+# features): each bag's field is 10.2 MB, so staging copies it a bag a
+# slice
+EVAL_BAG = (4, 2500, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["teacher", "student", "deformpathomic",
+                                  "transmil", "omic"])
+def test_model_inputs_staged_to_the_card(dev, mode):
+    """``model_inputs`` on the card, for each distinct field set of
+    ``MODEL_INPUTS``: two rounds staged while the copy stream sleeps behind
+    a kernel, each host array overwritten right after its call.  Every
+    tensor holds its original array bit for bit: the fills completed
+    before the call returned, and the second round's did not reuse the
+    pinned blocks that the first round's copies, still queued, read.
+    Each ``h2d`` span's ``staged`` is its ``bytes``.  Under the profiler
+    every host-to-device copy is pinned, a field of 4 bags is copied in
+    4 slices and every other field in one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from disentangled_multimodal_learning_tpu_torch.train import steps
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        model_inputs)
+    from disentangled_multimodal_learning_tpu_torch.utils import profiling
+
+    fields = steps.MODEL_INPUTS[mode]
+    rng = np.random.default_rng(1)
+    want, got = [], []
+    copy = steps._copy_stream(
+        torch.device("cuda", torch.cuda.current_device()))
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.stream(copy):
+                torch.cuda._sleep(STAGED_SLEEP_CYCLES)
+            for _ in range(2):
+                batch = _host_batch(rng, EVAL_BAG)
+                want.append({k: getattr(batch, k).copy()
+                             for k in fields.values()})
+                got.append(model_inputs(batch, dev, mode))
+                for k in fields.values():
+                    getattr(batch, k)[...] = -1
+            torch.cuda.synchronize()
+    finally:
+        profiling.enable(False)
+    for w, g in zip(want, got):
+        assert sorted(g) == sorted(fields)
+        for arg, key in fields.items():
+            assert g[arg].device.type == "cuda", arg
+            assert torch.equal(g[arg].cpu(), torch.from_numpy(w[key])), arg
+    h2d = [s for s in profiling.spans() if s.name == "h2d"]
+    assert len(h2d) == 2
+    assert all(s.counts["staged"] == s.counts["bytes"] == sum(
+        w[k].nbytes for k in fields.values()) > 0 for s in h2d)
+    copies = [e.name() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and e.name().startswith("Memcpy HtoD")]
+    assert all("Pinned" in name for name in copies), set(copies)
+    assert len(copies) == 2 * sum(EVAL_BAG[0] if w[k].ndim == 3 else 1
+                                  for k in fields.values())
+    profiling.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["teacher", "student"])
+def test_evaluator_step_matches_a_plain_copy(dev, mode):
+    """``Evaluator.step`` of the teacher and the student on a batch of 4
+    of the preset's bags (staged a bag a slice) returns logits bitwise
+    equal to the same model's forward on inputs copied by a plain
+    ``.to(device)``."""
+    from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
+        Evaluator)
+    from disentangled_multimodal_learning_tpu_torch.train.steps import (
+        MODEL_INPUTS)
+
+    cfg = Config(mode=mode, fixdim=EVAL_BAG[1], batch_size=EVAL_BAG[0],
+                 cpb_table_divisor=1).validate()
+    model = define_net(cfg, dev).eval()
+    batch = SyntheticBagDataset(size=EVAL_BAG[0], fixdim=EVAL_BAG[1],
+                                label_dim=4, seed=0).batch(
+        list(range(EVAL_BAG[0])))
+    got = Evaluator(model, cfg, dev, mode).step(batch)
+    with torch.inference_mode():
+        out = model(**{arg: torch.from_numpy(getattr(batch, key)).to(dev)
+                       for arg, key in MODEL_INPUTS[mode].items()})
+    want = {k: v.float().cpu().numpy() for k, v in out[2].items()}
+    assert sorted(got) == sorted(want) and len(want) == 3
+    for k, v in want.items():
+        assert np.array_equal(got[k], v), k
+
+
 @pytest.mark.cuda
 def test_eval_forward_marks_read_inside_the_batch(dev):
     """With tracing on, ``Evaluator.step`` records an ``eval_batch`` span,
@@ -2083,6 +2177,7 @@ def test_eval_forward_marks_read_inside_the_batch(dev):
     got = profiling.spans()
     assert [(s.name, s.parent) for s in got] == [("eval_batch", -1),
                                                   ("h2d", 0)]
+    assert got[1].counts["staged"] == got[1].counts["bytes"] > 0
     marks = dict(got[0].marks)
     forward = marks["forward.end"] - marks["forward.start"]
     print(f"forward {forward:.4f} ms of a {wall_ms:.4f} ms batch")

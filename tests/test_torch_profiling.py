@@ -1,7 +1,8 @@
 """The port's span recorder (``utils/profiling.py``) on the CPU: when spans
 record, their parents, the bounded buffer, the clock shared with the
 profiler's events, the ``h2d`` byte counts of ``batch_to_tensors`` and
-``model_inputs``, the set-up spans, and the read-back of device marks
+``model_inputs`` and their CPU tensors, the slices the card's staging
+copies, the set-up spans, and the read-back of device marks
 (with stand-ins for CUDA events: the card's own marks are checked in
 ``tests/test_torch_cuda.py``)."""
 
@@ -18,6 +19,7 @@ from disentangled_multimodal_learning_tpu_torch.data.synthetic import (
 from disentangled_multimodal_learning_tpu_torch.ops import build
 from disentangled_multimodal_learning_tpu_torch.train.evaluation import (
     model_inputs)
+from disentangled_multimodal_learning_tpu_torch.train import steps
 from disentangled_multimodal_learning_tpu_torch.train.optim import (
     make_optimizer)
 from disentangled_multimodal_learning_tpu_torch.train.steps import (
@@ -178,8 +180,47 @@ def test_h2d_counts_the_host_arrays_bytes(batch):
                                  "omic")):
         assert s.counts == {"bytes": sum(
             getattr(batch, key).nbytes
-            for key in MODEL_INPUTS[mode].values())}, mode
+            for key in MODEL_INPUTS[mode].values()), "staged": 0}, mode
     assert got[2].counts["bytes"] == batch.x_path10.nbytes * 2
+
+
+@pytest.mark.parametrize("mode", ["teacher", "student", "deformpathomic",
+                                  "transmil", "omic"])
+def test_cpu_inputs_are_the_host_arrays(batch, mode):
+    """On the CPU nothing is staged: each forward input is its host array
+    itself, and of the step's tensors every field but the int64 labels."""
+    got = model_inputs(batch, CPU, mode)
+    for arg, key in MODEL_INPUTS[mode].items():
+        assert np.shares_memory(got[arg].numpy(), getattr(batch, key)), arg
+    step = batch_to_tensors(batch, CPU)
+    for key, t in step.items():
+        assert np.shares_memory(t.numpy(), getattr(batch, key)) == (
+            key != "label"), key
+    assert step["label"].dtype == torch.int64
+
+
+# (shape, dtype) -> the slices the card's staging fills and copies: a bag
+# a slice for a field of several bags of at least 4 MiB (the preset's
+# 2,500 x 1,024 f32 bags), the whole field otherwise
+SLICES_CASES = [
+    ((16, 2500, 1024), np.float32, list(range(16))),
+    ((4, 1600, 1024), np.float32, list(range(4))),
+    ((1, 2500, 1024), np.float32, [...]),
+    ((16, 1000, 1024), np.float32, [...]),
+    ((4096, 431), np.float32, [...]),
+    ((16, 12), np.int32, [...]),
+    ((), np.float32, [...]),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,want", SLICES_CASES)
+def test_staging_slices_follow_the_bag_size(shape, dtype, want):
+    """``_slices`` of the host array and of its tensor (zero-stride
+    stand-ins of the full size)."""
+    a = np.broadcast_to(np.zeros((), dtype), shape)
+    assert steps._slices(a) == want
+    assert steps._slices(torch.from_numpy(np.zeros((), dtype)).expand(
+        shape)) == want
 
 
 def test_setup_spans_record_with_tracing_off(monkeypatch, tmp_path):
